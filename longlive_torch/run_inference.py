@@ -1,0 +1,120 @@
+"""Single-prompt generation CLI.
+
+Usage:  python -m longlive_torch.run_inference --config_path configs/longlive_inference.yaml
+
+Runs on the GPU (``--device cuda``, the default); ``--device cpu`` runs the
+plain PyTorch paths.  Without checkpoints the DiT and VAE are randomly
+initialised and, without T5 assets, the prompt embedding is random.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import os
+import sys
+import time
+
+import torch
+
+from .config import LatentGeometry, load_pipeline_config
+from .models import vae as V
+from .pipeline import CausalInferencePipeline
+from .utils import loading
+from .utils.dataset import TextDataset, shard
+from .utils.device import resolve_device
+from .utils.video_io import to_video_array, write_video
+
+
+def main(argv=None):
+    """Returns one record per written video: {"path", "latents", "pixels",
+    "decode_s"}."""
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--config_path", required=True)
+    ap.add_argument("--use_ema", action="store_true")
+    ap.add_argument("--max_prompts", type=int, default=None)
+    ap.add_argument("--num_output_frames", type=int, default=None)
+    ap.add_argument("--sp", type=int, default=1,
+                    help="sequence-parallel degree for the DiT")
+    ap.add_argument("--decode_device", type=int, default=None,
+                    help="device index for a pipelined VAE stream")
+    ap.add_argument("--segment_frames", type=int, default=12,
+                    help="latent frames per pipelined segment")
+    ap.add_argument("--per_stream_decode", action="store_true",
+                    help="batched serving: decode each stream separately")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device to run on (default cuda)")
+    args = ap.parse_args(argv)
+
+    try:  # before any parameter is built
+        device = resolve_device(args.device)
+    except RuntimeError as e:
+        sys.exit(f"error: {e}")
+    if args.sp > 1:
+        raise NotImplementedError("--sp > 1 is not ported yet: ROADMAP queue 1, item 14")
+    if args.decode_device is not None:
+        raise NotImplementedError("--decode_device is not ported yet: ROADMAP queue 1, item 14")
+
+    config = load_pipeline_config(args.config_path)
+    if args.num_output_frames:
+        config = dataclasses.replace(config, num_output_frames=args.num_output_frames)
+    cfg = config.dit_config()
+    geom = LatentGeometry()
+    dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
+
+    use_ema = args.use_ema or config.use_ema
+    params = loading.load_dit_params(config, cfg, dtype, device, use_ema=use_ema)
+    vae_params, vcfg = loading.load_vae_params(config, dtype, device)
+    text_encoder = loading.load_text_encoder(config)
+
+    pipe = CausalInferencePipeline(config, params, geometry=geom, dit_config=cfg,
+                                   device=device)
+
+    if config.data_path and os.path.exists(config.data_path) and text_encoder:
+        rows = shard(TextDataset(config.data_path), 0, 1)
+    else:
+        rows = [{"prompts": "(random prompt embedding)", "idx": 0}]
+    if args.max_prompts:
+        rows = rows[: args.max_prompts]
+    if config.inference_iter != -1:
+        rows = rows[: config.inference_iter + 1]
+
+    gen = torch.Generator(device=device).manual_seed(config.seed)
+    conds = [torch.randn((1, cfg.text_len, cfg.text_dim), generator=gen, device=device)
+             for _ in rows]
+
+    out_dir = config.output_folder or "videos/long"
+    model_type = "lora" if config.lora_ckpt else "ema" if use_ema else "regular"
+    ns = max(1, config.num_samples)
+    results = []
+    for row, cond in zip(rows, conds):
+        cross = pipe.prepare_condition(cond.repeat(ns, 1, 1) if ns > 1 else cond)
+        noise = torch.randn((ns, config.num_output_frames, geom.channels, geom.height,
+                             geom.width), generator=gen, device=device)
+        latents = pipe.generate_latents(noise, cross, generator=gen, profile=config.profile)
+        t0 = time.perf_counter()
+        pixels = torch.cat([V.vae_decode_scan(vae_params, vcfg,
+                                              latents[i:i + 1].to(dtype))[0]
+                            for i in range(ns)], dim=0)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        decode_s = time.perf_counter() - t0
+        if config.profile:
+            print(f"[profile] vae decode {decode_s / latents.shape[1] * 1e3:.2f} "
+                  f"ms/latent-frame ({latents.shape[1]} latent frames)")
+        for seed_idx in range(ns):
+            if config.save_with_index:
+                name = f"rank0-{row['idx']}-{seed_idx}_{model_type}.mp4"
+            else:
+                stem = row["prompts"][:100].replace(os.sep, "_")
+                name = f"rank0-{stem}-{seed_idx}.mp4"
+            path = write_video(os.path.join(out_dir, name),
+                               to_video_array(pixels[seed_idx:seed_idx + 1]), fps=16)
+            print(f"wrote {path}")
+            results.append({"path": path, "latents": latents[seed_idx:seed_idx + 1],
+                            "pixels": pixels[seed_idx:seed_idx + 1], "decode_s": decode_s})
+    return results
+
+
+if __name__ == "__main__":
+    main()
