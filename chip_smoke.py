@@ -8,19 +8,27 @@ Usage, from the root of a checkout on a host with one NVIDIA Hopper GPU:
 Phases, each of which exits non-zero when it fails:
 
 1. card identity (``nvidia-smi`` name and power limit);
-2. build of every CUDA kernel of the main path from ``longlive_torch/csrc``;
-3. kernel checks at the main path's shapes: each kernel against its plain
-   PyTorch version on the same inputs, with times of the kernel, the plain
-   version, the least time the card could take, and one PyTorch library
-   call computing the same function (timed here only, never used by the
-   port);
+2. build of every CUDA kernel of the paths below from ``longlive_torch/csrc``;
+3. kernel checks at the paths' shapes: each kernel (K1 in its bias and
+   q_rope modes) against its plain PyTorch version on the same inputs, with
+   times of the kernel, the plain version, the least time the card could
+   take, and one PyTorch library call computing the same function (timed
+   here only, never used by the port);
 4. a small-input reference: the port on the GPU (bf16, kernels) against the
-   port on the CPU (float32, plain versions);
-5. the main path: ``longlive_torch.run_inference`` on
-   ``configs/longlive_inference.yaml`` for 15 latent frames (5 blocks, the
-   ring wraps) at full Wan2.1-1.3B width with random weights, then VAE
-   decode and the video file; every kernel's launch count over that run is
-   checked against the count derived from the model structure.
+   port on the CPU (float32, plain versions), for single-prompt, fused-rope,
+   one-shot-recache, eager-recache and reactive generation;
+5. the paths, at full Wan2.1-1.3B width with random weights, each with
+   every kernel's launch count checked against the count derived from the
+   model structure:
+   a. main: ``run_inference`` on ``configs/longlive_inference.yaml`` for 15
+      latent frames (5 blocks, the ring wraps), VAE decode and the video;
+   b. tuned: ``run_inference`` on ``configs/longlive_inference_tuned.yaml``
+      (window 9, fused q RoPE) for 15 frames;
+   c. reactive: an unscheduled switch on the tuned config at frame 9 (a
+      6-frame replay);
+   d. interactive: ``run_interactive`` (one-shot recache) on
+      ``configs/longlive_interactive_inference.yaml`` cut to 27 frames with
+      switches at 12 and 18, then the eager-recache loop on the same inputs.
 
 The last lines are the ``kernels`` JSON line, the card line, and
 ``{"ok": true, "device": {...}}``.
@@ -28,9 +36,13 @@ The last lines are the ``kernels`` JSON line, the card line, and
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
+import io
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -98,6 +110,50 @@ def card_line() -> str:
     return r.stdout.strip().splitlines()[0]
 
 
+class _Tee(io.TextIOBase):
+    def __init__(self, out):
+        self.out, self.buf = out, io.StringIO()
+
+    def write(self, text):
+        self.buf.write(text)
+        return self.out.write(text)
+
+    def flush(self):
+        self.out.flush()
+
+
+def run_captured(fn):
+    """(fn(), what it printed); the output is shown as it is printed."""
+    tee = _Tee(sys.stdout)
+    with contextlib.redirect_stdout(tee):
+        result = fn()
+    return result, tee.buf.getvalue()
+
+
+def profile_number(text: str, pattern: str, what: str) -> float:
+    """A number from a ``[profile]`` line of the pipelines."""
+    m = re.search(pattern, text)
+    if m is None:
+        fail(f"{what}: no match for {pattern!r} in the [profile] output")
+    return float(m.group(1))
+
+
+def reset_counts(A, VC) -> None:
+    A.reset_launches()
+    VC.launches = 0
+
+
+def counts(A, VC) -> dict:
+    return {"flash_attention": dict(A.mode_launches), "fused_causal_conv": VC.launches}
+
+
+def check_counts(label: str, got: dict, want: dict) -> None:
+    log(f"{label}: launches {json.dumps(got)} (want {json.dumps(want)})")
+    for name, w in want.items():
+        if got[name] != w:
+            fail(f"{label}: launch count of {name} {got[name]} != {w}")
+
+
 # ---------------------------------------------------------------------------
 # phase 3: kernel checks
 
@@ -140,7 +196,7 @@ def check_attention(torch, A):
             fail(f"flash_attention ({label}) disagrees with its plain version: "
                  f"max_abs_err {err} (limit {tol}), rel_rms_err {rel} "
                  f"(limit {REL_RMS_LIMIT})")
-        cases.append({"case": label, "q": [b, sq, n, d], "kv": [b * n, s, d],
+        cases.append({"case": label, "mode": "bias", "q": [b, sq, n, d], "kv": [b * n, s, d],
                       "max_abs_err": err, "tolerance": tol, "rel_rms_err": rel, "ms": ms,
                       "plain_ms": plain_ms, "library_ms": lib_ms})
     t_bound, bound_by = bound(flops, nbytes)
@@ -157,6 +213,77 @@ def check_attention(torch, A):
         "bound_ms": t_bound, "bound_by": bound_by, "library_ms": full["library_ms"],
         "unit": "one call at the decode shape (full window)", "cases": cases,
     }
+
+
+# K1 at the shapes the new paths give it: (label, mode, query frames, cache
+# frames, valid frames).  Tuned config: 9-frame cache (sink 3 + ring 6);
+# its reactive replay attends the sink and the 6 replayed slots.  The
+# interactive one-shot recache replays 12 frames over the 12-frame cache.
+# The bias case at the tuned shape is no path's; it sets the q_rope
+# prologue's cost beside the same work without it.
+ATTN_CASES = [
+    ("q_rope tuned decode: 3-frame block over the 9-frame cache", "q_rope", 3, 9, 9),
+    ("bias at the tuned decode shape (q pre-roped; the prologue's cost)", "bias", 3, 9, 9),
+    ("q_rope tuned reactive replay: 6 frames over the 9-frame cache", "q_rope", 6, 9, 6),
+    ("bias interactive recache: 12 frames over the 12-frame cache", "bias", 12, 12, 12),
+]
+
+
+def check_attention_cases(torch, A, entry):
+    """Adds the ATTN_CASES to K1's entry.  q_rope cases: cos/sin are the
+    DiT's rope multipliers for the block; ``library_ms`` is
+    ``scaled_dot_product_attention`` on q roped beforehand (no single
+    PyTorch call applies the rotation and attends, so the rope pass is
+    excluded from it).  Each bound counts the valid KV tokens only."""
+    import torch.nn.functional as F
+
+    from longlive_torch.ops.rope import make_rope_tables, rope_multipliers
+
+    b, n, d, fs = 1, 12, 128, 1560
+    tables = make_rope_tables(d, 1024, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(6)
+    for label, mode, qf, kf, vf in ATTN_CASES:
+        sq, s = qf * fs, kf * fs
+        q = torch.randn((b, sq, n, d), generator=g, device="cuda").to(torch.bfloat16)
+        k = torch.randn((b * n, s, d), generator=g, device="cuda").to(torch.bfloat16)
+        v = torch.randn((b * n, s, d), generator=g, device="cuda").to(torch.bfloat16)
+        valid = torch.arange(s, device="cuda") < vf * fs
+        bias = torch.where(valid, 0.0, A.NEG_INF).float()[None].contiguous()
+        rope = rope_multipliers(tables, qf, 30, 52, start_frame=24) if mode == "q_rope" else None
+        out = A.flash_attention(q, k, v, bias, q_rope=rope)
+        ref = A.flash_attention_plain(q, k, v, bias, q_rope=rope)
+        torch.cuda.synchronize()
+        if not torch.isfinite(out).all():
+            fail(f"flash_attention ({label}): non-finite output")
+        err, tol, rel = agreement(out, ref)
+        del ref
+        qr = q if rope is None else A.rope_scaled_q(q, rope[0], rope[1], 1.0)
+        qt, kt, vt = qr.transpose(1, 2), k.view(b, n, s, d), v.view(b, n, s, d)
+        mask4 = bias.to(torch.bfloat16)[:, None, None, :]
+        ms = cuda_ms(torch, lambda: A.flash_attention(q, k, v, bias, q_rope=rope), 10)
+        plain_ms = cuda_ms(torch, lambda: A.flash_attention_plain(q, k, v, bias, q_rope=rope), 2)
+        lib_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask4), 10)
+        t_bound, bound_by = bound(4.0 * b * n * sq * vf * fs * d,
+                                  2 * q.numel() * 2 + 2 * k.numel() * 2 + b * s * 4)
+        log(f"flash_attention {label}: max_abs_err={err:.3e} tol={tol:.3e} "
+            f"rel_rms_err={rel:.3e} (limit {REL_RMS_LIMIT:.0e}) ms={ms:.4f} "
+            f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} bound_ms={t_bound:.4f} "
+            f"({bound_by}; {t_bound / ms:.1%} of bound)")
+        if not (err <= tol and rel <= REL_RMS_LIMIT):
+            fail(f"flash_attention ({label}) disagrees with its plain version: "
+                 f"max_abs_err {err} (limit {tol}), rel_rms_err {rel} "
+                 f"(limit {REL_RMS_LIMIT})")
+        entry["cases"].append({
+            "case": label, "mode": mode, "q": [b, sq, n, d], "kv": [b * n, s, d],
+            "valid_tokens": vf * fs, "max_abs_err": err, "tolerance": tol,
+            "rel_rms_err": rel, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "bound_ms": t_bound, "bound_by": bound_by})
+        entry["max_abs_err"] = max(entry["max_abs_err"], err)
+        entry["tolerance"] = min(entry["tolerance"], tol)
+        entry["rel_rms_err"] = max(entry["rel_rms_err"], rel)
+        del q, k, v, out, qr, qt, kt, vt
+        torch.cuda.empty_cache()
 
 
 # The 30 fused convs of one later latent frame of the Wan2.1 decoder at
@@ -260,12 +387,12 @@ def rel_err(a, b) -> float:
 
 
 def check_small_reference(torch):
-    import dataclasses
-
+    """The same small inputs through each generation loop on the GPU (bf16,
+    kernels) and on the CPU (float32, plain versions); then the VAE."""
     from longlive_torch.config import DiTConfig, LatentGeometry, PipelineConfig
     from longlive_torch.models import dit as D
     from longlive_torch.models import vae as V
-    from longlive_torch.pipeline import CausalInferencePipeline
+    from longlive_torch.pipeline import InteractiveCausalInferencePipeline
 
     # head_dim 128 (the kernel's); 10x12 latents -> 30 tokens per frame,
     # a 120-token cache: ragged q and KV tiles
@@ -273,8 +400,7 @@ def check_small_reference(torch):
                     text_dim=64, text_len=16, freq_dim=64, local_attn_size=4, sink_size=1,
                     num_frame_per_block=1, rope_max_pos=64)
     geom = LatentGeometry(height=10, width=12)
-    pc = PipelineConfig(num_frame_per_block=1, local_attn_size=4, sink_size=1,
-                        num_output_frames=6)
+    base = dict(num_frame_per_block=1, local_attn_size=4, sink_size=1, num_output_frames=6)
     params32 = D.init_dit_params(cfg, torch.float32, "cpu", seed=3, zero_head=False)
 
     def to_dev(tree, dev, dt):
@@ -285,82 +411,268 @@ def check_small_reference(torch):
         return None if tree is None else tree.to(dev, dt)
 
     g = torch.Generator().manual_seed(4)
-    pe = torch.randn((1, cfg.text_len, cfg.text_dim), generator=g)
+    pes = [torch.randn((1, cfg.text_len, cfg.text_dim), generator=g) for _ in range(3)]
     noise = torch.randn((1, 6, 16, geom.height, geom.width), generator=g)
-    lat = {}
-    for dev, dt in (("cpu", torch.float32), ("cuda", torch.bfloat16)):
-        pipe = CausalInferencePipeline(pc, to_dev(params32, dev, dt), geometry=geom,
-                                       dit_config=cfg, device=dev, deterministic_renoise=True)
-        lat[dev] = pipe.generate_latents(noise, pipe.prepare_condition(pe))
-    e_dit = rel_err(lat["cuda"], lat["cpu"])
+    # (label, config knobs, run(pipe, conds)); switches at frame 3 (and 4)
+    loops = [
+        ("single prompt", {}, lambda p, c: p.generate_latents(noise, c[0])),
+        ("fused rope", dict(fused_rope=True), lambda p, c: p.generate_latents(noise, c[0])),
+        ("one-shot recache", dict(global_sink=False),
+         lambda p, c: p.generate_latents_interactive(noise, c[:2], [3])),
+        ("eager recache", dict(global_sink=False, eager_recache=True),
+         lambda p, c: p.generate_latents_interactive_scanned(noise, c, [3, 4])),
+        ("reactive, fused rope", dict(fused_rope=True, reactive_recache_frames=2),
+         lambda p, c: p.generate_latents_reactive(noise, c[0],
+                                                  lambda s: c[1] if s == 3 else None)),
+    ]
+    errs = {}
+    lat32 = None
+    for label, knobs, run in loops:
+        lat = {}
+        for dev, dt in (("cpu", torch.float32), ("cuda", torch.bfloat16)):
+            pipe = InteractiveCausalInferencePipeline(
+                PipelineConfig(**base, **knobs), to_dev(params32, dev, dt), geometry=geom,
+                dit_config=cfg, device=dev, deterministic_renoise=True)
+            lat[dev] = run(pipe, [pipe.prepare_condition(pe) for pe in pes])
+        if not torch.isfinite(lat["cuda"]).all():
+            fail(f"small reference ({label}): non-finite GPU output")
+        errs[label] = rel_err(lat["cuda"], lat["cpu"])
+        lat32 = lat32 if lat32 is not None else lat["cpu"]
 
     vcfg = dataclasses.replace(V.tiny_vae_config(), dim=96, z_dim=16)  # widths 192/96: fused
     vp32 = V.init_vae_params(vcfg, torch.float32, "cpu", seed=5)
-    z = lat["cpu"][:, :3]
+    z = lat32[:, :3]
     px_cpu = V.vae_decode(vp32, vcfg, z)
     px_gpu = V.vae_decode(to_dev(vp32, "cuda", torch.bfloat16), vcfg, z.to("cuda", torch.bfloat16))
-    e_vae = rel_err(px_gpu, px_cpu)
-    log(f"small reference: DiT latents rel_err={e_dit:.3e}, VAE pixels rel_err={e_vae:.3e} "
-        "(GPU bf16 kernels vs CPU float32 plain; limit 5e-2)")
-    if not (torch.isfinite(lat["cuda"]).all() and torch.isfinite(px_gpu).all()):
-        fail("small reference: non-finite GPU output")
-    if not (e_dit <= 5e-2 and e_vae <= 5e-2):
-        fail(f"small reference disagrees: DiT {e_dit}, VAE {e_vae} (limit 5e-2)")
+    errs["VAE pixels"] = rel_err(px_gpu, px_cpu)
+    log("small reference (GPU bf16 kernels vs CPU float32 plain; limit 5e-2): "
+        + ", ".join(f"{k} rel_err={v:.3e}" for k, v in errs.items()))
+    if not torch.isfinite(px_gpu).all():
+        fail("small reference: non-finite GPU VAE output")
+    bad = {k: v for k, v in errs.items() if not v <= 5e-2}
+    if bad:
+        fail(f"small reference disagrees (limit 5e-2): {bad}")
 
 
 # ---------------------------------------------------------------------------
-# phase 5: main path
+# phase 5: the paths at full width
 
 
-def run_main_path(torch, A, VC):
-    from longlive_torch import run_inference
-    from longlive_torch.config import load_pipeline_config
+def derived():
+    """Launch counts derived from the model: a block runs every layer in
+    each denoise forward and all but the last layer's attention in its
+    commit forward; a block whose commit is skipped, only the former; a
+    recache or eager chunk is one commit-like forward.  The VAE runs both
+    convs of every res block per latent frame, plus one time conv per
+    temporal upsample from the second frame on."""
+    from longlive_torch.config import DiTConfig, PipelineConfig
     from longlive_torch.models.vae import VAEConfig
 
-    cfg_path = os.path.join(ROOT, "configs", "longlive_inference.yaml")
-    frames = 15
-    pc = load_pipeline_config(cfg_path)
-    dcfg, vcfg = pc.dit_config(), VAEConfig()
-    blocks = frames // pc.num_frame_per_block
-    # per block: every layer attends in each denoise forward; the commit
-    # forward's last layer only writes K/V
-    want_attn = blocks * (dcfg.num_layers * len(pc.denoising_step_list) + dcfg.num_layers - 1)
-    # per latent frame: both convs of every res block; later frames also
-    # run one time conv per temporal upsample
+    layers, steps = DiTConfig().num_layers, len(PipelineConfig().denoising_step_list)
+    vcfg = VAEConfig()
     n_res = 2 + len(vcfg.dim_mult) * (vcfg.num_res_blocks + 1)
     n_time = sum(vcfg.temperal_upsample[: len(vcfg.dim_mult) - 1])
-    want_conv = 2 * n_res + (frames - 1) * (2 * n_res + n_time)
+    return {"block": layers * steps + layers - 1, "block_nocommit": layers * steps,
+            "recache": layers - 1,
+            "conv": lambda frames: 2 * n_res + (frames - 1) * (2 * n_res + n_time)}
 
-    torch.cuda.reset_peak_memory_stats()
-    A.launches = 0
-    VC.launches = 0
-    t0 = time.perf_counter()
-    results = run_inference.main(["--config_path", cfg_path, "--num_output_frames",
-                                  str(frames), "--device", "cuda"])
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    got_attn, got_conv = A.launches, VC.launches
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    log(f"main path: {wall:.1f} s wall, peak device memory {peak:.2f} GiB, "
-        f"launches flash_attention={got_attn} (want {want_attn}), "
-        f"fused_causal_conv={got_conv} (want {want_conv})")
-    if len(results) != 1:
-        fail(f"main path wrote {len(results)} videos, expected 1")
-    r = results[0]
+
+def check_video(torch, label: str, r: dict, frames: int) -> None:
     lat, px = r["latents"], r["pixels"]
     want_px = (1, 1 + 4 * (frames - 1), 3, 480, 832)
     if tuple(lat.shape) != (1, frames, 16, 60, 104) or tuple(px.shape) != want_px:
-        fail(f"main path shapes: latents {tuple(lat.shape)}, pixels {tuple(px.shape)}")
+        fail(f"{label}: shapes latents {tuple(lat.shape)}, pixels {tuple(px.shape)}")
     if not (torch.isfinite(lat).all() and torch.isfinite(px).all()):
-        fail("main path produced non-finite latents or pixels")
+        fail(f"{label}: non-finite latents or pixels")
     if not os.path.exists(r["path"]) or os.path.getsize(r["path"]) == 0:
-        fail(f"main path output {r['path']} missing")
-    if got_attn != want_attn or got_conv != want_conv:
-        fail(f"launch counts: flash_attention {got_attn} != {want_attn} or "
-             f"fused_causal_conv {got_conv} != {want_conv}")
-    log(f"main path decode: {r['decode_s'] / frames * 1e3:.2f} ms/latent-frame; "
-        f"output {r['path']} ({os.path.getsize(r['path'])} bytes)")
-    return got_attn, got_conv
+        fail(f"{label}: output {r['path']} missing")
+
+
+def run_inference_path(torch, A, VC, label: str, config: str, attn_mode: str) -> dict:
+    """``run_inference`` on ``configs/<config>`` for 15 latent frames."""
+    from longlive_torch import run_inference
+
+    frames, dv = 15, derived()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(A, VC)
+    t0 = time.perf_counter()
+    results, text = run_captured(lambda: run_inference.main([
+        "--config_path", os.path.join(ROOT, "configs", config),
+        "--num_output_frames", str(frames), "--device", "cuda"]))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = counts(A, VC)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if len(results) != 1:
+        fail(f"{label} wrote {len(results)} videos, expected 1")
+    r = results[0]
+    check_video(torch, label, r, frames)
+    attn = {"bias": 0, "q_rope": 0}
+    attn[attn_mode] = (frames // 3) * dv["block"]
+    check_counts(label, got, {"flash_attention": attn, "fused_causal_conv": dv["conv"](frames)})
+    out = {"dit_ms_per_latent_frame": profile_number(
+               text, r"steady-state latency=([0-9.]+) ms/latent-frame", label),
+           "decode_ms_per_latent_frame": r["decode_s"] / frames * 1e3,
+           "wall_s": wall, "peak_gib": peak, "launches": got}
+    log(f"{label}: {wall:.1f} s wall, peak device memory {peak:.2f} GiB, DiT "
+        f"{out['dit_ms_per_latent_frame']:.2f} ms/latent-frame, decode "
+        f"{out['decode_ms_per_latent_frame']:.2f} ms/latent-frame; output {r['path']} "
+        f"({os.path.getsize(r['path'])} bytes)")
+    return out
+
+
+def _cli_inputs(torch, config_name: str, frames: int, segments: int):
+    """Pipeline config, DiT params and the random inputs ``run_interactive``
+    draws for ``segments`` prompts: the same generator sequence."""
+    from longlive_torch.config import LatentGeometry, load_pipeline_config
+    from longlive_torch.utils import loading
+
+    path = config_name if os.path.isabs(config_name) else os.path.join(ROOT, "configs",
+                                                                       config_name)
+    config = dataclasses.replace(load_pipeline_config(path), num_output_frames=frames)
+    cfg, geom = config.dit_config(), LatentGeometry()
+    params = loading.load_dit_params(config, cfg, torch.bfloat16, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(config.seed)
+    conds = [torch.randn((1, cfg.text_len, cfg.text_dim), generator=gen, device="cuda")
+             for _ in range(segments)]
+    noise = torch.randn((1, frames, geom.channels, geom.height, geom.width), generator=gen,
+                        device="cuda")
+    return config, cfg, params, conds, noise, gen
+
+
+def run_reactive_path(torch, A, VC) -> dict:
+    """An unscheduled switch on the tuned config at frame 9: the block at 9
+    first replays the last 6 frames (reactive_recache_frames) under the new
+    prompt.  Block times are read at each poll, after a synchronise.  The
+    loop runs twice in one process: the first switch of a process is cold
+    (allocator growth, first use of the replay's shapes), the second warm."""
+    from longlive_torch.pipeline import InteractiveCausalInferencePipeline
+
+    frames, switch, dv = 15, 9, derived()
+    config, cfg, params, conds, noise, _ = _cli_inputs(
+        torch, "longlive_inference_tuned.yaml", frames, 2)
+    pipe = InteractiveCausalInferencePipeline(config, params, dit_config=cfg, device="cuda")
+    cross = [pipe.prepare_condition(c) for c in conds]
+    n = min(config.reactive_recache_frames, switch)
+    marks = []
+
+    def poll(s):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        return cross[1] if s == switch else None
+
+    out, lats = {"replay_frames": n}, []
+    for run in ("cold", "warm"):
+        marks.clear()
+        gen = torch.Generator(device="cuda").manual_seed(config.seed)
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(A, VC)
+        lat = pipe.generate_latents_reactive(noise, cross[0], poll, generator=gen)
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        got = counts(A, VC)
+        if tuple(lat.shape) != (1, frames, 16, 60, 104) or not torch.isfinite(lat).all():
+            fail(f"reactive ({run}): latents {tuple(lat.shape)} or non-finite")
+        check_counts(f"reactive ({run})", got, {
+            "flash_attention": {"bias": 0,
+                                "q_rope": (frames // 3) * dv["block"] + dv["recache"]},
+            "fused_causal_conv": 0})
+        blocks = [b - a for a, b in zip(marks, marks[1:])]  # one per block start
+        sw = switch // 3
+        steady = [t for i, t in enumerate(blocks) if i >= 2 and i != sw]
+        mean = sum(steady) / len(steady)
+        out[run] = {"block_ms": [t * 1e3 for t in blocks], "switch_block_ms": blocks[sw] * 1e3,
+                    "steady_block_ms": mean * 1e3, "switch_stall_ms": (blocks[sw] - mean) * 1e3,
+                    "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+        out["launches"] = got
+        lats.append(lat)
+        r = out[run]
+        log(f"reactive ({run}): {n}-frame replay at frame {switch}: switch block "
+            f"{r['switch_block_ms']:.2f} ms vs steady {r['steady_block_ms']:.2f} ms "
+            f"(+{r['switch_stall_ms']:.2f} ms stall), peak device memory {r['peak_gib']:.2f} GiB")
+    out["warm_vs_cold_rel_err"] = rel_err(lats[1], lats[0])
+    return out
+
+
+def run_interactive_paths(torch, A, VC) -> dict:
+    """``run_interactive`` (``profile: true``: the one-shot recache loop)
+    on the shipped interactive config cut in time to 27 frames with
+    switches at 12 and 18, so the second switch's eager replay reaches into
+    the first segment; then the eager-recache loop on the same inputs."""
+    import yaml
+
+    from longlive_torch import run_interactive
+    from longlive_torch.pipeline import InteractiveCausalInferencePipeline
+
+    frames, dv = 27, derived()
+    with open(os.path.join(ROOT, "configs", "longlive_interactive_inference.yaml")) as f:
+        raw = yaml.safe_load(f)
+    raw.update(num_output_frames=frames, switch_frame_indices="12, 18")
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    path = os.path.join(ROOT, "build", "chip_smoke_interactive.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(raw, f)
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(A, VC)
+    t0 = time.perf_counter()
+    results, text = run_captured(lambda: run_interactive.main(
+        ["--config_path", path, "--device", "cuda"]))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = counts(A, VC)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if len(results) != 1:
+        fail(f"interactive wrote {len(results)} videos, expected 1")
+    r = results[0]
+    check_video(torch, "interactive one-shot", r, frames)
+    check_counts("interactive one-shot", got, {
+        "flash_attention": {"bias": 9 * dv["block"] + 2 * dv["recache"], "q_rope": 0},
+        "fused_causal_conv": dv["conv"](frames)})
+    oneshot = {
+        "steady_ms_per_latent_frame": profile_number(
+            text, r"steady-state latency=([0-9.]+) ms/latent-frame", "interactive"),
+        "switch_stall_ms": profile_number(text, r"\(\+([-0-9.]+) ms recache overhead\)",
+                                          "interactive"),
+        "decode_ms_per_latent_frame": r["decode_s"] / frames * 1e3,
+        "wall_s": wall, "peak_gib": peak, "launches": got}
+    log(f"interactive one-shot: {wall:.1f} s wall, peak device memory {peak:.2f} GiB, "
+        f"steady {oneshot['steady_ms_per_latent_frame']:.2f} ms/latent-frame, switch stall "
+        f"+{oneshot['switch_stall_ms']:.2f} ms; output {r['path']}")
+
+    config, cfg, params, conds, noise, gen = _cli_inputs(torch, path, frames, 3)
+    pipe = InteractiveCausalInferencePipeline(config, params, dit_config=cfg, device="cuda")
+    cross = [pipe.prepare_condition(c) for c in conds]
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(A, VC)
+    (lat, text) = run_captured(lambda: pipe.generate_latents_interactive_scanned(
+        noise, cross, list(config.switch_frame_indices), generator=gen, profile=True))
+    torch.cuda.synchronize()
+    got = counts(A, VC)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if tuple(lat.shape) != (1, frames, 16, 60, 104) or not torch.isfinite(lat).all():
+        fail(f"interactive eager: latents {tuple(lat.shape)} or non-finite")
+    check_counts("interactive eager", got, {
+        "flash_attention": {"bias": 7 * dv["block"] + 2 * dv["block_nocommit"]
+                            + 8 * dv["recache"], "q_rope": 0},
+        "fused_causal_conv": 0})
+    # before the first switch both loops compute the same blocks
+    e_seg0 = rel_err(lat[:, :12], r["latents"][:, :12])
+    if not e_seg0 <= 1e-2:
+        fail(f"interactive eager: first segment differs from the one-shot run ({e_seg0})")
+    fpb = pipe.frame_block
+    eager = {
+        "steady_ms_per_latent_frame": sum(pipe.last_block_times) / len(pipe.last_block_times)
+        / fpb * 1e3,
+        "switch_block_ms": [t * 1e3 for t in pipe.last_switch_times],
+        "eager_chunk_block_ms": [t * 1e3 for t in pipe.last_eager_times],
+        "switch_stall_ms": profile_number(text, r"\(\+([-0-9.]+) ms recache overhead\)",
+                                          "interactive eager"),
+        "first_segment_rel_err_vs_oneshot": e_seg0, "peak_gib": peak, "launches": got}
+    log(f"interactive eager: peak device memory {peak:.2f} GiB, steady "
+        f"{eager['steady_ms_per_latent_frame']:.2f} ms/latent-frame, switch stall "
+        f"+{eager['switch_stall_ms']:.2f} ms, first segment vs one-shot rel_err {e_seg0:.2e}")
+    return {"interactive_oneshot": oneshot, "interactive_eager": eager}
 
 
 def main() -> None:
@@ -379,6 +691,7 @@ def main() -> None:
     except ImportError as e:
         fail(f"the longlive_torch package is not beside this script: {e}")
 
+    t_start = time.perf_counter()
     card = card_line()
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     torch.backends.cuda.matmul.allow_tf32 = False  # plain versions in true float32
@@ -396,14 +709,29 @@ def main() -> None:
 
     t0 = time.perf_counter()
     entries = [check_attention(torch, A), check_conv(torch, VC)]
+    check_attention_cases(torch, A, entries[0])
     log(f"kernel checks: {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
     check_small_reference(torch)
     log(f"small reference: {time.perf_counter() - t0:.1f} s")
 
-    got_attn, got_conv = run_main_path(torch, A, VC)
-    entries[0]["launches"], entries[1]["launches"] = got_attn, got_conv
+    paths = {}
+    for label, config, mode in (("main", "longlive_inference.yaml", "bias"),
+                                ("tuned", "longlive_inference_tuned.yaml", "q_rope")):
+        paths[label] = run_inference_path(torch, A, VC, label, config, mode)
+        torch.cuda.empty_cache()
+    paths["reactive"] = run_reactive_path(torch, A, VC)
+    torch.cuda.empty_cache()
+    paths.update(run_interactive_paths(torch, A, VC))
+    log("paths: " + json.dumps(paths))
+
+    for entry, name in zip(entries, ("flash_attention", "fused_causal_conv")):
+        by_path = {label: p["launches"][name] for label, p in paths.items()}
+        main_count = by_path["main"]
+        entry["launches"] = sum(main_count.values()) if isinstance(main_count, dict) else main_count
+        entry["launches_by_path"] = by_path
+    log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": entries}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -3,12 +3,21 @@
 // float32 softmax state.
 //
 // Replaces: longlive_tpu/ops/attention.py::_flash_kernel (the Pallas TPU
-// kernel) in its bias + kv_layer mode, the mode every self-attention of the
-// cached DiT forward runs in.
+// kernel) in two of its modes: bias + kv_layer, the mode every
+// self-attention of the cached DiT forward runs in, and q_rope, the same
+// with q's rotary embedding applied in the prologue (fused_rope serving).
 //
 // Semantics kept from the TPU kernel:
 //   * q is pre-scaled by 1/sqrt(D) and rounded to bf16 (done here while the
 //     q tile is staged, so no separate pass over q exists);
+//   * q_rope mode (cos, sin given, [Sq, 64] f32 indexed by query row, shared
+//     by every head): q arrives un-roped and the staged tile is
+//     bf16(q * cs + swap(q) * sn) with cs = scale * [cos ++ cos],
+//     sn = scale * [-sin ++ sin] and swap exchanging the two 64-wide halves
+//     (the halfsplit rotation, softmax scale folded in).  Each product and
+//     the sum are rounded separately (__fmul_rn / __fadd_rn, no FMA
+//     contraction), as the plain PyTorch version and XLA's separate
+//     multiply and add compute it;
 //   * logits are float32 q.k plus the bias; masked tokens carry the finite
 //     -1e30, never -inf, so a fully masked tile cannot produce NaN in the
 //     running max or the rescale factor;
@@ -92,6 +101,7 @@ __device__ __forceinline__ uint32_t lds32(const __nv_bfloat16* p) {
 __global__ void __launch_bounds__(NTHREADS, 1)
 flash_attention_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                        const __nv_bfloat16* __restrict__ v, const float* __restrict__ bias,
+                       const float* __restrict__ rope_cos, const float* __restrict__ rope_sin,
                        __nv_bfloat16* __restrict__ out, int Sq, int N, int S, float scale) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [BM][LDS]
@@ -125,15 +135,36 @@ flash_attention_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16*
   const int ntiles = (S + BN - 1) / BN;
   load_kv(0, 0);
 
-  // stage q: bf16(float(q) * scale), ragged rows zero
+  // stage q: bf16(float(q) * scale), or the rotated form in q_rope mode;
+  // ragged rows are zero and read neither q nor cos/sin
   for (int i = tid; i < BM * (D / 8); i += NTHREADS) {
     const int r = i / (D / 8), c = (i % (D / 8)) * 8;
     uint4 val = make_uint4(0u, 0u, 0u, 0u);
     if (q0 + r < Sq) {
-      val = *reinterpret_cast<const uint4*>(qb + (size_t)(q0 + r) * row_stride + c);
+      const __nv_bfloat16* qrow = qb + (size_t)(q0 + r) * row_stride;
+      val = *reinterpret_cast<const uint4*>(qrow + c);
       __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&val);
+      if (rope_cos == nullptr) {
 #pragma unroll
-      for (int j = 0; j < 8; ++j) e[j] = __float2bfloat16(__bfloat162float(e[j]) * scale);
+        for (int j = 0; j < 8; ++j) e[j] = __float2bfloat16(__bfloat162float(e[j]) * scale);
+      } else {
+        // the partner chunk 64 columns away, and this chunk's 8 angles
+        const uint4 pv = *reinterpret_cast<const uint4*>(qrow + (c ^ (D / 2)));
+        const __nv_bfloat16* pe = reinterpret_cast<const __nv_bfloat16*>(&pv);
+        const int h = c & (D / 2 - 1);
+        const float4* cp = reinterpret_cast<const float4*>(rope_cos + (size_t)(q0 + r) * (D / 2) + h);
+        const float4* sp = reinterpret_cast<const float4*>(rope_sin + (size_t)(q0 + r) * (D / 2) + h);
+        const float4 c0 = __ldg(cp), c1 = __ldg(cp + 1), s0 = __ldg(sp), s1 = __ldg(sp + 1);
+        const float cv[8] = {c0.x, c0.y, c0.z, c0.w, c1.x, c1.y, c1.z, c1.w};
+        const float sv[8] = {s0.x, s0.y, s0.z, s0.w, s1.x, s1.y, s1.z, s1.w};
+        const float sgn = c < D / 2 ? -1.f : 1.f;  // re half: -sin, im half: +sin
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float cs = __fmul_rn(cv[j], scale), sn = sgn * __fmul_rn(sv[j], scale);
+          e[j] = __float2bfloat16(__fadd_rn(__fmul_rn(__bfloat162float(e[j]), cs),
+                                            __fmul_rn(__bfloat162float(pe[j]), sn)));
+        }
+      }
     }
     *reinterpret_cast<uint4*>(sQ + r * LDS + c) = val;
   }
@@ -266,10 +297,11 @@ flash_attention_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16*
 
 extern "C" {
 
-// q, out: [B, Sq, N, 128] bf16; k, v: [B*N, S, 128] bf16; bias: [B, S] f32.
+// q, out: [B, Sq, N, 128] bf16; k, v: [B*N, S, 128] bf16; bias: [B, S] f32;
+// rope_cos, rope_sin: [Sq, 64] f32 for the q_rope mode, both null otherwise.
 int longlive_flash_attention(const void* q, const void* k, const void* v, const void* bias,
-                             void* out, int B, int Sq, int N, int S, float scale,
-                             void* stream) {
+                             const void* rope_cos, const void* rope_sin, void* out, int B,
+                             int Sq, int N, int S, float scale, void* stream) {
   cudaError_t err = cudaFuncSetAttribute(flash_attention_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)SMEM_BYTES);
@@ -278,6 +310,7 @@ int longlive_flash_attention(const void* q, const void* k, const void* v, const 
   flash_attention_kernel<<<grid, NTHREADS, SMEM_BYTES, (cudaStream_t)stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const float*>(bias),
+      static_cast<const float*>(rope_cos), static_cast<const float*>(rope_sin),
       static_cast<__nv_bfloat16*>(out), Sq, N, S, scale);
   return (int)cudaGetLastError();
 }

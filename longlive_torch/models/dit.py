@@ -1,13 +1,15 @@
-"""Causal Wan DiT, cached (kernel-layout) forward.
+"""Causal Wan DiT, cached forward.
 
 Plain functions over a parameter dict:
 
 - ``blocks`` is a list of per-layer dicts; linears are
   ``{"weight": [out, in], "bias": [out]}``;
 - the KV cache is ``ops.kv_cache.KVCache`` ([L, B, N, S, D]); each layer
-  writes its block's roped K/V in place at the block's (consecutive) ring
-  slots, then the attention kernel reads that layer's rows of the cache
-  directly;
+  writes its block's roped K/V in place at the block's slots (write then
+  attend), then the attention kernel reads that layer's rows of the cache
+  directly.  A KV-recache passes the slots, the frames to write and the
+  attended mask explicitly;
+- ``fused_rope``: q's rotation runs in the attention kernel's prologue;
 - RoPE uses absolute frame positions; cross-attention K/V are computed once
   per prompt (``prepare_cross_kv``);
 - adaLN: 6-way per-frame modulation per block, 2-way at the head.
@@ -17,7 +19,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import NamedTuple, Optional, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -200,14 +202,18 @@ def _flat(x: torch.Tensor) -> torch.Tensor:
     return x.reshape(b, f * fs, d)
 
 
-def _attention_layer_cached_kl(
-    layer_p: dict, cfg: DiTConfig, x: torch.Tensor, rope_cos: torch.Tensor,
-    rope_sin: torch.Tensor, cache: kvc.KVCache, layer_idx: int, tok_off: int,
-    bias: torch.Tensor, kv_only: bool = False,
+def _attention_layer_cached(
+    layer_p: dict, cfg: DiTConfig, cache_cfg: CacheConfig, x: torch.Tensor,
+    rope_cos: torch.Tensor, rope_sin: torch.Tensor, cache: kvc.KVCache, layer_idx: int,
+    offsets: List[int], write_frames: Tuple[int, ...], bias: torch.Tensor,
+    kv_only: bool = False, fused_rope: bool = False,
 ) -> Optional[torch.Tensor]:
-    """Self-attention against the cache: the block's roped K/V are written
-    in place into layer ``layer_idx`` at token ``tok_off``, then the queries
-    attend that layer's rows (sink + window + the block itself)."""
+    """Self-attention against the cache: frames ``write_frames`` of the
+    block's roped K/V are written in place into layer ``layer_idx`` at token
+    ``offsets``, then the queries attend that layer's rows under ``bias``.
+
+    ``fused_rope`` (halfsplit layout): q gets the RMS premul, is rounded to
+    its dtype, and is rotated in the attention kernel's prologue."""
     b, s, _ = x.shape
     n, hd = cfg.num_heads, cfg.head_dim
     k = nn.linear(x, layer_p["k"])
@@ -215,17 +221,23 @@ def _attention_layer_cached_kl(
     k_pre = nn.rms_scale(k, layer_p["norm_k"]["scale"], cfg.eps) if cfg.qk_norm else None
     k = apply_rotary(k.reshape(b, s, n, hd), rope_cos, rope_sin, premul=k_pre,
                      layout=cfg.rope_layout)
-    cache.k[layer_idx, :, :, tok_off:tok_off + s].copy_(k.transpose(1, 2))
-    cache.v[layer_idx, :, :, tok_off:tok_off + s].copy_(v.transpose(1, 2))
+    kvc.write_block_kv(cache_cfg, cache, layer_idx, k, v, offsets, write_frames)
     if kv_only:
         return None
     q = nn.linear(x, layer_p["q"])
     q_pre = nn.rms_scale(q, layer_p["norm_q"]["scale"], cfg.eps) if cfg.qk_norm else None
-    q = apply_rotary(q.reshape(b, s, n, hd), rope_cos, rope_sin, premul=q_pre,
-                     layout=cfg.rope_layout)
+    q_rope = None
+    if fused_rope and cfg.rope_layout == "halfsplit":
+        if q_pre is not None:
+            q = (q.float() * q_pre).to(q.dtype)
+        q = q.reshape(b, s, n, hd)
+        q_rope = (rope_cos, rope_sin)
+    else:
+        q = apply_rotary(q.reshape(b, s, n, hd), rope_cos, rope_sin, premul=q_pre,
+                         layout=cfg.rope_layout)
     s_tok = cache.k.shape[3]
     out = flash_attention(q.contiguous(), cache.k[layer_idx].view(b * n, s_tok, hd),
-                          cache.v[layer_idx].view(b * n, s_tok, hd), bias)
+                          cache.v[layer_idx].view(b * n, s_tok, hd), bias, q_rope=q_rope)
     return nn.linear(out.reshape(b, s, n * hd), layer_p["o"])
 
 
@@ -245,10 +257,12 @@ def _modulated(x: torch.Tensor, cfg: DiTConfig, f: int, shift, scale) -> torch.T
     return _flat(h * (1 + scale) + shift)
 
 
-def _block_body_kl(cfg: DiTConfig, num_frames: int, x: torch.Tensor, layer_p: dict,
-                   cache: kvc.KVCache, cross_k: torch.Tensor, cross_v: torch.Tensor,
-                   e0: torch.Tensor, rope_cos, rope_sin, bias: torch.Tensor,
-                   layer_idx: int, tok_off: int, kv_only: bool = False) -> torch.Tensor:
+def _block_body(cfg: DiTConfig, cache_cfg: CacheConfig, num_frames: int, x: torch.Tensor,
+                layer_p: dict, cache: kvc.KVCache, cross_k: torch.Tensor,
+                cross_v: torch.Tensor, e0: torch.Tensor, rope_cos, rope_sin,
+                bias: torch.Tensor, layer_idx: int, offsets: List[int],
+                write_frames: Tuple[int, ...], kv_only: bool = False,
+                fused_rope: bool = False) -> torch.Tensor:
     """One causal attention block.  ``kv_only``: write this layer's K/V and
     skip the rest (the last layer of a commit forward, whose output nobody
     reads)."""
@@ -256,8 +270,9 @@ def _block_body_kl(cfg: DiTConfig, num_frames: int, x: torch.Tensor, layer_p: di
     e = layer_p["modulation"][None, None].to(e0.dtype) + e0  # [B, F, 6, dim]
     e_ = [e[:, :, i][:, :, None] for i in range(6)]
     h = _modulated(x, cfg, f, e_[0], e_[1])
-    y = _attention_layer_cached_kl(layer_p["self_attn"], cfg, h, rope_cos, rope_sin,
-                                   cache, layer_idx, tok_off, bias, kv_only=kv_only)
+    y = _attention_layer_cached(layer_p["self_attn"], cfg, cache_cfg, h, rope_cos, rope_sin,
+                                cache, layer_idx, offsets, write_frames, bias,
+                                kv_only=kv_only, fused_rope=fused_rope)
     if kv_only:
         return x
     x = x + _flat(_per_frame(y, f) * e_[2])
@@ -285,7 +300,9 @@ def _head(params: dict, cfg: DiTConfig, x: torch.Tensor, e: torch.Tensor, f: int
 def dit_forward_cached(
     params: dict, cfg: DiTConfig, cache_cfg: CacheConfig, tables: RopeTables,
     x: torch.Tensor, t: torch.Tensor, cross_kv: CrossKV, cache: kvc.KVCache,
-    start_frame: int, *, advance_counters: bool = True, kv_only: bool = False,
+    start_frame: int, *, kv_valid: Optional[torch.Tensor] = None,
+    offsets: Optional[List[int]] = None, write_frames: Optional[Tuple[int, ...]] = None,
+    advance_counters: bool = True, kv_only: bool = False, fused_rope: bool = False,
 ) -> Tuple[torch.Tensor, kvc.KVCache]:
     """One cached DiT forward over a block of F frames at absolute frame
     ``start_frame``.  x: [B, F, C, H, W] noisy latents; t: [B, F].
@@ -295,34 +312,36 @@ def dit_forward_cached(
     denoise passes matches discarding their writes) and returns
     (flow [B, F, C, H, W] float32, cache with counters advanced when
     ``advance_counters``).  ``kv_only``: the commit forward — the last
-    layer only writes K/V and the returned flow is zeros."""
+    layer only writes K/V and the returned flow is zeros.
+
+    Explicit cache plumbing (the KV-recache): ``offsets`` [F] token offsets
+    of the block's frames (default: their ring slots), ``write_frames`` the
+    frames whose K/V are written (default all), ``kv_valid`` [S_cache] bool
+    the attended tokens (default: the fill state's mask).  Each layer writes
+    those frames, then attends under that mask."""
     b, f, c, h, w = x.shape
     dtype = params["patch_embedding"]["weight"].dtype
-    offsets = kvc.block_write_offsets(cache_cfg, cache, start_frame, f)
-    fs = cache_cfg.frame_seq
-    if offsets != [offsets[0] + i * fs for i in range(f)]:
-        raise NotImplementedError(
-            "the block's frames land in non-consecutive cache slots (sink or "
-            "ring not a multiple of the block); the per-frame write form "
-            "waits for the recache slice (ROADMAP queue 1, item 8)")
-    tok_off = offsets[0]
+    if offsets is None:
+        offsets = kvc.block_write_offsets(cache_cfg, cache, start_frame, f)
+    if write_frames is None:
+        write_frames = tuple(range(f))
+    if kv_valid is None:
+        kv_valid = kvc.validity_mask(cache_cfg, cache, start_frame, f, device=x.device)
 
     tokens = nn.linear(patchify(x.to(dtype), cfg), params["patch_embedding"])
     e, e0 = time_modulation(params, cfg, t, dtype)
     hp, wp = h // cfg.patch_size[1], w // cfg.patch_size[2]
     rope_cos, rope_sin = rope_multipliers(tables, f, hp, wp, start_frame)
-    valid = kvc.validity_mask(cache_cfg, cache, start_frame, f, device=x.device)
-    bias = torch.where(valid, 0.0, NEG_INF).to(torch.float32)[None].expand(b, -1).contiguous()
+    bias = torch.where(kv_valid.to(x.device), 0.0, NEG_INF).to(torch.float32)
+    bias = bias[None].expand(b, -1).contiguous()
 
     blocks = params["blocks"]
-    n_full = len(blocks) - 1 if kv_only else len(blocks)
-    for li in range(n_full):
-        tokens = _block_body_kl(cfg, f, tokens, blocks[li], cache, cross_kv.k[li],
-                                cross_kv.v[li], e0, rope_cos, rope_sin, bias, li, tok_off)
+    for li in range(len(blocks)):
+        last_kv_only = kv_only and li == len(blocks) - 1
+        tokens = _block_body(cfg, cache_cfg, f, tokens, blocks[li], cache, cross_kv.k[li],
+                             cross_kv.v[li], e0, rope_cos, rope_sin, bias, li, offsets,
+                             write_frames, kv_only=last_kv_only, fused_rope=fused_rope)
     if kv_only:
-        li = len(blocks) - 1
-        _block_body_kl(cfg, f, tokens, blocks[li], cache, cross_kv.k[li], cross_kv.v[li],
-                       e0, rope_cos, rope_sin, bias, li, tok_off, kv_only=True)
         flow = torch.zeros((b, f, cfg.out_dim, h, w), dtype=torch.float32, device=x.device)
     else:
         out_tokens = _head(params, cfg, tokens, e, f)

@@ -9,13 +9,20 @@ validity mask during warm-up.  The counters (``ring_base``, ``sink_filled``,
 
 K and V are stored ``[L, B, N, S, D]``: layer ``l``'s rows are one
 contiguous ``[B*N, S, D]`` block, the attention kernel's K/V operand, reached
-by a pointer offset with no per-layer copy.
+by a pointer offset with no per-layer copy.  This is the port's one layout:
+the JAX package's second, kernel-operand layout and its converters
+(``to_kernel_layout`` / ``from_kernel_layout``) have no counterpart here,
+and ``kernel_cache`` resolves to the same arithmetic on this layout.
+
+Buffers are updated in place: forwards write their K/V into them and a
+prompt switch's ``zero_cache`` clears them, so a caller that still needs
+the old contents clones first.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional
+from typing import List, Optional, Sequence
 
 import torch
 
@@ -62,6 +69,31 @@ def block_write_offsets(cfg: CacheConfig, cache: KVCache, start_frame: int,
             for i in range(num_frames)]
 
 
+def write_block_kv(cfg: CacheConfig, cache: KVCache, layer: int, new_k: torch.Tensor,
+                   new_v: torch.Tensor, offsets: Sequence[int],
+                   write_frames: Optional[Sequence[int]] = None) -> None:
+    """Writes frames ``write_frames`` (default all) of a block's roped K/V
+    ``new_k``/``new_v`` [B, F*frame_seq, N, D] into layer ``layer`` of the
+    cache, frame ``i`` at token offset ``offsets[i]``.  Frames may land in
+    slots that are not consecutive (a sink or ring that is no multiple of
+    the block, or a ring base moved by an odd recache): each run of frames
+    whose slots do follow each other is one copy, so a block in consecutive
+    slots is written at once."""
+    fs = cfg.frame_seq
+    frames = list(range(len(offsets)) if write_frames is None else write_frames)
+    runs = []  # [first frame, first token offset, frames]
+    for i in frames:
+        last = runs[-1] if runs else None
+        if last and i == last[0] + last[2] and offsets[i] == last[1] + last[2] * fs:
+            last[2] += 1
+        else:
+            runs.append([i, offsets[i], 1])
+    for i, off, nf in runs:
+        src = slice(i * fs, (i + nf) * fs)
+        cache.k[layer, :, :, off:off + nf * fs].copy_(new_k[:, src].transpose(1, 2))
+        cache.v[layer, :, :, off:off + nf * fs].copy_(new_v[:, src].transpose(1, 2))
+
+
 def advance(cfg: CacheConfig, cache: KVCache, start_frame: int,
             num_frames: int) -> KVCache:
     """Counter update after committing a block at [start, +num_frames)."""
@@ -97,4 +129,37 @@ def validity_mask(cfg: CacheConfig, cache: KVCache, start_frame: int,
                 slot_frame = end - 1 - (end - 1 - (cache.ring_base + r)) % cfg.ring_frames
                 ok = ok and slot_frame >= end - budget
         valid.append(ok)
+    return torch.tensor(valid, dtype=torch.bool, device=device).repeat_interleave(cfg.frame_seq)
+
+
+def recache_state(cfg: CacheConfig, cache: KVCache, end_frame: int,
+                  num_recache_frames: int) -> KVCache:
+    """Counters after a KV-recache that replayed frames
+    [end_frame - n, end_frame) packed linearly from slot 0: later ring
+    writes then evict in the replay's order.  The buffers are rewritten by
+    the recache forward itself."""
+    n = int(num_recache_frames)
+    return dataclasses.replace(
+        cache, ring_base=int(end_frame) - n + cfg.sink_frames,
+        sink_filled=min(n, cfg.sink_frames),
+        ring_filled=min(max(n - cfg.sink_frames, 0), cfg.ring_frames))
+
+
+def zero_cache(cache: KVCache) -> KVCache:
+    """Zeroes the buffers in place and keeps the counters (a prompt switch
+    clears the K/V but not the fill state; ``recache_state`` resets it)."""
+    cache.k.zero_()
+    cache.v.zero_()
+    return dataclasses.replace(cache)
+
+
+def recache_valid(cfg: CacheConfig, num_frames: int, window_frames: int,
+                  device="cpu") -> torch.Tensor:
+    """Token-level mask a recache forward whose replay fills slots
+    [0, num_frames) attends: the sink slots plus the most recent
+    ``window_frames - sink`` replay slots."""
+    sink = cfg.sink_frames
+    n = max(num_frames, sink)
+    budget = window_frames - sink
+    valid = [slot < sink or n - budget <= slot < n for slot in range(cfg.total_frames)]
     return torch.tensor(valid, dtype=torch.bool, device=device).repeat_interleave(cfg.frame_seq)

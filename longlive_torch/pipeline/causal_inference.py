@@ -6,10 +6,16 @@ only product is the block's K/V in the cache.  The cache is updated in
 place: each denoise pass overwrites the block's slots before attending, so
 threading one buffer through the passes equals discarding their writes, and
 the fill counters advance only on the commit.
+
+A prompt switch rebuilds the cache under the new prompt by replaying the
+last generated frames in one kv_only forward (the KV-recache,
+``build_recache_fn``), or chunk by chunk while those frames are generated
+(``EagerRecache``).
 """
 
 from __future__ import annotations
 
+import sys
 import time
 from typing import Optional, Tuple
 
@@ -28,16 +34,111 @@ def check_supported(config: PipelineConfig) -> None:
     """Knobs of the JAX package this slice of the port does not carry yet."""
     todo = {
         "kv_int8": (config.kv_int8, "queue 1, item 9 (int8)"),
-        "fused_rope": (config.fused_rope, "queue 2, K1 mode q_rope"),
-        "kernel_cache: false": (config.kernel_cache is False,
-                                "queue 1, item 8 (write-then-attend cache form)"),
-        "switch_frame_indices": (bool(config.switch_frame_indices),
-                                 "queue 1, item 8 (interactive generation)"),
-        "eager_recache": (config.eager_recache, "queue 1, item 8"),
+        "recache_attn_impl": (config.recache_attn_impl is not None,
+                              "queue 2, K1 mode qk_int8"),
     }
     for key, (on, item) in todo.items():
         if on:
             raise NotImplementedError(f"{key} is not ported yet: ROADMAP {item}")
+
+
+def build_recache_fn(cfg: DiTConfig, cache_cfg: CacheConfig, tables, sched_context_noise: float,
+                     num_frames: int, global_sink: bool, overwrite_sink: bool,
+                     window_frames: int, forward=None):
+    """The KV-recache of a prompt switch: zero the cache (unless
+    ``global_sink``), then replay the last ``num_frames`` generated frames
+    under the new prompt in ONE kv_only forward that writes their K/V
+    linearly from slot 0 (from the sink boundary when the original sink is
+    kept) and attends the sink plus the most recent window of the replay.
+
+    ``forward``: optional pipeline-style callable
+    ``(params, x, t_val, cross, cache, start, **kw)``; defaults to the cached
+    DiT forward.  Returns fn(params, cache, cross_new, replay,
+    recache_start_frame) -> cache, which updates ``cache``'s buffers in
+    place."""
+    sink = cache_cfg.sink_frames
+
+    if forward is None:
+        def forward(params, x, t_val, cross, cache, start, **kw):
+            b, f = x.shape[:2]
+            t = torch.full((b, f), t_val, dtype=torch.float32, device=x.device)
+            return D.dit_forward_cached(params, cfg, cache_cfg, tables, x, t, cross, cache,
+                                        start, **kw)
+
+    def fn(params, cache, cross_new, replay, recache_start_frame):
+        n = num_frames
+        if not global_sink:
+            cache = kvc.zero_cache(cache)
+        state = kvc.recache_state(cache_cfg, cache, recache_start_frame + n, n)
+        write_frames = tuple(range(n)) if overwrite_sink else tuple(range(sink, n))
+        _, state = forward(
+            params, replay, float(sched_context_noise), cross_new, state,
+            recache_start_frame,
+            kv_valid=kvc.recache_valid(cache_cfg, n, window_frames, device=replay.device),
+            offsets=[i * cache_cfg.frame_seq for i in range(n)],
+            write_frames=write_frames, advance_counters=False, kv_only=True)
+        return state
+
+    return fn
+
+
+class EagerRecache:
+    """Incremental (chunked) prompt-switch KV-recache, which hides the
+    switch stall.
+
+    With a switch scheduled at frame ``s`` the replay window [s - n, s) is
+    generated one block at a time BEFORE the switch, and the recache is a
+    blockwise-causal prefill: as each pre-switch block lands, its chunk is
+    committed (kv_only, under the NEW prompt) into a second cache.  At the
+    switch nothing but the counters is left to do.  Total work equals the
+    one-shot recache; the memory cost is the second cache while the switch
+    approaches.  Replay block i never attends later blocks, which is the
+    blockwise-causal mask of the reference's interactive mode.
+
+    Usage (switch at frame ``s`` known in advance):
+        er = pipe.begin_eager_recache(batch, switch_frame=s)
+        er.feed(cross_new, latents, latents_start)   # any time frames land
+        cache = er.finish()                          # at the switch
+    ``feed`` consumes the overlap of a latent span with the replay window
+    [s - n, s); frames outside it are ignored."""
+
+    def __init__(self, pipe: "CausalInferencePipeline", batch: int, switch_frame: int,
+                 dtype=None):
+        fpb = pipe.frame_block
+        local = pipe.config.local_attn_size
+        n = switch_frame if local == -1 else min(local, switch_frame)
+        if n % fpb:
+            raise ValueError(
+                f"eager recache needs a block-aligned replay ({n} frames, "
+                f"block {fpb}); use the one-shot recache")
+        self.pipe = pipe
+        self.n = n
+        self.start = switch_frame - n  # absolute frame of replay index 0
+        self.fed = 0  # replay frames committed so far
+        self.cache = pipe.init_cache(batch, dtype)
+
+    def feed(self, cross_new: D.CrossKV, latents: torch.Tensor, latents_start: int) -> int:
+        """Commits the overlap of ``[latents_start, +F)`` with the replay
+        frames not fed yet.  Returns the number of frames consumed."""
+        fpb = self.pipe.frame_block
+        consumed = 0
+        while self.fed < self.n:
+            c0 = self.fed
+            abs0 = self.start + c0
+            if not (latents_start <= abs0 and abs0 + fpb <= latents_start + latents.shape[1]):
+                break
+            chunk = latents[:, abs0 - latents_start:abs0 - latents_start + fpb]
+            self.cache = self.pipe._eager_recache_chunk(self.cache, cross_new, chunk, c0,
+                                                        self.start)
+            self.fed += fpb
+            consumed += fpb
+        return consumed
+
+    def finish(self) -> kvc.KVCache:
+        """The completed post-switch cache: frames packed from slot 0,
+        counters as after the one-shot recache."""
+        assert self.fed == self.n, f"eager recache incomplete: {self.fed}/{self.n} frames fed"
+        return kvc.recache_state(self.pipe.cache_cfg, self.cache, self.start + self.n, self.n)
 
 
 class CausalInferencePipeline:
@@ -72,37 +173,61 @@ class CausalInferencePipeline:
         self.tables = make_rope_tables(self.cfg.head_dim, self.cfg.rope_max_pos,
                                        device=self.device)
         self.frame_block = config.num_frame_per_block
-        if (self.cache_cfg.sink_frames % self.frame_block
-                or self.cache_cfg.ring_frames % self.frame_block):
-            raise NotImplementedError(
-                "sink_size and local_attn_size - sink_size must be multiples "
-                "of num_frame_per_block (contiguous block writes); the "
-                "per-frame write form waits for ROADMAP queue 1, item 8")
+        # attention budget in frames (the whole cache at inference)
+        self.attn_window_frames = self.cache_cfg.total_frames
+        # with sink and ring both multiples of the block, every block's
+        # frames land in consecutive cache slots and are written at once
+        self._contig = (self.cache_cfg.sink_frames % self.frame_block == 0
+                        and self.cache_cfg.ring_frames % self.frame_block == 0)
+        # kernel_cache: None = on where the contiguous-ring invariant holds.
+        # The port has one cache layout, so either value computes the same
+        # numbers; True only adds the JAX package's checks.
+        kc = config.kernel_cache
+        if kc is None:
+            kc = self._contig
+        elif kc and not self._contig:
+            raise ValueError(
+                "kernel_cache requires the contiguous-ring invariant "
+                "(sink_size and local_attn_size - sink_size must be "
+                "multiples of num_frame_per_block)")
+        self.kernel_cache = bool(kc)
 
     @property
     def dtype(self) -> torch.dtype:
         return self.params["patch_embedding"]["weight"].dtype
 
-    def _forward(self, x, t_val, cross_kv, cache, start_frame, **kw):
+    def _forward(self, params, x, t_val, cross_kv, cache, start_frame, **kw):
         b, f = x.shape[:2]
         t = torch.full((b, f), t_val, dtype=torch.float32, device=x.device)
-        return D.dit_forward_cached(self.params, self.cfg, self.cache_cfg, self.tables,
+        kw.setdefault("fused_rope", self.config.fused_rope)
+        return D.dit_forward_cached(params, self.cfg, self.cache_cfg, self.tables,
                                     x, t, cross_kv, cache, start_frame, **kw)
+
+    def _generator(self, generator: Optional[torch.Generator]) -> Optional[torch.Generator]:
+        if generator is None and not self.deterministic_renoise:
+            generator = torch.Generator(device=self.device).manual_seed(self.config.seed)
+        return generator
 
     def _block_step(self, cache: kvc.KVCache, cross_kv: D.CrossKV,
                     noise_block: torch.Tensor, start_frame: int,
-                    generator: Optional[torch.Generator]):
-        """4-step denoise + clean-context commit for one block."""
+                    generator: Optional[torch.Generator], skip_commit: bool = False):
+        """4-step denoise + clean-context commit for one block.
+
+        ``skip_commit`` (the JAX package's ``_block_fn_nocommit``): no
+        commit, and no counter advance.  Exact for the last block before a
+        scheduled switch: its committed K/V would be read by nothing (the
+        eager recache's cache replaces this one), x0 never depends on the
+        commit, and the commit draws no noise."""
         b, f = noise_block.shape[:2]
         x = noise_block
         x0 = x
         n_steps = len(self.denoise_timesteps)
-        reuse_kv = self.config.reuse_last_denoise_kv
+        reuse_kv = self.config.reuse_last_denoise_kv and not skip_commit
         for i, t_val in enumerate(self.denoise_timesteps):
             # reuse_last_denoise_kv: the last denoise pass commits its K/V
             # in place of the clean-context commit forward
             commit = reuse_kv and i == n_steps - 1
-            flow, cache = self._forward(x, t_val, cross_kv, cache, start_frame,
+            flow, cache = self._forward(self.params, x, t_val, cross_kv, cache, start_frame,
                                         advance_counters=commit)
             t_flat = torch.full((b * f,), t_val, dtype=torch.float32, device=x.device)
             x0 = S.convert_flow_to_x0(
@@ -119,9 +244,9 @@ class CausalInferencePipeline:
                 x = S.add_noise(self.sched, x0.reshape(b * f, *x0.shape[2:]),
                                 noise.reshape(b * f, *x0.shape[2:]),
                                 t_next).reshape(x0.shape)
-        if not reuse_kv:
-            _, cache = self._forward(x0, float(self.config.context_noise), cross_kv,
-                                     cache, start_frame, kv_only=True)
+        if not reuse_kv and not skip_commit:
+            _, cache = self._forward(self.params, x0, float(self.config.context_noise),
+                                     cross_kv, cache, start_frame, kv_only=True)
         return x0, cache
 
     def init_cache(self, batch_size: int, dtype=None) -> kvc.KVCache:
@@ -134,6 +259,85 @@ class CausalInferencePipeline:
         return D.prepare_cross_kv(self.params, self.cfg,
                                   prompt_embeds.to(self.device), self.dtype)
 
+    # -- prompt switches -----------------------------------------------------
+
+    def _recache_fn(self, num_frames: int, global_sink: bool,
+                    overwrite_sink: Optional[bool] = None):
+        """The KV-recache for a prompt switch (``build_recache_fn`` on this
+        pipeline's forward).  ``overwrite_sink`` defaults to
+        ``not global_sink``: without a global sink the replay's first frames
+        become the new sink."""
+        if overwrite_sink is None:
+            overwrite_sink = not global_sink
+        if num_frames % self.frame_block:
+            if self.kernel_cache:
+                raise ValueError(
+                    "kernel_cache requires block-aligned recache sizes; set "
+                    "kernel_cache: false to allow odd recache lengths")
+            if self._contig:
+                # a recache of n frames sets ring_base = t - n + sink, which
+                # stays a block multiple only when n is one
+                print(f"[longlive_torch] WARNING: odd-sized recache ({num_frames} frames, "
+                      f"block {self.frame_block}): later blocks may land in "
+                      "non-consecutive cache slots and are written with the "
+                      "per-frame form for the rest of this pipeline's life.  Use "
+                      "block-aligned replay sizes (reactive_switch rounds down "
+                      "automatically).", file=sys.stderr, flush=True)
+                self._contig = False
+        return build_recache_fn(self.cfg, self.cache_cfg, self.tables,
+                                float(self.config.context_noise), num_frames, global_sink,
+                                overwrite_sink, self.attn_window_frames, forward=self._forward)
+
+    def reactive_switch(self, cache: kvc.KVCache, history: torch.Tensor,
+                        cross_new: D.CrossKV, current_frame: int,
+                        frames: Optional[int] = None) -> kvc.KVCache:
+        """Unscheduled (reactive) prompt switch at ``current_frame``: rebuilds
+        the KV cache under the new prompt and returns it.
+
+        Without a schedule the eager recache cannot hide the replay, so its
+        prefill is the stall.  ``frames`` (default
+        ``config.reactive_recache_frames``, else the full
+        ``min(local_attn, t)`` window) bounds it, rounded down to whole
+        blocks: a replay of r frames cuts the stall roughly r/window, and the
+        window refills with post-switch frames.  ``history``: the generated
+        latents ending at ``current_frame`` (at least the replay span)."""
+        local = self.cfg.local_attn_size
+        full = current_frame if local == -1 else min(local, current_frame)
+        if frames is None:
+            frames = self.config.reactive_recache_frames or full
+        fpb = self.frame_block
+        n = min(frames, full)
+        n -= n % fpb
+        if n <= 0:
+            n = min(fpb, full)
+        assert history.shape[1] >= n, f"history has {history.shape[1]} frames; replay needs {n}"
+        replay = history[:, history.shape[1] - n:]
+        return self._recache_fn(n, bool(self.config.global_sink))(
+            self.params, cache, cross_new, replay, current_frame - n)
+
+    def _eager_recache_chunk(self, cache: kvc.KVCache, cross_new: D.CrossKV,
+                             chunk: torch.Tensor, c0: int, recache_start: int) -> kvc.KVCache:
+        """One EagerRecache chunk: commits replay frames [c0, c0 + block)
+        (kv_only, new prompt) into slots [c0, c0 + block) under the
+        recache's sink + window rule, cut at the chunk's end."""
+        fpb = self.frame_block
+        fs = self.cache_cfg.frame_seq
+        _, cache = self._forward(
+            self.params, chunk, float(self.config.context_noise), cross_new, cache,
+            recache_start + c0,
+            kv_valid=kvc.recache_valid(self.cache_cfg, c0 + fpb, self.attn_window_frames,
+                                       device=chunk.device),
+            offsets=[(c0 + i) * fs for i in range(fpb)], write_frames=tuple(range(fpb)),
+            advance_counters=False, kv_only=True)
+        return cache
+
+    def begin_eager_recache(self, batch: int, switch_frame: int, dtype=None) -> EagerRecache:
+        """Starts an incremental recache for a prompt switch scheduled at
+        ``switch_frame`` (see EagerRecache)."""
+        return EagerRecache(self, batch, switch_frame, dtype)
+
+    # -- generation loops ------------------------------------------------------
+
     @torch.no_grad()
     def generate_latents(
         self, noise: torch.Tensor, cross_kv: D.CrossKV,
@@ -143,8 +347,7 @@ class CausalInferencePipeline:
         b, t_frames = noise.shape[:2]
         fpb = self.frame_block
         assert t_frames % fpb == 0
-        if generator is None and not self.deterministic_renoise:
-            generator = torch.Generator(device=self.device).manual_seed(self.config.seed)
+        generator = self._generator(generator)
         noise = noise.to(self.device)
         cache = self.init_cache(b)
         outputs = []
@@ -154,8 +357,7 @@ class CausalInferencePipeline:
             x0, cache = self._block_step(cache, cross_kv, noise[:, s:s + fpb], s, generator)
             outputs.append(x0)
             if profile:
-                if self.device.type == "cuda":
-                    torch.cuda.synchronize(self.device)
+                self._sync()
                 block_times.append(time.perf_counter() - t0)
         latents = torch.cat(outputs, dim=1)
         if profile:
@@ -164,4 +366,9 @@ class CausalInferencePipeline:
             print(f"[profile] blocks={len(block_times)} "
                   f"steady-state latency={mean / fpb * 1e3:.2f} ms/latent-frame "
                   f"({fpb / mean:.2f} latent fps, {4 * fpb / mean:.2f} pixel fps)")
+            self.last_block_times = block_times
         return latents
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)

@@ -1,7 +1,9 @@
-"""Prompt datasets: one prompt per line, and per-host sharding."""
+"""Prompt datasets: one prompt per line, prompt lists per line (interactive
+mode), and per-host sharding."""
 
 from __future__ import annotations
 
+import json
 from typing import List, Optional
 
 
@@ -23,6 +25,24 @@ class TextDataset:
         if self.extended_prompt_list is not None:
             batch["extended_prompts"] = self.extended_prompt_list[idx]
         return batch
+
+
+class MultiTextDataset:
+    """JSONL with {"prompts": [p0, p1, ...]} per line (interactive mode)."""
+
+    def __init__(self, jsonl_path: str):
+        self.rows: List[List[str]] = []
+        with open(jsonl_path, encoding="utf-8") as f:
+            for line in f:
+                line = line.strip()
+                if line:
+                    self.rows.append(json.loads(line)["prompts"])
+
+    def __len__(self):
+        return len(self.rows)
+
+    def __getitem__(self, idx):
+        return {"prompts": self.rows[idx], "idx": idx}
 
 
 def shard(dataset, host_index: int, host_count: int) -> List:

@@ -1,6 +1,7 @@
 """The plain version of the port's attention kernel (flash_attention on a
 CPU tensor) held against the JAX Pallas ``_flash_kernel`` run in interpret
-mode in its bias + kv_layer mode, D = 128, with masked cache slots."""
+mode in its bias + kv_layer and q_rope modes, D = 128, with masked cache
+slots and ragged q and KV tiles."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -37,6 +38,33 @@ def test_plain_flash_matches_pallas_kv_layer(valid_tokens, layer):
         torch.from_numpy(v_cache[layer].reshape(b * n, s, d)), torch.from_numpy(bias))
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=RTOL, atol=ATOL)
     assert TA.launches == 0  # CPU tensors never reach the kernel
+
+
+@pytest.mark.parametrize("sq,s,valid_tokens", [(40, 96, 80), (17, 64, 64), (64, 160, 100)])
+def test_plain_q_rope_matches_pallas(sq, s, valid_tokens):
+    """q_rope: q un-roped, rotated (halfsplit, softmax scale folded in) in
+    the prologue; cos/sin indexed by query row; q tiles of 16 rows leave
+    ragged rows at every Sq here."""
+    rng = np.random.default_rng(12)
+    L, b, n, d, layer = 2, 1, 2, 128, 1
+    k_cache = rng.standard_normal((L, b, n, s, d)).astype(np.float32)
+    v_cache = rng.standard_normal((L, b, n, s, d)).astype(np.float32)
+    q = rng.standard_normal((b, sq, n, d)).astype(np.float32)
+    cos = rng.uniform(-1, 1, (sq, d // 2)).astype(np.float32)
+    sin = rng.uniform(-1, 1, (sq, d // 2)).astype(np.float32)
+    bias = np.where(np.arange(s) < valid_tokens, 0.0, -1e30).astype(np.float32)[None]
+
+    ref = JA.flash_attention(
+        jnp.asarray(q), jnp.asarray(k_cache.reshape(L * b * n, s, d)),
+        jnp.asarray(v_cache.reshape(L * b * n, s, d)), jnp.asarray(bias),
+        block_q=16, block_kv=32, kv_layer=jnp.asarray(layer, jnp.int32),
+        q_rope=(jnp.asarray(cos), jnp.asarray(sin)), interpret=True)
+    out = TA.flash_attention(
+        torch.from_numpy(q), torch.from_numpy(k_cache[layer].reshape(b * n, s, d)),
+        torch.from_numpy(v_cache[layer].reshape(b * n, s, d)), torch.from_numpy(bias),
+        q_rope=(torch.from_numpy(cos), torch.from_numpy(sin)))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=RTOL, atol=ATOL)
+    assert TA.launches == 0 and TA.mode_launches == {"bias": 0, "q_rope": 0}
 
 
 def test_dense_attention_matches_jax():

@@ -1,14 +1,18 @@
 """``dit_forward_cached`` of the port held against the JAX package's
-kernel-layout cached forward over consecutive blocks: four denoise passes
-threading the cache, then the kv_only commit, through warm-up and a ring
-wrap.  Same parameters (carried across by utils.params), same inputs,
-float32 on the CPU; flows and the cache (in standard layout) compared."""
+cached forwards: over consecutive blocks against the kernel-layout form
+(four denoise passes threading the cache, then the kv_only commit, through
+warm-up and a ring wrap), and as a KV-recache with explicit cache plumbing
+against the write-then-attend form.  Same parameters (carried across by
+utils.params), same inputs, float32 on the CPU; flows and the cache (in
+standard layout) compared."""
 
+import dataclasses
 import functools
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from longlive_torch.config import CacheConfig, tiny_dit_config, tiny_geometry
@@ -88,3 +92,53 @@ def test_cached_forward_matches_jax_across_blocks():
         np.testing.assert_allclose(tv.numpy(), np.asarray(jstd.v), rtol=RTOL, atol=ATOL)
         assert (tcache.sink_filled, tcache.ring_filled) == (
             int(jcache.sink_filled), int(jcache.ring_filled))
+
+
+@pytest.mark.parametrize("global_sink", [False, True])
+def test_recache_forward_matches_jax(global_sink):
+    """One explicit-plumbing kv_only recache forward (replay 4 frames under
+    a new prompt, offsets from slot 0, the sink kept or overwritten) held
+    against the JAX package's build_recache_fn on a standard-layout cache
+    holding the same stale contents."""
+    from longlive_torch.pipeline.causal_inference import build_recache_fn
+    from longlive_tpu.config import tiny_dit_config as j_tiny
+    from longlive_tpu.pipeline.causal_inference import build_recache_fn as j_build
+
+    tcfg, jcfg = tiny_dit_config(), j_tiny()
+    geom = tiny_geometry()
+    tree = _jax_params(jcfg)
+    tparams, jparams = dit_params_from_jax(tree), jax.tree.map(jnp.asarray, tree)
+    fs = geom.frame_seq_length
+    tccfg = CacheConfig(sink_frames=1, ring_frames=3, frame_seq=fs)
+    jccfg = JCacheConfig(sink_frames=1, ring_frames=3, frame_seq=fs)
+    ttables = make_rope_tables(tcfg.head_dim, tcfg.rope_max_pos)
+    jtables = j_rope_tables(jcfg.head_dim, jcfg.rope_max_pos)
+    n, start = 4, 6
+    args = (0.0, n, global_sink, not global_sink, 4)
+    tfn = build_recache_fn(tcfg, tccfg, ttables, *args)
+    jfn = j_build(jcfg, jccfg, jtables, *args, attn_impl="xla")
+
+    rng = np.random.default_rng(7)
+    L, N, hd = tcfg.num_layers, tcfg.num_heads, tcfg.head_dim
+    stale = rng.standard_normal((2, L, 1, N, tccfg.size_tokens, hd)).astype(np.float32)
+    replay = rng.standard_normal((1, n, geom.channels, geom.height, geom.width)).astype(np.float32)
+    pe = rng.standard_normal((1, tcfg.text_len, tcfg.text_dim)).astype(np.float32)
+    tcache = TK.init_cache(tccfg, L, 1, N, hd, torch.float32)
+    tcache.k.copy_(torch.from_numpy(stale[0]))
+    tcache.v.copy_(torch.from_numpy(stale[1]))
+    tcache = TK.advance(tccfg, tcache, 0, 6)
+    jcache = JK.init_cache(jccfg, L, 1, N, hd, jnp.float32)
+    jcache = dataclasses.replace(JK.advance(jccfg, jcache, 0, 6),
+                                 k=jnp.asarray(stale[0].transpose(0, 1, 3, 2, 4)),
+                                 v=jnp.asarray(stale[1].transpose(0, 1, 3, 2, 4)))
+
+    tout = tfn(tparams, tcache, TD.prepare_cross_kv(tparams, tcfg, torch.from_numpy(pe),
+                                                    torch.float32),
+               torch.from_numpy(replay), start)
+    jout = jfn(jparams, jcache, JD.prepare_cross_kv(jparams, jcfg, jnp.asarray(pe), jnp.float32),
+               jnp.asarray(replay), jnp.asarray(start, jnp.int32))
+    tk, tv = TK.to_standard_layout(tout)
+    np.testing.assert_allclose(tk.numpy(), np.asarray(jout.k), rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(tv.numpy(), np.asarray(jout.v), rtol=RTOL, atol=ATOL)
+    assert (tout.ring_base, tout.sink_filled, tout.ring_filled) == (
+        int(jout.ring_base), int(jout.sink_filled), int(jout.ring_filled))

@@ -50,6 +50,32 @@ def test_flash_attention_kernel_matches_plain(dev, sq, s, valid):
                           v[..., :64].contiguous(), bias.contiguous())
 
 
+@pytest.mark.parametrize("sq,s,valid", [(40, 100, 100), (130, 64, 30), (1, 257, 200),
+                                         (300, 200, 150)])
+def test_flash_attention_q_rope_kernel_matches_plain(dev, sq, s, valid):
+    """q_rope mode at ragged q rows (cos/sin rows past Sq are never read:
+    they are cut exactly at Sq here) and ragged KV tiles."""
+    from longlive_torch.ops import attention as A
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    b, n, d = 1, 3, 128
+    q = torch.randn((b, sq, n, d), generator=g, device=dev).to(torch.bfloat16)
+    k = torch.randn((b * n, s, d), generator=g, device=dev).to(torch.bfloat16)
+    v = torch.randn((b * n, s, d), generator=g, device=dev).to(torch.bfloat16)
+    ang = torch.rand((sq, d // 2), generator=g, device=dev) * 6.3
+    rope = (ang.cos().contiguous(), ang.sin().contiguous())
+    bias = torch.where(torch.arange(s, device=dev) < valid, 0.0, A.NEG_INF).float()[None]
+    before = dict(A.mode_launches)
+    out = A.flash_attention(q, k, v, bias.contiguous(), q_rope=rope)
+    ref = A.flash_attention_plain(q, k, v, bias, q_rope=rope)
+    torch.cuda.synchronize()
+    assert A.mode_launches["q_rope"] == before["q_rope"] + 1
+    assert A.mode_launches["bias"] == before["bias"]
+    _assert_agrees(out, ref)
+    with pytest.raises(ValueError):
+        A.flash_attention(q, k, v, bias.contiguous(), q_rope=(rope[0][:-1], rope[1]))
+
+
 @pytest.mark.parametrize("t,h,w,c,o,k,norm,res", [
     (1, 5, 13, 32, 96, 3, True, True),    # 65-pixel frame, one partial tile
     (2, 9, 30, 64, 192, 3, True, False),  # tiles span rows

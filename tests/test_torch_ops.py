@@ -98,3 +98,54 @@ def test_cache_index_math_through_warmup_and_ring_wrap(sink, ring, fpb, fs):
         tc, jc = TK.advance(tcfg, tc, start, fpb), JK.advance(jcfg, jc, start, fpb)
         assert (tc.ring_base, tc.sink_filled, tc.ring_filled) == (
             int(jc.ring_base), int(jc.sink_filled), int(jc.ring_filled))
+
+
+@pytest.mark.parametrize("sink,ring,end,n", [(3, 9, 40, 12), (3, 6, 9, 6), (1, 3, 2, 2), (2, 4, 7, 1)])
+def test_recache_state_and_zero_cache(sink, ring, end, n):
+    tcfg = CacheConfig(sink_frames=sink, ring_frames=ring, frame_seq=2)
+    jcfg = JCacheConfig(sink_frames=sink, ring_frames=ring, frame_seq=2)
+    tc = TK.init_cache(tcfg, 2, 1, 1, 4, torch.float32)
+    tc.k.normal_()
+    tc.v.normal_()
+    tc = TK.advance(tcfg, tc, 0, sink + 2)
+    jc = JK.init_cache(jcfg, 2, 1, 1, 4, jnp.float32)
+    jc = JK.advance(jcfg, jc, 0, sink + 2)
+    tz, jz = TK.zero_cache(tc), JK.zero_cache(jc)
+    assert not tz.k.any() and not tz.v.any() and tz.k.data_ptr() == tc.k.data_ptr()
+    assert (tz.ring_base, tz.sink_filled, tz.ring_filled) == (
+        int(jz.ring_base), int(jz.sink_filled), int(jz.ring_filled))
+    tr, jr = TK.recache_state(tcfg, tz, end, n), JK.recache_state(jcfg, jz, end, n)
+    assert (tr.ring_base, tr.sink_filled, tr.ring_filled) == (
+        int(jr.ring_base), int(jr.sink_filled), int(jr.ring_filled))
+
+
+@pytest.mark.parametrize("offsets,write_frames", [
+    ([0, 4, 8], None),           # consecutive: one copy
+    ([8, 12, 4], None),          # the ring wraps inside the block
+    ([0, 4, 8, 12], (1, 2, 3)),  # a recache keeping the sink frame
+    ([12, 0], (0,)),
+])
+def test_write_block_kv_per_frame_matches_jax(offsets, write_frames):
+    fs, n, d = 4, 2, 3
+    cfg = CacheConfig(sink_frames=1, ring_frames=3, frame_seq=fs)
+    rng = np.random.default_rng(4)
+    f = len(offsets)
+    new_k = rng.standard_normal((1, f * fs, n, d)).astype(np.float32)
+    new_v = rng.standard_normal((1, f * fs, n, d)).astype(np.float32)
+    base = rng.standard_normal((2, 1, n, cfg.size_tokens, d)).astype(np.float32)
+    tc = TK.init_cache(cfg, 2, 1, n, d, torch.float32)
+    tc.k.copy_(torch.from_numpy(base))
+    tc.v.copy_(torch.from_numpy(-base))
+    TK.write_block_kv(cfg, tc, 1, torch.from_numpy(new_k), torch.from_numpy(new_v), offsets,
+                      write_frames)
+    # JAX: the layer in standard layout, only the frames written
+    frames = range(f) if write_frames is None else write_frames
+    sel = np.concatenate([np.arange(i * fs, (i + 1) * fs) for i in frames])
+    jk, jv = JK.write_block_kv(
+        cfg, jnp.asarray(base[1].transpose(0, 2, 1, 3)), jnp.asarray(-base[1].transpose(0, 2, 1, 3)),
+        jnp.asarray(new_k[:, sel]), jnp.asarray(new_v[:, sel]),
+        jnp.asarray([offsets[i] for i in frames], jnp.int32))
+    tk, tv = TK.to_standard_layout(tc)
+    np.testing.assert_array_equal(tk[1].numpy(), np.asarray(jk))
+    np.testing.assert_array_equal(tv[1].numpy(), np.asarray(jv))
+    np.testing.assert_array_equal(tk[0].numpy(), base[0].transpose(0, 2, 1, 3))

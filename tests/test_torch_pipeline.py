@@ -50,8 +50,7 @@ def test_generate_latents_matches_jax(reuse):
 
 def test_unported_knobs_raise():
     params = {"patch_embedding": {"weight": torch.zeros(1)}}
-    for knob in (dict(kv_int8=True), dict(fused_rope=True), dict(kernel_cache=False),
-                 dict(switch_frame_indices=(4,))):
+    for knob in (dict(kv_int8=True), dict(recache_attn_impl="xla")):
         with pytest.raises(NotImplementedError):
             CausalInferencePipeline(PipelineConfig(**{**_PC, **knob}), params,
                                     dit_config=tiny_dit_config(), device="cpu")
