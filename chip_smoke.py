@@ -10,13 +10,15 @@ Phases, each of which exits non-zero when it fails:
 1. card identity (``nvidia-smi`` name and power limit);
 2. build of every CUDA kernel of the paths below from ``longlive_torch/csrc``;
 3. kernel checks at the paths' shapes: each kernel (K1 in its bias and
-   q_rope modes) against its plain PyTorch version on the same inputs, with
+   q_rope modes, K4's forward and backward at the four training shapes)
+   against its plain PyTorch version on the same inputs, with
    times of the kernel, the plain version, the least time the card could
    take, and one PyTorch library call computing the same function (timed
    here only, never used by the port);
 4. a small-input reference: the port on the GPU (bf16, kernels) against the
    port on the CPU (float32, plain versions), for single-prompt, fused-rope,
-   one-shot-recache, eager-recache and reactive generation;
+   one-shot-recache, eager-recache and reactive generation, and one
+   training step;
 5. the paths, at full Wan2.1-1.3B width with random weights, each with
    every kernel's launch count checked against the count derived from the
    model structure:
@@ -28,7 +30,14 @@ Phases, each of which exits non-zero when it fails:
       6-frame replay);
    d. interactive: ``run_interactive`` (one-shot recache) on
       ``configs/longlive_interactive_inference.yaml`` cut to 27 frames with
-      switches at 12 and 18, then the eager-recache loop on the same inputs.
+      switches at 12 and 18, then the eager-recache loop on the same inputs;
+   e. training: ``run_train`` on ``configs/longlive_train_init.yaml`` (21
+      frames, generator, critic and teacher all 1.3B) for 2 steps, K4's
+      forward and backward launches checked; then one step of the same
+      trainer on models with non-zero heads (``run_train``'s random init
+      gives the teacher and critic zero heads, which zeroes the generator's
+      gradient and stops the critic's at its head), with non-zero gradients
+      reaching the first layer of the generator and of the critic.
 
 The last lines are the ``kernels`` JSON line, the card line, and
 ``{"ok": true, "device": {...}}``.
@@ -38,6 +47,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import io
 import json
 import math
@@ -50,6 +60,7 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak
 PEAK_BYTES = 3.35e12      # H100 SXM HBM3 bandwidth
+UPDATE_LIMIT = 0.25       # GPU-vs-CPU parameter change of one small training step
 
 
 def fail(msg: str) -> None:
@@ -675,6 +686,357 @@ def run_interactive_paths(torch, A, VC) -> dict:
     return {"interactive_oneshot": oneshot, "interactive_eager": eager}
 
 
+# ---------------------------------------------------------------------------
+# phase 3b: K4 checks at the training path's shapes
+
+
+def train_attention_cases(torch):
+    """K4's four shape classes on the training path (B 1, 12 heads of 128):
+    (label, Sq, Skv, kv_valid or None).  The rollout's self-attention is
+    the last block of a 21-frame rollout: the 21-frame cache (window 12,
+    the block's own slots excluded: sink 3 + 6 recent frames valid) beside
+    the fresh 3-frame block."""
+    from longlive_torch.config import CacheConfig
+    from longlive_torch.ops import kv_cache as kvc
+
+    fs = 1560
+    cc = CacheConfig(sink_frames=3, ring_frames=18, frame_seq=fs)
+    state = kvc.KVCache(k=torch.empty(0), v=torch.empty(0), ring_base=3, sink_filled=3,
+                        ring_filled=15)
+    cache_valid = kvc.validity_mask(cc, state, 18, 3, window_frames=12, device="cuda",
+                                    exclude_block=True)
+    rollout_valid = torch.cat([cache_valid, torch.ones(3 * fs, dtype=torch.bool, device="cuda")])
+    return [
+        ("rollout self: 3-frame block over the 21-frame cache + block", 3 * fs, 24 * fs,
+         rollout_valid[None]),
+        ("rollout cross: 3-frame block over 512 text tokens", 3 * fs, 512, None),
+        ("critic/teacher self: 21 frames over 21 frames", 21 * fs, 21 * fs, None),
+        ("critic/teacher cross: 21 frames over 512 text tokens", 21 * fs, 512, None),
+    ]
+
+
+def check_train_attention(torch, A):
+    """K4 forward and backward (the dQ kernel, then the dK/dV kernel)
+    against their plain versions at each shape class, with times of the
+    kernels, the plain versions, the bound, and
+    ``scaled_dot_product_attention`` (forward; its backward as one
+    ``torch.autograd.grad`` call).  Bounds count valid kv tokens only:
+    forward 4 B N Sq Skv D operations, backward 10 (S recomputed, dP, dV,
+    dK, dQ)."""
+    import torch.nn.functional as F
+
+    b, n, d, bf = 1, 12, 128, torch.bfloat16
+    g = torch.Generator(device="cuda").manual_seed(7)
+    fwd_cases, bwd_cases = [], []
+    for label, sq, skv, valid in train_attention_cases(torch):
+        q, k, v, dout = (torch.randn((b, s, n, d), generator=g, device="cuda").to(bf)
+                         for s in (sq, skv, skv, sq))
+        nvalid = skv if valid is None else int(valid.sum())
+        out, lse = A.flash_attention_train_forward(q, k, v, valid)
+        dq, dk, dv = A.flash_attention_train_backward(q, k, v, out, lse, dout, valid)
+        torch.cuda.synchronize()
+        ref, ref_lse = A.flash_attention_train_plain(q, k, v, valid)
+        rdq, rdk, rdv = A.flash_attention_train_backward_plain(q, k, v, ref, ref_lse, dout, valid)
+        torch.cuda.synchronize()
+        for name, t in (("out", out), ("dq", dq), ("dk", dk), ("dv", dv)):
+            if not torch.isfinite(t).all():
+                fail(f"flash_attention_train ({label}): non-finite {name}")
+        f_err, f_tol, f_rel = agreement(out, ref)
+        lse_err = (lse - ref_lse).abs().max().item()
+        grads = [agreement(x, y) for x, y in ((dq, rdq), (dk, rdk), (dv, rdv))]
+        del ref, ref_lse, rdq, rdk, rdv
+        fwd_ms = cuda_ms(torch, lambda: A.flash_attention_train_forward(q, k, v, valid), 5)
+        bwd_ms = cuda_ms(torch, lambda: A.flash_attention_train_backward(
+            q, k, v, out, lse, dout, valid), 5)
+        plain_fwd = cuda_ms(torch, lambda: A.flash_attention_train_plain(q, k, v, valid), 1)
+        plain_bwd = cuda_ms(torch, lambda: A.flash_attention_train_backward_plain(
+            q, k, v, out, lse, dout, valid), 1)
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+        mask4 = None if valid is None else valid[:, None, None, :]
+        lib_fwd = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask4), 5)
+        lo = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask4)
+        dot = dout.transpose(1, 2)
+        lib_bwd = cuda_ms(torch, lambda: torch.autograd.grad(lo, (qt, kt, vt), dot,
+                                                             retain_graph=True), 5)
+        work = b * n * sq * nvalid * d
+        # bytes: q, k, v read and out, lse written; backward reads q, k, v,
+        # out, dout, lse and writes dq, dk, dv
+        io_fwd = 2 * (2 * q.numel() + k.numel() + v.numel()) + 4 * b * n * sq
+        io_bwd = 2 * (4 * q.numel() + 2 * k.numel() + 2 * v.numel()) + 4 * b * n * sq
+        tb_f, by_f = bound(4.0 * work, io_fwd)
+        tb_b, by_b = bound(10.0 * work, io_bwd)
+        g_err = max(e for e, _, _ in grads)
+        g_rel = max(r for _, _, r in grads)
+        log(f"flash_attention_train {label}: forward max_abs_err={f_err:.3e} tol={f_tol:.3e} "
+            f"rel_rms_err={f_rel:.3e} lse max_abs_err={lse_err:.3e}; backward (dq, dk, dv) "
+            + ", ".join(f"{e:.3e}/{t:.3e}/{r:.3e}" for e, t, r in grads)
+            + f"; ms fwd={fwd_ms:.4f} bwd={bwd_ms:.4f} plain fwd={plain_fwd:.2f} "
+            f"bwd={plain_bwd:.2f} library fwd={lib_fwd:.4f} bwd={lib_bwd:.4f} bound "
+            f"fwd={tb_f:.4f} ({by_f}) bwd={tb_b:.4f} ({by_b})")
+        if not (f_err <= f_tol and f_rel <= REL_RMS_LIMIT and lse_err <= 1e-2):
+            fail(f"flash_attention_train forward ({label}) disagrees with its plain version: "
+                 f"max_abs_err {f_err} (limit {f_tol}), rel_rms_err {f_rel}, lse {lse_err}")
+        for name, (e, t, r) in zip(("dq", "dk", "dv"), grads):
+            if not (e <= t and r <= REL_RMS_LIMIT):
+                fail(f"flash_attention_train backward ({label}) {name} disagrees with its "
+                     f"plain version: max_abs_err {e} (limit {t}), rel_rms_err {r}")
+        common = {"case": label, "q": [b, sq, n, d], "kv": [b, skv, n, d],
+                  "valid_tokens": nvalid}
+        fwd_cases.append(dict(common, max_abs_err=f_err, tolerance=f_tol, rel_rms_err=f_rel,
+                              ms=fwd_ms, plain_ms=plain_fwd, library_ms=lib_fwd,
+                              bound_ms=tb_f, bound_by=by_f))
+        bwd_cases.append(dict(common, max_abs_err=g_err,
+                              tolerance=min(t for _, t, _ in grads), rel_rms_err=g_rel,
+                              ms=bwd_ms, plain_ms=plain_bwd, library_ms=lib_bwd,
+                              bound_ms=tb_b, bound_by=by_b))
+        del q, k, v, dout, out, lse, dq, dk, dv, qt, kt, vt, lo
+        torch.cuda.empty_cache()
+
+    def entry(name, cases, what):
+        head = cases[2]  # the critic's self-attention, the largest call
+        # the case nearest its own limit (outputs, so limits, differ by shape)
+        worst = max(cases, key=lambda c: c["max_abs_err"] / c["tolerance"])
+        return {
+            "name": name, "route": "cuda",
+            "source": "longlive_torch/csrc/flash_attention_train.cu",
+            "replaces": "longlive_tpu/ops/attention.py:1012",
+            "max_abs_err": worst["max_abs_err"], "tolerance": worst["tolerance"],
+            "worst_case": worst["case"],
+            "rel_rms_err": max(c["rel_rms_err"] for c in cases),
+            "rel_rms_limit": REL_RMS_LIMIT,
+            "ms": head["ms"], "kernel_ms": head["ms"], "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+            "library_ms": head["library_ms"],
+            "unit": f"one {what} call at the critic's self-attention (32760 over 32760)",
+            "cases": cases,
+        }
+
+    return (entry("flash_attention_train", fwd_cases, "forward"),
+            entry("flash_attention_train_backward", bwd_cases,
+                  "backward (dQ kernel + dK/dV kernel)"))
+
+
+# ---------------------------------------------------------------------------
+# phase 4b: small-input training reference
+
+
+def check_small_training(torch):
+    """One train step (generator and critic) of a small model on the GPU
+    (float32 parameters, bf16 autocast, kernels) against the CPU (float32,
+    plain versions), the same draws.  Losses and grad norms within 5e-2
+    relative (bf16 operands).  The change of the parameters, p1 - p0, within
+    UPDATE_LIMIT of the CPU's change (relative, over each model): a step
+    that made no update reads 1 and one with the wrong sign 2.  The
+    learning rates are raised so that the change stands clear of float32
+    rounding; AdamW's first step with beta1 = 0 moves each element by
+    ~lr * sign(grad), so elements whose gradient is below bf16's noise may
+    flip, and that is what the reading measures."""
+    from longlive_torch.config import DiTConfig, LatentGeometry
+    from longlive_torch.models import dit as D
+    from longlive_torch.training.trainer import (ScoreDistillationTrainer, TrainerConfig,
+                                                 map_tree, param_leaves)
+
+    cfg = DiTConfig(dim=256, ffn_dim=512, num_heads=2, num_layers=2, in_dim=16, out_dim=16,
+                    text_dim=64, text_len=16, freq_dim=64, local_attn_size=2, sink_size=1,
+                    num_frame_per_block=1, rope_max_pos=64)
+    geom = LatentGeometry(height=10, width=12)
+    tcfg = TrainerConfig(num_frame_per_block=1, num_training_frames=3,
+                         min_num_training_frames=3, slice_last_frames=3,
+                         dfake_gen_update_ratio=1, lr=1e-4, lr_critic=3e-5)
+    g = torch.Generator().manual_seed(8)
+    noise = torch.randn((1, 3, 16, geom.height, geom.width), generator=g)
+    pc, pu = (torch.randn((1, cfg.text_len, cfg.text_dim), generator=g) for _ in range(2))
+    models = [D.init_dit_params(cfg, torch.float32, "cpu", seed=s, zero_head=False)
+              for s in (3, 4, 5)]
+    runs = {}
+    draws = None
+    for dev in ("cpu", "cuda"):
+        copies = (map_tree(lambda t: t.detach().to(dev, copy=True), m) for m in models)
+        tr = ScoreDistillationTrainer(tcfg, cfg, geom, *copies, device=dev)
+        draws = draws or tr.sample_draws(noise.shape, 0)
+        runs[dev] = (tr.train_step(noise, pc, pu, draws), tr)
+    (mc, tc), (mg, tg) = runs["cpu"], runs["cuda"]
+    errs = {k: abs(mg[k] - mc[k]) / max(abs(mc[k]), 1e-12)
+            for k in ("generator_loss", "critic_loss", "generator_grad_norm", "critic_grad_norm")}
+    flat = lambda tree: torch.cat([t.detach().flatten().cpu() for t in param_leaves(tree)])  # noqa: E731
+    for key, p0 in (("gen_params", models[0]), ("critic_params", models[1])):
+        d_gpu, d_cpu = flat(tg.state[key]) - flat(p0), flat(tc.state[key]) - flat(p0)
+        errs[f"{key} change"] = ((d_gpu - d_cpu).norm() / d_cpu.norm()).item()
+    log(f"small training reference (GPU bf16 kernels vs CPU float32 plain; limits 5e-2 for "
+        f"losses and grad norms, {UPDATE_LIMIT} for the parameters' change, where no update "
+        "reads 1): " + ", ".join(f"{k} rel_err={v:.3e}" for k, v in errs.items()))
+    bad = {k: v for k, v in errs.items()
+           if not v <= (UPDATE_LIMIT if k.endswith("change") else 5e-2)}
+    if bad or not all(math.isfinite(mg[k]) for k in errs if not k.endswith("change")):
+        fail(f"small training reference disagrees: {bad}")
+
+
+# ---------------------------------------------------------------------------
+# phase 5e: the training path at full width
+
+
+def derived_train_launches(layers: int, blocks: int, gen_exit, critic_exits) -> dict:
+    """K4 launches of ``run_train`` steps, from the model: a rollout block
+    runs (exit + 1) forwards of every layer's self- and cross-attention and
+    a commit over all but the last layer; the DMD loss runs the critic and
+    the (cond + uncond batched) teacher once each; the generator's replay
+    reruns the rollout, and its exit forwards are recomputed under
+    checkpointing and differentiated; the critic's loss forward likewise."""
+    L, nb = layers, blocks
+
+    def rollout(e):
+        return nb * (2 * L * (e + 1) + 2 * (L - 1))
+
+    fwd = bwd = 0
+    if gen_exit is not None:
+        fwd += rollout(gen_exit) + 4 * L + nb * (2 * L * gen_exit + 4 * L + 2 * (L - 1))
+        bwd += nb * 2 * L
+    for e in critic_exits:
+        fwd += rollout(e) + 4 * L
+        bwd += 2 * L
+    return {"fwd": fwd, "bwd_dq": bwd, "bwd_dkdv": bwd}
+
+
+def run_training_path(torch, A, VC, card: str) -> dict:
+    """``run_train`` on ``configs/longlive_train_init.yaml`` at full width
+    (21 frames, 7 blocks) for 2 steps: step 0 trains the generator and the
+    critic, step 1 the critic.  ``phase_ledger`` is switched on in a copy
+    of the config for the phase split; no checkpoint is written."""
+    import shutil
+
+    import yaml
+
+    from longlive_torch import run_train
+    from longlive_torch.config import DiTConfig
+
+    with open(os.path.join(ROOT, "configs", "longlive_train_init.yaml")) as f:
+        raw = yaml.safe_load(f)
+    raw["phase_ledger"] = True
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    path = os.path.join(ROOT, "build", "chip_smoke_train.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(raw, f)
+    logdir = os.path.join(ROOT, "build", "chip_smoke_train")
+    shutil.rmtree(logdir, ignore_errors=True)
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(A, VC)
+    t0 = time.perf_counter()
+    run_captured(lambda: run_train.main([
+        "--config_path", path, "--logdir", logdir, "--allow_random_weights", "--max_iters", "2",
+        "--no_auto_resume", "--no_save", "--device", "cuda"]))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = dict(A.train_launches)
+    serving = counts(A, VC)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    with open(os.path.join(logdir, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    if [r["step"] for r in rows] != [0, 1]:
+        fail(f"training: logged steps {[r['step'] for r in rows]}, expected [0, 1]")
+    if "generator_loss" not in rows[0] or "generator_loss" in rows[1]:
+        fail("training: step 0 must train the generator and the critic, step 1 the critic")
+    losses = {f"step {r['step']} {k}": r[k] for r in rows
+              for k in ("generator_loss", "critic_loss", "generator_grad_norm",
+                        "critic_grad_norm") if k in r}
+    if not all(math.isfinite(v) for v in losses.values()):
+        fail(f"training: non-finite losses {losses}")
+    fpb = int(raw["num_frame_per_block"])
+    want = derived_train_launches(DiTConfig().num_layers, int(raw["num_training_frames"]) // fpb,
+                                  rows[0]["exit_idx"],
+                                  [r["critic_exit_idx"] for r in rows])
+    log(f"training: launches {json.dumps(got)} (want {json.dumps(want)}; exits: generator "
+        f"{rows[0]['exit_idx']}, critic {[r['critic_exit_idx'] for r in rows]})")
+    if got != want:
+        fail(f"training: K4 launch counts {got} != {want}")
+    if serving["flash_attention"] != {"bias": 0, "q_rope": 0} or serving["fused_causal_conv"]:
+        fail(f"training: serving kernels launched {serving}")
+    if peak >= 80:
+        fail(f"training: peak device memory {peak:.2f} GiB")
+    steps = [{"step_s": sum(r["phase_ms"].values()) / 1e3, "phase_ms": r["phase_ms"]}
+             for r in rows]
+    for r, s in zip(rows, steps):
+        log(f"training step {r['step']}: {s['step_s']:.2f} s "
+            f"({', '.join(f'{k} {v:.0f} ms' for k, v in s['phase_ms'].items())})")
+    log(f"training on {card}: {wall:.1f} s wall for set-up and 2 steps, peak device "
+        f"memory {peak:.2f} GiB; " + ", ".join(f"{k} {v:.6g}" for k, v in losses.items()))
+    return {"wall_s": wall, "peak_gib": peak, "steps": steps, "losses": losses,
+            "launches": got, "frames": int(raw["num_training_frames"])}
+
+
+def run_live_training_step(torch, A, VC, card: str) -> dict:
+    """One step (generator and critic) of the trainer ``run_train`` builds
+    for ``configs/longlive_train_init.yaml``, on full-width models with
+    non-zero heads (seeds 0, 2, 1 for generator, critic, teacher), so that
+    every K4 backward of the step carries a gradient.  Fails unless the
+    losses and grad norms are finite and the grad norms non-zero, every
+    parameter is finite afterwards, the first layer of the generator and of
+    the critic took an AdamW step (``adam_rms``: the RMS of the change less
+    the weight decay, over lr; 0 without a gradient, ~1 for AdamW's
+    sign-like first step where |grad| >> eps; the limit is 0.1, above the
+    ~1e-2 that float32 rounding of the decay alone can read), and the K4
+    launches are as derived."""
+    import yaml
+
+    from longlive_torch.config import LatentGeometry, pipeline_config_from_dict
+    from longlive_torch.models import dit as D
+    from longlive_torch.run_train import build_trainer_config
+    from longlive_torch.training.trainer import ScoreDistillationTrainer, param_leaves
+
+    with open(os.path.join(ROOT, "configs", "longlive_train_init.yaml")) as f:
+        raw = yaml.safe_load(f)
+    raw["phase_ledger"] = True
+    tcfg = build_trainer_config(raw)
+    cfg, geom = pipeline_config_from_dict(raw).dit_config(), LatentGeometry()
+    torch.cuda.reset_peak_memory_stats()
+    gen, critic, teacher = (D.init_dit_params(cfg, torch.float32, "cuda", seed=s,
+                                              zero_head=False) for s in (0, 2, 1))
+    tr = ScoreDistillationTrainer(tcfg, cfg, geom, gen, critic, teacher, device="cuda")
+    g = torch.Generator().manual_seed(11)
+    noise = torch.randn((1, tcfg.num_training_frames, geom.channels, geom.height, geom.width),
+                        generator=g)
+    pc, pu = (torch.randn((1, cfg.text_len, cfg.text_dim), generator=g) for _ in range(2))
+    watched = {("generator", tcfg.lr): (gen, [("self_attn", "q"), ("cross_attn", "k")]),
+               ("critic", tcfg.lr_critic): (critic, [("self_attn", "q"), ("cross_attn", "v")])}
+    before = {(who, lr, a, b): m["blocks"][0][a][b]["weight"].detach().clone()
+              for (who, lr), (m, names) in watched.items() for a, b in names}
+    reset_counts(A, VC)
+    m = tr.train_step(noise, pc, pu)
+    torch.cuda.synchronize()
+    got = dict(A.train_launches)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    adam_rms = {}
+    for (who, lr, a, b), p0 in before.items():
+        p1 = watched[(who, lr)][0]["blocks"][0][a][b]["weight"].detach()
+        step = (p1 - p0 * (1 - lr * tcfg.weight_decay)) / lr
+        adam_rms[f"{who} block 0 {a}.{b}"] = step.pow(2).mean().sqrt().item()
+    finite = all(bool(torch.isfinite(t).all()) for t in param_leaves(gen) + param_leaves(critic))
+    norms = {k: m[k] for k in ("generator_loss", "critic_loss", "generator_grad_norm",
+                               "critic_grad_norm", "dmdtrain_gradient_norm")}
+    want = derived_train_launches(cfg.num_layers,
+                                  tcfg.num_training_frames // tcfg.num_frame_per_block,
+                                  m["exit_idx"], [m["critic_exit_idx"]])
+    step_s = sum(m["phase_ms"].values()) / 1e3
+    log(f"training, non-zero heads, on {card}: {step_s:.2f} s "
+        f"({', '.join(f'{k} {v:.0f} ms' for k, v in m['phase_ms'].items())}), peak "
+        f"{peak:.2f} GiB; exits generator {m['exit_idx']}, critic {m['critic_exit_idx']}; "
+        + ", ".join(f"{k} {v:.6g}" for k, v in norms.items()) + "; AdamW step / lr RMS: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in adam_rms.items())
+        + f"; launches {json.dumps(got)} (want {json.dumps(want)})")
+    if not all(math.isfinite(v) for v in norms.values()) or not finite:
+        fail(f"training, non-zero heads: non-finite values {norms}, parameters finite: {finite}")
+    if not all(norms[k] > 0 for k in ("generator_grad_norm", "critic_grad_norm",
+                                      "dmdtrain_gradient_norm")):
+        fail(f"training, non-zero heads: a zero gradient {norms}")
+    if not all(v > 0.1 for v in adam_rms.values()):
+        fail(f"training, non-zero heads: a first layer took no AdamW step {adam_rms}")
+    if got != want:
+        fail(f"training, non-zero heads: K4 launch counts {got} != {want}")
+    return {"step_s": step_s, "phase_ms": m["phase_ms"], "peak_gib": peak, "norms": norms,
+            "adam_step_rms_over_lr": adam_rms, "launches": got}
+
+
 def main() -> None:
     try:
         import torch
@@ -710,11 +1072,13 @@ def main() -> None:
     t0 = time.perf_counter()
     entries = [check_attention(torch, A), check_conv(torch, VC)]
     check_attention_cases(torch, A, entries[0])
+    entries += check_train_attention(torch, A)
     log(f"kernel checks: {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
     check_small_reference(torch)
-    log(f"small reference: {time.perf_counter() - t0:.1f} s")
+    check_small_training(torch)
+    log(f"small references: {time.perf_counter() - t0:.1f} s")
 
     paths = {}
     for label, config, mode in (("main", "longlive_inference.yaml", "bias"),
@@ -724,13 +1088,23 @@ def main() -> None:
     paths["reactive"] = run_reactive_path(torch, A, VC)
     torch.cuda.empty_cache()
     paths.update(run_interactive_paths(torch, A, VC))
+    torch.cuda.empty_cache()
+    training = run_training_path(torch, A, VC, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    live = run_live_training_step(torch, A, VC, card)
     log("paths: " + json.dumps(paths))
+    log("training: " + json.dumps(training))
+    log("training, non-zero heads: " + json.dumps(live))
 
     for entry, name in zip(entries, ("flash_attention", "fused_causal_conv")):
         by_path = {label: p["launches"][name] for label, p in paths.items()}
         main_count = by_path["main"]
         entry["launches"] = sum(main_count.values()) if isinstance(main_count, dict) else main_count
         entry["launches_by_path"] = by_path
+    for entry, key in zip(entries[2:], ("fwd", "bwd_dq")):
+        entry["launches"] = training["launches"][key]
+        entry["launches_by_path"] = {"training": training["launches"][key]}
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": entries}), flush=True)
     print(card, flush=True)

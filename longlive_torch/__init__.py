@@ -5,10 +5,15 @@ denoises 3-frame latent blocks in 4 steps against a frame-sink + ring-window
 KV cache, and a streaming causal 3D-conv VAE decodes the latents.
 
 - ``longlive_torch.ops``      — scheduler, RoPE, KV ring cache, the attention
-                                and fused causal-conv kernels (``csrc/``)
-- ``longlive_torch.models``   — causal DiT (cached path) and the VAE decoder
+                                (serving and training) and fused causal-conv
+                                kernels (``csrc/``)
+- ``longlive_torch.models``   — causal DiT (cached path, serving and training
+                                forms), the bidirectional DiT (DMD teacher and
+                                critic) and the VAE decoder
 - ``longlive_torch.pipeline`` — the block-by-block generation loop
-- ``longlive_torch.utils``    — loading, parameter import, datasets, video IO
+- ``longlive_torch.training`` — self-forcing rollouts, DMD losses, the trainer
+- ``longlive_torch.utils``    — loading, parameter import, datasets, metrics,
+                                training checkpoints, video IO
 
 Entry points run on ``device="cuda"`` unless the caller asks for the CPU.
 """

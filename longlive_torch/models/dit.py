@@ -12,7 +12,12 @@ Plain functions over a parameter dict:
 - ``fused_rope``: q's rotation runs in the attention kernel's prologue;
 - RoPE uses absolute frame positions; cross-attention K/V are computed once
   per prompt (``prepare_cross_kv``);
-- adaLN: 6-way per-frame modulation per block, 2-way at the head.
+- adaLN: 6-way per-frame modulation per block, 2-way at the head;
+- the training form (``two_segment=True``): the cache is read-only inside
+  the layer loop, each layer attends [cache ++ its fresh block] through the
+  differentiable ``attend_train`` (cross-attention too) and returns the
+  block's K/V, which are committed once after the loop; ``remat_layers``
+  checkpoints each layer.
 """
 
 from __future__ import annotations
@@ -25,7 +30,10 @@ import torch
 
 from ..config import CacheConfig, DiTConfig
 from ..ops import kv_cache as kvc
-from ..ops.attention import NEG_INF, dense_attention, flash_attention
+from torch.utils.checkpoint import checkpoint
+
+from ..ops.attention import NEG_INF, attend_train, dense_attention, flash_attention
+from ..ops.attention import flash_attention_train
 from ..ops.embeddings import sinusoidal_embedding_1d
 from ..ops.rope import RopeTables, apply_rotary, halfsplit_qk_perm, rope_multipliers
 from . import nn
@@ -160,7 +168,7 @@ def time_modulation(params: dict, cfg: DiTConfig, t: torch.Tensor, dtype):
     te = params["time_embedding"]
     e = nn.linear(nn.silu(nn.linear(emb, te["fc1"])), te["fc2"])
     e0 = nn.linear(nn.silu(e), params["time_projection"]["fc"])
-    return e.reshape(b, f, cfg.dim), e0.reshape(b, f, 6, cfg.dim)
+    return e.reshape(b, f, cfg.dim).to(dtype), e0.reshape(b, f, 6, cfg.dim).to(dtype)
 
 
 def embed_text(params: dict, prompt_embeds: torch.Tensor, dtype) -> torch.Tensor:
@@ -202,6 +210,20 @@ def _flat(x: torch.Tensor) -> torch.Tensor:
     return x.reshape(b, f * fs, d)
 
 
+def _self_kv(layer_p: dict, cfg: DiTConfig, x: torch.Tensor, rope_cos: torch.Tensor,
+             rope_sin: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The block's roped K (RMS scale fused into RoPE's float32 premul) and
+    V, each [B, S, N, D]."""
+    b, s, _ = x.shape
+    n, hd = cfg.num_heads, cfg.head_dim
+    k = nn.linear(x, layer_p["k"])
+    v = nn.linear(x, layer_p["v"]).reshape(b, s, n, hd)
+    k_pre = nn.rms_scale(k, layer_p["norm_k"]["scale"], cfg.eps) if cfg.qk_norm else None
+    k = apply_rotary(k.reshape(b, s, n, hd), rope_cos, rope_sin, premul=k_pre,
+                     layout=cfg.rope_layout)
+    return k, v
+
+
 def _attention_layer_cached(
     layer_p: dict, cfg: DiTConfig, cache_cfg: CacheConfig, x: torch.Tensor,
     rope_cos: torch.Tensor, rope_sin: torch.Tensor, cache: kvc.KVCache, layer_idx: int,
@@ -216,11 +238,7 @@ def _attention_layer_cached(
     its dtype, and is rotated in the attention kernel's prologue."""
     b, s, _ = x.shape
     n, hd = cfg.num_heads, cfg.head_dim
-    k = nn.linear(x, layer_p["k"])
-    v = nn.linear(x, layer_p["v"]).reshape(b, s, n, hd)
-    k_pre = nn.rms_scale(k, layer_p["norm_k"]["scale"], cfg.eps) if cfg.qk_norm else None
-    k = apply_rotary(k.reshape(b, s, n, hd), rope_cos, rope_sin, premul=k_pre,
-                     layout=cfg.rope_layout)
+    k, v = _self_kv(layer_p, cfg, x, rope_cos, rope_sin)
     kvc.write_block_kv(cache_cfg, cache, layer_idx, k, v, offsets, write_frames)
     if kv_only:
         return None
@@ -242,13 +260,20 @@ def _attention_layer_cached(
 
 
 def _cross_attention_layer(layer_p: dict, cfg: DiTConfig, x: torch.Tensor,
-                           ck: torch.Tensor, cv: torch.Tensor) -> torch.Tensor:
+                           ck: torch.Tensor, cv: torch.Tensor,
+                           train: bool = False) -> torch.Tensor:
+    """Attention of x's queries over the prompt's K/V: plain softmax when
+    serving, ``flash_attention_train`` in the training forms."""
     b, s, _ = x.shape
     n, hd = cfg.num_heads, cfg.head_dim
     q = nn.linear(x, layer_p["q"])
     if cfg.qk_norm:
         q = nn.rms_norm(q, layer_p["norm_q"]["scale"], cfg.eps)
-    out = dense_attention(q.reshape(b, s, n, hd), ck.to(q.dtype), cv.to(q.dtype))
+    q = q.reshape(b, s, n, hd)
+    if train:
+        out = flash_attention_train(q, ck.to(q.dtype), cv.to(q.dtype))
+    else:
+        out = dense_attention(q, ck.to(q.dtype), cv.to(q.dtype))
     return nn.linear(out.reshape(b, s, n * hd), layer_p["o"])
 
 
@@ -275,15 +300,49 @@ def _block_body(cfg: DiTConfig, cache_cfg: CacheConfig, num_frames: int, x: torc
                                 kv_only=kv_only, fused_rope=fused_rope)
     if kv_only:
         return x
+    return _block_tail(cfg, f, x, y, layer_p, cross_k, cross_v, e_)
+
+
+def _block_tail(cfg: DiTConfig, f: int, x: torch.Tensor, y: torch.Tensor, layer_p: dict,
+                cross_k: torch.Tensor, cross_v: torch.Tensor, e_: list,
+                train: bool = False) -> torch.Tensor:
+    """A block after its self-attention output ``y``: gated residual,
+    cross-attention, modulated FFN."""
     x = x + _flat(_per_frame(y, f) * e_[2])
     norm3 = layer_p.get("norm3")
     h = nn.layer_norm(x, cfg.eps, scale=None if norm3 is None else norm3["scale"],
                       bias=None if norm3 is None else norm3["bias"])
-    x = x + _cross_attention_layer(layer_p["cross_attn"], cfg, h, cross_k, cross_v)
+    x = x + _cross_attention_layer(layer_p["cross_attn"], cfg, h, cross_k, cross_v, train)
     h = _modulated(x, cfg, f, e_[3], e_[4])
     ffn = layer_p["ffn"]
     y = nn.linear(nn.gelu_tanh(nn.linear(h, ffn["fc1"])), ffn["fc2"])
     return x + _flat(_per_frame(y, f) * e_[5])
+
+
+def _block_body_train(cfg: DiTConfig, f: int, x: torch.Tensor, layer_p: dict,
+                      cache_k: torch.Tensor, cache_v: torch.Tensor, cross_k: torch.Tensor,
+                      cross_v: torch.Tensor, e0: torch.Tensor, rope_cos, rope_sin,
+                      kv_valid: torch.Tensor, kv_only: bool = False):
+    """One causal block in the training form: the queries attend [this
+    layer's read-only cache rows ``cache_k``/``cache_v`` ([B, S, N, D])
+    under ``kv_valid`` ++ the block's own K/V].  Returns (x, block K, block
+    V); ``kv_only`` computes the K/V and leaves x as it is."""
+    b, s, _ = x.shape
+    n, hd = cfg.num_heads, cfg.head_dim
+    e = layer_p["modulation"][None, None].to(e0.dtype) + e0
+    e_ = [e[:, :, i][:, :, None] for i in range(6)]
+    h = _modulated(x, cfg, f, e_[0], e_[1])
+    sa = layer_p["self_attn"]
+    k, v = _self_kv(sa, cfg, h, rope_cos, rope_sin)
+    if kv_only:
+        return x, k, v
+    q = nn.linear(h, sa["q"])
+    q_pre = nn.rms_scale(q, sa["norm_q"]["scale"], cfg.eps) if cfg.qk_norm else None
+    q = apply_rotary(q.reshape(b, s, n, hd), rope_cos, rope_sin, premul=q_pre,
+                     layout=cfg.rope_layout)
+    y = attend_train(q, cache_k.to(q.dtype), cache_v.to(q.dtype), kv_valid, k2=k, v2=v)
+    y = nn.linear(y.reshape(b, s, n * hd), sa["o"])
+    return _block_tail(cfg, f, x, y, layer_p, cross_k, cross_v, e_, train=True), k, v
 
 
 def _head(params: dict, cfg: DiTConfig, x: torch.Tensor, e: torch.Tensor, f: int) -> torch.Tensor:
@@ -303,6 +362,8 @@ def dit_forward_cached(
     start_frame: int, *, kv_valid: Optional[torch.Tensor] = None,
     offsets: Optional[List[int]] = None, write_frames: Optional[Tuple[int, ...]] = None,
     advance_counters: bool = True, kv_only: bool = False, fused_rope: bool = False,
+    two_segment: bool = False, remat_layers: bool = False,
+    window_frames: Optional[int] = None, commit_writes: bool = True,
 ) -> Tuple[torch.Tensor, kvc.KVCache]:
     """One cached DiT forward over a block of F frames at absolute frame
     ``start_frame``.  x: [B, F, C, H, W] noisy latents; t: [B, F].
@@ -318,7 +379,21 @@ def dit_forward_cached(
     of the block's frames (default: their ring slots), ``write_frames`` the
     frames whose K/V are written (default all), ``kv_valid`` [S_cache] bool
     the attended tokens (default: the fill state's mask).  Each layer writes
-    those frames, then attends under that mask."""
+    those frames, then attends under that mask.
+
+    ``two_segment`` selects the training form (``_dit_forward_train``),
+    which takes the standard plumbing only, plus ``remat_layers``,
+    ``window_frames`` (attend the sink and the latest frames of a cache that
+    holds more) and ``commit_writes`` (False: the cache is left as it
+    was)."""
+    if two_segment:
+        if kv_valid is not None or offsets is not None or write_frames is not None or fused_rope:
+            raise ValueError("the training form takes no explicit cache plumbing "
+                             "and no fused_rope")
+        return _dit_forward_train(params, cfg, cache_cfg, tables, x, t, cross_kv, cache,
+                                  start_frame, advance_counters=advance_counters,
+                                  kv_only=kv_only, remat_layers=remat_layers,
+                                  window_frames=window_frames, commit_writes=commit_writes)
     b, f, c, h, w = x.shape
     dtype = params["patch_embedding"]["weight"].dtype
     if offsets is None:
@@ -346,6 +421,58 @@ def dit_forward_cached(
     else:
         out_tokens = _head(params, cfg, tokens, e, f)
         flow = unpatchify(out_tokens.float(), cfg, f, h, w)
+    if advance_counters:
+        cache = kvc.advance(cache_cfg, cache, start_frame, f)
+    return flow, dataclasses.replace(cache)
+
+
+def _dit_forward_train(
+    params: dict, cfg: DiTConfig, cache_cfg: CacheConfig, tables: RopeTables,
+    x: torch.Tensor, t: torch.Tensor, cross_kv: CrossKV, cache: kvc.KVCache,
+    start_frame: int, *, advance_counters: bool, kv_only: bool, remat_layers: bool,
+    window_frames: Optional[int], commit_writes: bool,
+) -> Tuple[torch.Tensor, kvc.KVCache]:
+    """The training form of ``dit_forward_cached`` (the JAX package's
+    ``two_segment=True``).  The cache is only read inside the layer loop:
+    each layer attends [its cache rows under the window's validity mask,
+    the block's own slots excluded, ++ the block's fresh K/V], so a graph
+    over this forward never holds a cache that a later write changes.  With
+    ``commit_writes`` the block's K/V of every layer are written into the
+    cache once, after the loop (in place, without gradient).  With
+    ``remat_layers`` and gradients enabled each layer runs under
+    ``torch.utils.checkpoint`` (non-reentrant): backward keeps each layer's
+    input and recomputes the rest.  ``kv_only``: the last layer computes
+    only its K/V and the flow is zeros."""
+    b, f, c, h, w = x.shape
+    dtype = params["patch_embedding"]["weight"].dtype
+    offsets = kvc.block_write_offsets(cache_cfg, cache, start_frame, f)
+    kv_valid = kvc.validity_mask(cache_cfg, cache, start_frame, f, window_frames=window_frames,
+                                 device=x.device, exclude_block=True)
+    tokens = nn.linear(patchify(x.to(dtype), cfg), params["patch_embedding"]).to(dtype)
+    e, e0 = time_modulation(params, cfg, t, dtype)
+    hp, wp = h // cfg.patch_size[1], w // cfg.patch_size[2]
+    rope_cos, rope_sin = rope_multipliers(tables, f, hp, wp, start_frame)
+    blocks = params["blocks"]
+    remat = remat_layers and torch.is_grad_enabled()
+    block_kv = []
+    for li, layer_p in enumerate(blocks):
+        args = (cfg, f, tokens, layer_p, cache.k[li].transpose(1, 2), cache.v[li].transpose(1, 2),
+                cross_kv.k[li], cross_kv.v[li], e0, rope_cos, rope_sin, kv_valid,
+                kv_only and li == len(blocks) - 1)
+        if remat:
+            tokens, k_blk, v_blk = checkpoint(_block_body_train, *args, use_reentrant=False)
+        else:
+            tokens, k_blk, v_blk = _block_body_train(*args)
+        if commit_writes:
+            block_kv.append((k_blk.detach(), v_blk.detach()))
+    if kv_only:
+        flow = torch.zeros((b, f, cfg.out_dim, h, w), dtype=torch.float32, device=x.device)
+    else:
+        flow = unpatchify(_head(params, cfg, tokens, e, f).float(), cfg, f, h, w)
+    if commit_writes:
+        with torch.no_grad():
+            for li, (k_blk, v_blk) in enumerate(block_kv):
+                kvc.write_block_kv(cache_cfg, cache, li, k_blk, v_blk, offsets)
     if advance_counters:
         cache = kvc.advance(cache_cfg, cache, start_frame, f)
     return flow, dataclasses.replace(cache)

@@ -3,11 +3,13 @@
 Matmuls run in the parameter dtype (bf16 at inference) with float32
 accumulation; normalisations compute their statistics in float32 and cast
 back.  Linear parameters are ``{"weight": [out, in], "bias": [out]}``.
+Training keeps float32 parameters and runs under ``torch.autocast`` on the
+GPU: linears then take bf16 operands, and RMS norms return their input's
+(bf16) dtype.
 """
 
 from __future__ import annotations
 
-import math
 from typing import Optional
 
 import torch
@@ -37,10 +39,11 @@ def layer_norm(x: torch.Tensor, eps: float = 1e-6,
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    """RMSNorm with float32 statistics; the scale is applied in x's dtype."""
+    """RMSNorm with float32 statistics; the scale and the weight are applied
+    in x's dtype."""
     var = x.float().square().mean(dim=-1, keepdim=True)
     scale = torch.rsqrt(var + eps).to(x.dtype)
-    return x * scale * weight
+    return x * scale * weight.to(x.dtype)
 
 
 def rms_scale(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -51,9 +54,10 @@ def rms_scale(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch
 
 
 def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
-    xf = x.float()
-    y = 0.5 * xf * (1.0 + torch.tanh(math.sqrt(2.0 / math.pi) * (xf + 0.044715 * xf ** 3)))
-    return y.to(x.dtype)
+    """0.5 x (1 + tanh(sqrt(2/pi) (x + 0.044715 x^3))), computed in float32
+    and rounded to x's dtype (PyTorch's kernel upcasts bf16), saving only
+    its input for backward."""
+    return F.gelu(x, approximate="tanh")
 
 
 def silu(x: torch.Tensor) -> torch.Tensor:

@@ -10,9 +10,16 @@
   in, while it stages the q tile).
 - ``dense_attention``: plain softmax attention, used for cross-attention
   (the text context is only 512 tokens).
+- ``flash_attention_train``: differentiable attention with a [B, Skv]
+  kv-valid mask for the training paths, a ``torch.autograd.Function``.  On
+  CUDA tensors its forward and its backward (dQ, then dK/dV) are the
+  kernels of ``csrc/flash_attention_train.cu``; on CPU tensors both run
+  their plain versions, ``flash_attention_train_plain`` and
+  ``flash_attention_train_backward_plain``.
 
-Layout: q and the output are [B, Sq, N, D]; K and V are one layer's rows of
-the cache, [B*N, S, D] (head-major, token rows contiguous).
+Layout: q and the output are [B, Sq, N, D]; ``flash_attention``'s K and V
+are one layer's rows of the cache, [B*N, S, D] (head-major, token rows
+contiguous); ``flash_attention_train``'s are [B, Skv, N, D].
 """
 
 from __future__ import annotations
@@ -31,11 +38,20 @@ launches = 0  # kernel launches of flash_attention since the last reset
 mode_launches = {"bias": 0, "q_rope": 0}  # the same launches, by mode
 
 
+# kernel launches of flash_attention_train since the last reset: its forward
+# (recomputes under checkpointing included) and its two backward kernels
+train_launches = {"fwd": 0, "bwd_dq": 0, "bwd_dkdv": 0}
+EMPTY_LSE = 1e30  # logsumexp of a row with no valid kv token (its P is 0)
+_PLAIN_ROWS = 8192  # query rows per chunk of the plain training versions
+
+
 def reset_launches() -> None:
     global launches
     launches = 0
     for mode in mode_launches:
         mode_launches[mode] = 0
+    for name in train_launches:
+        train_launches[name] = 0
 
 
 def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -153,3 +169,242 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     launches += 1
     mode_launches["bias" if q_rope is None else "q_rope"] += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# differentiable attention for the training paths
+
+
+def _kv_valid_2d(kv_valid: Optional[torch.Tensor], b: int, skv: int,
+                 device) -> Optional[torch.Tensor]:
+    """kv_valid [Skv] or [B, Skv] -> bool [B, Skv] on ``device`` (None stays None)."""
+    if kv_valid is None:
+        return None
+    valid = kv_valid.to(device=device, dtype=torch.bool)
+    if valid.ndim == 1:
+        valid = valid[None]
+    if valid.shape[-1] != skv:
+        raise ValueError(f"kv_valid covers {valid.shape[-1]} tokens, k has {skv}")
+    return valid.expand(b, skv)
+
+
+def flash_attention_train_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                kv_valid: Optional[torch.Tensor] = None):
+    """The forward kernel's arithmetic: logits (q.k) * scale in float32
+    (float64 for float64 inputs), masked tokens excluded, P rounded to V's
+    dtype for P V while the row sum takes the unrounded P.  A row with no
+    valid token gives zeros and lse = EMPTY_LSE.  One head and at most
+    ``_PLAIN_ROWS`` query rows at a time, so the critic's 32760 x 32760
+    logits never exist at once.
+
+    q: [B, Sq, N, D]; k, v: [B, Skv, N, D]; kv_valid: bool [Skv] or
+    [B, Skv] (None = all valid).  Returns (out [B, Sq, N, D] in q's dtype,
+    lse [B, N, Sq])."""
+    b, sq, n, d = q.shape
+    skv = k.shape[1]
+    acc = torch.promote_types(q.dtype, torch.float32)
+    scale = 1.0 / math.sqrt(d)
+    valid = _kv_valid_2d(kv_valid, b, skv, q.device)
+    out = torch.empty_like(q)
+    lse = torch.empty((b, n, sq), dtype=acc, device=q.device)
+    for bi in range(b):
+        for h in range(n):
+            kf, vf = k[bi, :, h].to(acc), v[bi, :, h].to(acc)
+            for r0 in range(0, sq, _PLAIN_ROWS):
+                rows = slice(r0, min(r0 + _PLAIN_ROWS, sq))
+                s = (q[bi, rows, h].to(acc) @ kf.T) * scale
+                if valid is not None:
+                    s = s.masked_fill(~valid[bi], NEG_INF)
+                m = s.amax(dim=-1, keepdim=True)
+                p = torch.exp(s - m)
+                if valid is not None:
+                    p = p * valid[bi]
+                l = p.sum(dim=-1, keepdim=True)
+                empty = l == 0
+                o = (p.to(v.dtype).to(acc) @ vf) / torch.where(empty, 1.0, l)
+                out[bi, rows, h] = o.to(q.dtype)
+                lse[bi, h, rows] = torch.where(empty, EMPTY_LSE, m + torch.log(l))[:, 0]
+    return out, lse
+
+
+def flash_attention_train_backward_plain(q, k, v, out, lse, dout,
+                                         kv_valid: Optional[torch.Tensor] = None):
+    """The backward kernels' arithmetic: P = exp(s - lse) recomputed (0
+    where masked), Delta = rowsum(dO * O), dV = P^T dO with P rounded to
+    V's dtype, dP = dO V^T, dS = P (dP - Delta) rounded to q's dtype,
+    dQ = scale dS K and dK = scale dS^T Q.  Chunked like the forward.
+    Returns (dq, dk, dv) in the dtypes of q, k, v."""
+    b, sq, n, d = q.shape
+    skv = k.shape[1]
+    acc = torch.promote_types(q.dtype, torch.float32)
+    scale = 1.0 / math.sqrt(d)
+    valid = _kv_valid_2d(kv_valid, b, skv, q.device)
+    delta = (dout.to(acc) * out.to(acc)).sum(dim=-1)  # [B, Sq, N]
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    for bi in range(b):
+        for h in range(n):
+            kf, vf = k[bi, :, h].to(acc), v[bi, :, h].to(acc)
+            dk_acc = torch.zeros((skv, d), dtype=acc, device=q.device)
+            dv_acc = torch.zeros((skv, d), dtype=acc, device=q.device)
+            for r0 in range(0, sq, _PLAIN_ROWS):
+                rows = slice(r0, min(r0 + _PLAIN_ROWS, sq))
+                qf, dof = q[bi, rows, h].to(acc), dout[bi, rows, h].to(acc)
+                p = torch.exp((qf @ kf.T) * scale - lse[bi, h, rows, None].to(acc))
+                if valid is not None:
+                    p = p * valid[bi]
+                dv_acc += p.to(v.dtype).to(acc).T @ dof
+                ds = p * (dof @ vf.T - delta[bi, rows, h, None])
+                ds = ds.to(q.dtype).to(acc)
+                dq[bi, rows, h] = (ds @ kf * scale).to(q.dtype)
+                dk_acc += ds.T @ qf
+            dk[bi, :, h] = (dk_acc * scale).to(k.dtype)
+            dv[bi, :, h] = dv_acc.to(v.dtype)
+    return dq, dk, dv
+
+
+def _check_train_operand(name: str, t: torch.Tensor, shape, device) -> None:
+    if t.device != device:
+        raise ValueError(f"flash_attention_train: {name} is on {t.device}, q on {device}")
+    if t.dtype != torch.bfloat16:
+        raise ValueError(f"flash_attention_train: {name} must be bf16, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"flash_attention_train: {name} must be {tuple(shape)}, "
+                         f"got {tuple(t.shape)}")
+    if not t.is_contiguous() or t.data_ptr() % 16:
+        raise ValueError(f"flash_attention_train: {name} must be contiguous and "
+                         "16-byte aligned")
+
+
+def _train_geometry(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+    """(B, Sq, Skv, N) after checking what the kernels take: bf16,
+    contiguous [B, S, N, 128] on one CUDA device, at least one kv token."""
+    if q.ndim != 4 or k.ndim != 4:
+        raise ValueError("flash_attention_train: q, k, v must be [B, S, N, D]")
+    b, sq, n, d = q.shape
+    if d != 128:
+        raise ValueError(f"flash_attention_train: head dim {d} unsupported "
+                         "(the kernels take 128)")
+    skv = k.shape[1]
+    if skv < 1 or sq < 1:
+        raise ValueError("flash_attention_train: empty q or kv")
+    _check_train_operand("q", q, (b, sq, n, d), q.device)
+    _check_train_operand("k", k, (b, skv, n, d), q.device)
+    _check_train_operand("v", v, (b, skv, n, d), q.device)
+    return b, sq, skv, n
+
+
+def _train_mask(kv_valid: Optional[torch.Tensor], b: int, skv: int, device):
+    """The kernels' mask operand: contiguous uint8 [B, Skv], or None."""
+    valid = _kv_valid_2d(kv_valid, b, skv, device)
+    return None if valid is None else valid.to(torch.uint8).contiguous()
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def flash_attention_train_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                  kv_valid: Optional[torch.Tensor] = None):
+    """(out, lse) of ``flash_attention_train``'s forward: the plain version
+    for CPU tensors, the forward kernel for CUDA tensors."""
+    if q.device.type == "cpu":
+        return flash_attention_train_plain(q, k, v, kv_valid)
+    b, sq, skv, n = _train_geometry(q, k, v)
+    mask = _train_mask(kv_valid, b, skv, q.device)
+    out = torch.empty_like(q)
+    lse = torch.empty((b, n, sq), dtype=torch.float32, device=q.device)
+    lib = kernels.load("flash_attention_train")
+    fn = lib.longlive_flash_train_fwd
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_float,
+                                                                ctypes.c_void_p]
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), None if mask is None else mask.data_ptr(),
+            out.data_ptr(), lse.data_ptr(), b, sq, skv, n, 1.0 / math.sqrt(q.shape[-1]),
+            _stream(q))
+    kernels.check(lib, rc, "flash_attention_train forward")
+    train_launches["fwd"] += 1
+    return out, lse
+
+
+def flash_attention_train_backward(q, k, v, out, lse, dout,
+                                   kv_valid: Optional[torch.Tensor] = None):
+    """(dq, dk, dv) of ``flash_attention_train``: the plain version for CPU
+    tensors, the dQ kernel then the dK/dV kernel for CUDA tensors."""
+    if q.device.type == "cpu":
+        return flash_attention_train_backward_plain(q, k, v, out, lse, dout, kv_valid)
+    b, sq, skv, n = _train_geometry(q, k, v)
+    mask = _train_mask(kv_valid, b, skv, q.device)
+    _check_train_operand("out", out, q.shape, q.device)
+    _check_train_operand("dout", dout, q.shape, q.device)
+    if lse.dtype != torch.float32 or tuple(lse.shape) != (b, n, sq) or not lse.is_contiguous():
+        raise ValueError("flash_attention_train: lse must be contiguous float32 [B, N, Sq]")
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty_like(lse)
+    mask_ptr = None if mask is None else mask.data_ptr()
+    lib = kernels.load("flash_attention_train")
+    fn = lib.longlive_flash_train_bwd_dq
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_float,
+                                                                ctypes.c_void_p]
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr, out.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b, sq, skv, n, scale, _stream(q))
+    kernels.check(lib, rc, "flash_attention_train backward (dq)")
+    train_launches["bwd_dq"] += 1
+    fn = lib.longlive_flash_train_bwd_dkdv
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_float,
+                                                                ctypes.c_void_p]
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr, dout.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, sq, skv, n, scale, _stream(q))
+    kernels.check(lib, rc, "flash_attention_train backward (dk, dv)")
+    train_launches["bwd_dkdv"] += 1
+    return dq, dk, dv
+
+
+class _FlashAttentionTrain(torch.autograd.Function):
+    """CPU tensors: the plain versions.  CUDA tensors: the kernels, which
+    raise ValueError for operands they cannot take (never a plain
+    fallback)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_valid):
+        valid = _kv_valid_2d(kv_valid, q.shape[0], k.shape[1], q.device)
+        out, lse = flash_attention_train_forward(q, k, v, valid)
+        ctx.save_for_backward(q, k, v, out, lse, valid)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse, valid = ctx.saved_tensors
+        return flash_attention_train_backward(q, k, v, out, lse, dout.contiguous(), valid) + (
+            None,)
+
+
+def flash_attention_train(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          kv_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Differentiable softmax(q k^T / sqrt(D), kv-masked) v: q [B, Sq, N, D],
+    k, v [B, Skv, N, D], kv_valid bool [Skv] or [B, Skv] (None = all
+    valid).  Returns [B, Sq, N, D] in q's dtype; gradients reach q, k, v.
+
+    CPU tensors run the plain versions.  CUDA tensors launch the kernels,
+    which take contiguous, 16-byte aligned bf16 operands with D = 128;
+    anything else raises ValueError."""
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"flash_attention_train: unsupported device {q.device}")
+    return _FlashAttentionTrain.apply(q, k, v, kv_valid)
+
+
+def attend_train(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 kv_valid: Optional[torch.Tensor] = None, k2: Optional[torch.Tensor] = None,
+                 v2: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The training route of every attention: with a second, fully valid
+    segment ``k2``/``v2`` (the fresh block beside the read-only cache), the
+    segments are concatenated and ``kv_valid`` is extended with ones; then
+    ``flash_attention_train``."""
+    if k2 is not None:
+        b = q.shape[0]
+        if kv_valid is not None:
+            kv_valid = torch.cat([_kv_valid_2d(kv_valid, b, k.shape[1], q.device),
+                                  torch.ones((b, k2.shape[1]), dtype=torch.bool,
+                                             device=q.device)], dim=1)
+        k = torch.cat([k, k2], dim=1)
+        v = torch.cat([v, v2], dim=1)
+    return flash_attention_train(q, k, v, kv_valid)

@@ -107,11 +107,14 @@ def advance(cfg: CacheConfig, cache: KVCache, start_frame: int,
 
 def validity_mask(cfg: CacheConfig, cache: KVCache, start_frame: int,
                   num_frames: int, window_frames: Optional[int] = None,
-                  device="cpu") -> torch.Tensor:
+                  device="cpu", exclude_block: bool = False) -> torch.Tensor:
     """Token-level boolean mask over the cache a forward at
     [start, +num_frames) may attend, the current block included.
     ``window_frames`` caps the budget to sink + the most recent frames when
-    the cache holds more history."""
+    the cache holds more history.  ``exclude_block`` drops the slots the
+    block writes: the training form attends [cache ++ fresh block] with
+    the block as a second segment, so its stale slots are masked out (the
+    union of this mask and the block is the written-through mask)."""
     after = advance(cfg, cache, start_frame, num_frames)
     valid = []
     end = start_frame + num_frames
@@ -129,6 +132,9 @@ def validity_mask(cfg: CacheConfig, cache: KVCache, start_frame: int,
                 slot_frame = end - 1 - (end - 1 - (cache.ring_base + r)) % cfg.ring_frames
                 ok = ok and slot_frame >= end - budget
         valid.append(ok)
+    if exclude_block:
+        for i in range(num_frames):
+            valid[frame_slot(cfg, start_frame + i, cache.ring_base)] = False
     return torch.tensor(valid, dtype=torch.bool, device=device).repeat_interleave(cfg.frame_seq)
 
 

@@ -108,3 +108,31 @@ def convert_flow_to_x0(sched: FlowMatchSchedule, flow_pred: torch.Tensor,
     sigma = _sigma_for(sched, timestep, xt.ndim)
     x0 = xt.float() - sigma * flow_pred.float()
     return x0.to(flow_pred.dtype)
+
+
+def training_weight(sched: FlowMatchSchedule, timestep: torch.Tensor) -> torch.Tensor:
+    """Per-sample loss weights at the nearest timestep."""
+    t = torch.as_tensor(timestep, dtype=torch.float32)
+    return sched.weights.to(t.device)[timestep_id(sched, t)]
+
+
+def training_target(sample: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
+    """Flow-matching target = noise - sample."""
+    return noise - sample
+
+
+def convert_x0_to_flow(sched: FlowMatchSchedule, x0_pred: torch.Tensor,
+                       xt: torch.Tensor, timestep: torch.Tensor) -> torch.Tensor:
+    """flow = (x_t - x0) / sigma_t."""
+    sigma = _sigma_for(sched, timestep, xt.ndim)
+    flow = (xt.float() - x0_pred.float()) / sigma
+    return flow.to(x0_pred.dtype)
+
+
+def convert_x0_to_noise(sched: FlowMatchSchedule, x0: torch.Tensor, xt: torch.Tensor,
+                        timestep: torch.Tensor) -> torch.Tensor:
+    """noise = (x_t - (1 - sigma) * x0) / sigma under the rectified-flow
+    corruption."""
+    sigma = _sigma_for(sched, timestep, xt.ndim)
+    noise = (xt.float() - (1.0 - sigma) * x0.float()) / sigma
+    return noise.to(x0.dtype)

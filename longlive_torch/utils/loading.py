@@ -43,6 +43,25 @@ def load_dit_params(config: PipelineConfig, cfg: DiTConfig, dtype=torch.bfloat16
     return D.init_dit_params(cfg, dtype, device, seed=config.seed)
 
 
+def load_base_dit(model_dir: str, cfg: DiTConfig, dtype=torch.float32, device="cuda",
+                  seed: int = 0, strict: bool = False) -> dict:
+    """Base Wan DiT weights (teacher / critic) from ``wan_models/<name>/``;
+    random init (seeded by ``seed``, zero head like the JAX package's
+    default init) with a warning when absent, FileNotFoundError instead
+    when ``strict``."""
+    if os.path.exists(model_dir):
+        raise NotImplementedError(
+            f"base DiT weights exist under {model_dir!r}, but checkpoint loading "
+            "(utils/checkpoint.py) is not ported yet: ROADMAP queue 1, item 7")
+    if strict:
+        raise FileNotFoundError(
+            f"base DiT weights not found under {model_dir!r}: distilling against a "
+            "random teacher/critic silently ruins a run; pass --allow_random_weights "
+            "to override")
+    _warn(f"base DiT weights not found under {model_dir!r} — using random init")
+    return D.init_dit_params(cfg, dtype, device, seed=seed)
+
+
 def load_vae_params(config: PipelineConfig, dtype=torch.bfloat16, device="cuda",
                     vcfg: Optional[V.VAEConfig] = None,
                     strict: bool = False) -> Tuple[dict, V.VAEConfig]:

@@ -7,10 +7,15 @@ Usage (from the repository root, on a host with an NVIDIA GPU):
 Full Wan2.1-1.3B width at 480x832 with random weights.  Runs blocks 0-3 of
 generation unprofiled, then profiles block 4 (frames 12-14: full window,
 ring wrapped) with ``torch.profiler``, then decodes latent frames 0-1 and
-profiles the decode of frame 2.  Device kernel time is grouped into the
-port's two kernels, matrix products, library convolutions and the rest; the
-idle share is 1 - (summed kernel time / host wall time of the same step run
-again without the profiler).
+profiles the decode of frame 2.  Then the training step of
+``configs/longlive_train_init.yaml`` (21 frames, float32 parameters under
+bf16 autocast): the generator's replay of the last rollout block (exit step
+1: one pre-exit forward, the exit forward with its backward, the commit)
+after six blocks unprofiled, and the critic's denoising loss with its
+backward.  Device kernel time is grouped into the port's kernels, matrix
+products, library convolutions and the rest; the idle share is 1 - (summed
+kernel time / host wall time of the same step run again without the
+profiler).
 Prints one JSON object and writes it to ``--out``.
 """
 
@@ -34,6 +39,7 @@ from longlive_torch.pipeline import CausalInferencePipeline  # noqa: E402
 
 GROUPS = (
     ("flash_attention (K1)", ("flash_attention_kernel",)),
+    ("flash_attention_train (K4)", ("fwd_kernel", "bwd_dq_kernel", "bwd_dkdv_kernel")),
     ("fused_causal_conv (K2)", ("causal_conv_kernel",)),
     # cuDNN's conv kernels are named *_fprop_implicit_gemm_*: test before gemm
     ("library conv (cuDNN)", ("fprop", "conv", "cudnn", "winograd")),
@@ -91,6 +97,61 @@ def _summary(label, wall, groups, kernels, per):
     }
 
 
+def training_steps(dev, cfg=None, geom=None, profile=None):
+    """Profiles of one replayed rollout block with backward and of the
+    critic loss with backward, at the training config's size (the 1.3B
+    and 480x832 unless ``cfg``/``geom`` say otherwise)."""
+    from longlive_torch.config import DiTConfig
+    from longlive_torch.training import dmd as DMD
+    from longlive_torch.training import rollout as RO
+    from longlive_torch.training.trainer import ScoreDistillationTrainer, TrainerConfig
+
+    cfg, geom, profile = cfg or DiTConfig(), geom or LatentGeometry(), profile or _profile
+    gen = D.init_dit_params(cfg, torch.float32, dev, seed=0, zero_head=False)
+    critic = D.init_dit_params(cfg, torch.float32, dev, seed=2, zero_head=False)
+    tr = ScoreDistillationTrainer(TrainerConfig(), cfg, geom, gen, critic, {}, device=dev)
+    g = torch.Generator().manual_seed(0)
+    frame = (cfg.in_dim, geom.height, geom.width)
+    noise = torch.randn((1, 21) + frame, generator=g).to(dev)
+    draws = torch.randn((7, 2, 1, 3) + frame, generator=g).to(dev)
+    prompt = torch.randn((1, cfg.text_len, cfg.text_dim), generator=g).to(dev)
+    cc = tr.cache_cfg
+    with torch.autocast(dev.type, dtype=torch.bfloat16, enabled=dev.type == "cuda",
+                        cache_enabled=False):
+        with torch.no_grad():
+            cross = D.prepare_cross_kv(gen, cfg, prompt, torch.float32)
+        leaf = D.CrossKV(cross.k.detach().requires_grad_(), cross.v.detach().requires_grad_())
+        cache = None
+        with torch.no_grad():
+            _, cache = RO.rollout_trajectory(gen, cfg, cc, tr.tables, tr.sched, tr.rcfg,
+                                             noise[:, :18], leaf, draws[:6], 1,
+                                             cache_dtype=tr.cache_dtype)
+        base_k, base_v = cache.k.clone(), cache.v.clone()
+        cot = torch.randn((1, 3) + frame, generator=g).to(dev)
+
+        def replay():
+            cache.k.copy_(base_k)
+            cache.v.copy_(base_v)
+            RO.rollout_block(gen, cfg, cc, tr.tables, tr.sched, tr.rcfg, leaf, noise[:, 18:],
+                             cache, draws[6], 18, 1, cotangent=cot)
+
+        block = _summary("training: replay of rollout block 6 (exit 1) with backward",
+                         *profile(replay), per="3 latent frames")
+        del base_k, base_v, cache
+        lat = torch.randn((1, 21) + frame, generator=g).to(dev)
+        st = torch.randint(0, 1000, (1,), generator=g)
+        sn = torch.randn((1, 21) + frame, generator=g)
+
+        def critic_step():
+            loss, _ = DMD.critic_denoising_loss(critic, lat, cfg, tr.tables, tr.sched, tr.dcfg,
+                                                prompt, st, sn)
+            loss.backward()
+
+        crit = _summary("training: critic denoising loss with backward (21 frames)",
+                        *profile(critic_step), per="one critic update's gradient")
+    return [block, crit]
+
+
 @torch.no_grad()
 def main():
     ap = argparse.ArgumentParser()
@@ -134,7 +195,11 @@ def main():
     vae = _summary("VAE decode of latent frame 2",
                    *_profile(lambda: V.vae_decode_chunk(vp, vcfg, lat[:, 2:3], caches, False)),
                    per="1 latent frame")
-    result = {"card": card, "torch": torch.__version__, "steps": [dit, vae]}
+    del params, pipe, cache, vp, caches, lat
+    torch.cuda.empty_cache()
+    with torch.enable_grad():
+        train = training_steps(dev)
+    result = {"card": card, "torch": torch.__version__, "steps": [dit, vae] + train}
     text = json.dumps(result, indent=1)
     print(text)
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)

@@ -107,3 +107,82 @@ def test_causal_conv_kernel_matches_plain(dev, t, h, w, c, o, k, norm, res):
     assert VC.launches == before + 2
     with pytest.raises(ValueError):
         VC.fused_causal_conv(x.float(), cache, wt, b, gamma, resid)
+
+
+# K4 at ragged shapes: (B, Sq, Skv, N, mask): no mask, a kv-valid mask with
+# a fully masked tile, a per-batch mask, the 512-token cross shape cut short
+@pytest.mark.parametrize("b,sq,skv,n,masked", [
+    (1, 40, 100, 3, False), (1, 130, 200, 2, True), (2, 77, 257, 2, True),
+    (1, 300, 77, 3, False)])
+def test_flash_attention_train_kernels_match_plain(dev, b, sq, skv, n, masked):
+    from longlive_torch.ops import attention as A
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    d, bf = 128, torch.bfloat16
+    q = torch.randn((b, sq, n, d), generator=g, device=dev).to(bf)
+    k = torch.randn((b, skv, n, d), generator=g, device=dev).to(bf)
+    v = torch.randn((b, skv, n, d), generator=g, device=dev).to(bf)
+    dout = torch.randn((b, sq, n, d), generator=g, device=dev).to(bf)
+    valid = None
+    if masked:
+        valid = torch.rand((b, skv), generator=g, device=dev) > 0.5
+        valid[:, 64:128] = False  # one whole kv tile masked
+    before = dict(A.train_launches)
+    qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+    out = A.flash_attention_train(qg, kg, vg, valid)
+    out.backward(dout)
+    ref, lse = A.flash_attention_train_plain(q, k, v, valid)
+    rdq, rdk, rdv = A.flash_attention_train_backward_plain(q, k, v, ref, lse, dout, valid)
+    torch.cuda.synchronize()
+    assert A.train_launches == {"fwd": before["fwd"] + 1, "bwd_dq": before["bwd_dq"] + 1,
+                                "bwd_dkdv": before["bwd_dkdv"] + 1}
+    _assert_agrees(out, ref)
+    for got, want in ((qg.grad, rdq), (kg.grad, rdk), (vg.grad, rdv)):
+        _assert_agrees(got, want)
+    # no atomics: a second backward is bit-identical
+    qg2, kg2, vg2 = (t.clone().requires_grad_() for t in (q, k, v))
+    A.flash_attention_train(qg2, kg2, vg2, valid).backward(dout)
+    assert torch.equal(qg2.grad, qg.grad) and torch.equal(kg2.grad, kg.grad)
+    assert torch.equal(vg2.grad, vg.grad)
+
+
+def test_flash_attention_train_two_segment_and_empty_rows(dev):
+    """attend_train's two-segment form (a half-masked cache beside a fully
+    valid block) against the plain versions, and a fully masked batch row
+    giving zeros and zero gradients (no NaN)."""
+    from longlive_torch.ops import attention as A
+
+    g = torch.Generator(device=dev).manual_seed(6)
+    d, bf = 128, torch.bfloat16
+    b, sq, s_cache, n = 2, 90, 160, 2
+    q, k2, v2 = (torch.randn((b, sq, n, d), generator=g, device=dev).to(bf) for _ in range(3))
+    kc, vc = (torch.randn((b, s_cache, n, d), generator=g, device=dev).to(bf) for _ in range(2))
+    valid = torch.arange(s_cache, device=dev) < 70
+    qg, k2g, v2g = (t.clone().requires_grad_() for t in (q, k2, v2))
+    out = A.attend_train(qg, kc, vc, valid, k2=k2g, v2=v2g)
+    out.float().square().sum().backward()
+    kcat, vcat = torch.cat([kc, k2], 1), torch.cat([vc, v2], 1)
+    vcat_valid = torch.cat([valid, torch.ones(sq, dtype=torch.bool, device=dev)])
+    ref, lse = A.flash_attention_train_plain(q, kcat, vcat, vcat_valid)
+    rdq, rdk, rdv = A.flash_attention_train_backward_plain(
+        q, kcat, vcat, ref, lse, (2 * out.detach().float()).to(bf), vcat_valid)
+    _assert_agrees(out, ref)
+    _assert_agrees(qg.grad, rdq)
+    _assert_agrees(k2g.grad, rdk[:, s_cache:])
+    _assert_agrees(v2g.grad, rdv[:, s_cache:])
+
+    empty = torch.ones((b, s_cache), dtype=torch.bool, device=dev)
+    empty[1] = False
+    qe, ke, ve = (t.clone().requires_grad_() for t in (q, kc, vc))
+    oe = A.flash_attention_train(qe, ke, ve, empty)
+    oe.float().sum().backward()
+    torch.cuda.synchronize()
+    assert torch.equal(oe[1], torch.zeros_like(oe[1]))
+    for t in (oe, qe.grad, ke.grad, ve.grad):
+        assert torch.isfinite(t).all()
+    assert torch.equal(qe.grad[1], torch.zeros_like(qe.grad[1]))
+    with pytest.raises(ValueError):
+        A.flash_attention_train(q.float(), kc.float(), vc.float())
+    with pytest.raises(ValueError):
+        A.flash_attention_train(q[..., :64].contiguous(), kc[..., :64].contiguous(),
+                                vc[..., :64].contiguous())

@@ -52,6 +52,25 @@ def test_add_noise_and_flow_to_x0():
         rtol=RTOL, atol=ATOL)
 
 
+def test_training_conversions_and_weights():
+    """convert_x0_to_flow / _noise, training_weight / _target against the
+    JAX scheduler (the training schedule's weights are compared above)."""
+    ts, js = _sched_pair()
+    rng = np.random.default_rng(1)
+    x0, xt = (rng.standard_normal((5, 4, 8, 8)).astype(np.float32) for _ in range(2))
+    t = np.asarray([999.0, 937.5, 500.0, 20.0, 980.0], np.float32)
+    tt, jt = torch.from_numpy(t), jnp.asarray(t)
+    for name in ("convert_x0_to_flow", "convert_x0_to_noise"):
+        np.testing.assert_allclose(
+            getattr(TS, name)(ts, torch.from_numpy(x0), torch.from_numpy(xt), tt).numpy(),
+            np.asarray(getattr(JS, name)(js, jnp.asarray(x0), jnp.asarray(xt), jt)),
+            rtol=1e-4, atol=1e-4)  # divides by sigma, down to ~0.1 here
+    np.testing.assert_allclose(TS.training_weight(ts, tt).numpy(),
+                               np.asarray(JS.training_weight(js, jt)), rtol=RTOL, atol=ATOL)
+    np.testing.assert_array_equal(
+        TS.training_target(torch.from_numpy(x0), torch.from_numpy(xt)).numpy(),
+        np.asarray(JS.training_target(jnp.asarray(x0), jnp.asarray(xt))))
+
 def test_sinusoidal_embedding():
     pos = np.asarray([0.0, 1.5, 250.0, 999.0], np.float32)
     np.testing.assert_allclose(TE.sinusoidal_embedding_1d(256, torch.from_numpy(pos)).numpy(),
@@ -99,6 +118,22 @@ def test_cache_index_math_through_warmup_and_ring_wrap(sink, ring, fpb, fs):
         assert (tc.ring_base, tc.sink_filled, tc.ring_filled) == (
             int(jc.ring_base), int(jc.sink_filled), int(jc.ring_filled))
 
+
+@pytest.mark.parametrize("sink,ring,fpb,window", [(3, 18, 3, 12), (1, 5, 1, 4), (3, 9, 3, None)])
+def test_validity_mask_excluding_the_block_matches_jax(sink, ring, fpb, window):
+    """The training form's mask (the block's own slots excluded) through
+    warm-up and ring wraps, with and without a window."""
+    tcfg = CacheConfig(sink_frames=sink, ring_frames=ring, frame_seq=2)
+    jcfg = JCacheConfig(sink_frames=sink, ring_frames=ring, frame_seq=2)
+    tc = TK.init_cache(tcfg, 1, 1, 1, 2, torch.float32)
+    jc = JK.init_cache(jcfg, 1, 1, 1, 2, jnp.float32)
+    for start in range(0, 2 * (sink + ring) + fpb, fpb):
+        np.testing.assert_array_equal(
+            TK.validity_mask(tcfg, tc, start, fpb, window_frames=window,
+                             exclude_block=True).numpy(),
+            np.asarray(JK.validity_mask(jcfg, jc, start, fpb, window_frames=window,
+                                        exclude_block=True)))
+        tc, jc = TK.advance(tcfg, tc, start, fpb), JK.advance(jcfg, jc, start, fpb)
 
 @pytest.mark.parametrize("sink,ring,end,n", [(3, 9, 40, 12), (3, 6, 9, 6), (1, 3, 2, 2), (2, 4, 7, 1)])
 def test_recache_state_and_zero_cache(sink, ring, end, n):
