@@ -9,16 +9,17 @@ Phases, each of which exits non-zero when it fails:
 
 1. card identity (``nvidia-smi`` name and power limit);
 2. build of every CUDA kernel of the paths below from ``longlive_torch/csrc``;
-3. kernel checks at the paths' shapes: each kernel (K1 in its bias and
-   q_rope modes, K4's forward and backward at the four training shapes)
-   against its plain PyTorch version on the same inputs, with
-   times of the kernel, the plain version, the least time the card could
-   take, and one PyTorch library call computing the same function (timed
-   here only, never used by the port);
+3. kernel checks at the paths' shapes: each kernel (K1 in its bias, q_rope
+   and qk_int8 modes, K2 bf16 and int8, K5, K4's forward and its two
+   backward kernels at the four training shapes) against its plain PyTorch
+   version on the same inputs, with times of the kernel, the plain version,
+   the least time the card could take, and one PyTorch library call
+   computing the same function (timed here only, never used by the port);
 4. a small-input reference: the port on the GPU (bf16, kernels) against the
    port on the CPU (float32, plain versions), for single-prompt, fused-rope,
-   one-shot-recache, eager-recache and reactive generation, and one
-   training step;
+   one-shot-recache, eager-recache and reactive generation, the quantized
+   serving mode (int8 linears, int8 K cache, int8 recache, int8 VAE convs),
+   and one training step;
 5. the paths, at full Wan2.1-1.3B width with random weights, each with
    every kernel's launch count checked against the count derived from the
    model structure:
@@ -31,7 +32,14 @@ Phases, each of which exits non-zero when it fails:
    d. interactive: ``run_interactive`` (one-shot recache) on
       ``configs/longlive_interactive_inference.yaml`` cut to 27 frames with
       switches at 12 and 18, then the eager-recache loop on the same inputs;
-   e. training: ``run_train`` on ``configs/longlive_train_init.yaml`` (21
+   e. int8 serving: the tuned config with ``kv_int8: true``, the DiT's
+      block linears quantized (``quantize_dit_params``),
+      ``LONGLIVE_INT8_FUSED=1`` and ``LONGLIVE_VAE_INT8=1``: 15 frames with
+      a reactive switch at frame 9, run cold and warm, then the VAE decode;
+   f. int8 recache: ``run_interactive`` on the interactive config with
+      ``recache_attn_impl: pallas_qk8`` (bf16 cache), 18 frames, one switch
+      at 12;
+   g. training: ``run_train`` on ``configs/longlive_train_init.yaml`` (21
       frames, generator, critic and teacher all 1.3B) for 2 steps, K4's
       forward and backward launches checked; then one step of the same
       trainer on models with non-zero heads (``run_train``'s random init
@@ -59,6 +67,7 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak
+PEAK_INT8_OPS = 1979e12   # H100 SXM dense int8 tensor-core peak
 PEAK_BYTES = 3.35e12      # H100 SXM HBM3 bandwidth
 UPDATE_LIMIT = 0.25       # GPU-vs-CPU parameter change of one small training step
 
@@ -104,8 +113,11 @@ def agreement(out, ref):
     return err, r.abs().max().item() / 64, rel
 
 
-def bound(flops: float, nbytes: float):
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+def bound(flops: float, nbytes: float, int8_ops: float = 0.0):
+    """(least ms, "operations" or "bytes"): bf16 operations at the bf16 peak
+    plus int8 operations at the int8 peak, against the bytes at HBM rate."""
+    t_ops = (flops / PEAK_BF16_FLOPS + int8_ops / PEAK_INT8_OPS) * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -150,17 +162,33 @@ def profile_number(text: str, pattern: str, what: str) -> float:
 
 
 def reset_counts(A, VC) -> None:
+    from longlive_torch.ops import quant as Q
+
     A.reset_launches()
-    VC.launches = 0
+    VC.reset_launches()
+    Q.reset_launches()
 
 
 def counts(A, VC) -> dict:
-    return {"flash_attention": dict(A.mode_launches), "fused_causal_conv": VC.launches}
+    """Serving launches: K1 and K2 by mode, K5, and the calls of the int8
+    linears' separate-quantize route (fc2, outside K5's shape rule)."""
+    from longlive_torch.ops import quant as Q
+
+    return {"flash_attention": dict(A.mode_launches),
+            "fused_causal_conv": dict(VC.mode_launches),
+            "int8_linear": Q.launches, "linear_int8_route": Q.linear_int8_calls}
 
 
-def check_counts(label: str, got: dict, want: dict) -> None:
-    log(f"{label}: launches {json.dumps(got)} (want {json.dumps(want)})")
-    for name, w in want.items():
+def expect(bias=0, q_rope=0, qk_int8=0, conv=0, conv_int8=0, k5=0, route=0) -> dict:
+    """A full set of expected counts (``counts``' keys), zero by default."""
+    return {"flash_attention": {"bias": bias, "q_rope": q_rope, "qk_int8": qk_int8},
+            "fused_causal_conv": {"bf16": conv, "int8": conv_int8},
+            "int8_linear": k5, "linear_int8_route": route}
+
+
+def check_counts(label: str, got: dict, expected: dict) -> None:
+    log(f"{label}: launches {json.dumps(got)} (want {json.dumps(expected)})")
+    for name, w in expected.items():
         if got[name] != w:
             fail(f"{label}: launch count of {name} {got[name]} != {w}")
 
@@ -213,7 +241,7 @@ def check_attention(torch, A):
     t_bound, bound_by = bound(flops, nbytes)
     full = cases[-1]
     return {
-        "name": "flash_attention", "route": "cuda",
+        "name": "flash_attention", "route": "cuda", "mode": "bias",
         "source": "longlive_torch/csrc/flash_attention.cu",
         "replaces": "longlive_tpu/ops/attention.py:63",
         "max_abs_err": max(c["max_abs_err"] for c in cases),
@@ -240,9 +268,25 @@ ATTN_CASES = [
 ]
 
 
+def _attention_entry(name: str, mode: str, cases: list, head: dict, unit: str) -> dict:
+    return {
+        "name": name, "route": "cuda", "mode": mode,
+        "source": "longlive_torch/csrc/flash_attention.cu",
+        "replaces": "longlive_tpu/ops/attention.py:63",
+        "max_abs_err": max(c["max_abs_err"] for c in cases),
+        "tolerance": min(c["tolerance"] for c in cases),
+        "rel_rms_err": max(c["rel_rms_err"] for c in cases),
+        "rel_rms_limit": REL_RMS_LIMIT,
+        "ms": head["ms"], "kernel_ms": head["ms"], "plain_ms": head["plain_ms"],
+        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+        "library_ms": head["library_ms"], "unit": unit, "cases": cases,
+    }
+
+
 def check_attention_cases(torch, A, entry):
-    """Adds the ATTN_CASES to K1's entry.  q_rope cases: cos/sin are the
-    DiT's rope multipliers for the block; ``library_ms`` is
+    """Adds the ATTN_CASES: the bias cases to K1's bias entry; returns the
+    q_rope entry (headline: the tuned decode).  q_rope cases: cos/sin are
+    the DiT's rope multipliers for the block; ``library_ms`` is
     ``scaled_dot_product_attention`` on q roped beforehand (no single
     PyTorch call applies the rotation and attends, so the rope pass is
     excluded from it).  Each bound counts the valid KV tokens only."""
@@ -253,6 +297,7 @@ def check_attention_cases(torch, A, entry):
     b, n, d, fs = 1, 12, 128, 1560
     tables = make_rope_tables(d, 1024, device="cuda")
     g = torch.Generator(device="cuda").manual_seed(6)
+    rope_cases = []
     for label, mode, qf, kf, vf in ATTN_CASES:
         sq, s = qf * fs, kf * fs
         q = torch.randn((b, sq, n, d), generator=g, device="cuda").to(torch.bfloat16)
@@ -285,16 +330,145 @@ def check_attention_cases(torch, A, entry):
             fail(f"flash_attention ({label}) disagrees with its plain version: "
                  f"max_abs_err {err} (limit {tol}), rel_rms_err {rel} "
                  f"(limit {REL_RMS_LIMIT})")
-        entry["cases"].append({
-            "case": label, "mode": mode, "q": [b, sq, n, d], "kv": [b * n, s, d],
-            "valid_tokens": vf * fs, "max_abs_err": err, "tolerance": tol,
-            "rel_rms_err": rel, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-            "bound_ms": t_bound, "bound_by": bound_by})
-        entry["max_abs_err"] = max(entry["max_abs_err"], err)
-        entry["tolerance"] = min(entry["tolerance"], tol)
-        entry["rel_rms_err"] = max(entry["rel_rms_err"], rel)
+        case = {"case": label, "mode": mode, "q": [b, sq, n, d], "kv": [b * n, s, d],
+                "valid_tokens": vf * fs, "max_abs_err": err, "tolerance": tol,
+                "rel_rms_err": rel, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                "bound_ms": t_bound, "bound_by": bound_by}
+        if mode == "q_rope":
+            rope_cases.append(case)
+        else:
+            entry["cases"].append(case)
+            entry["max_abs_err"] = max(entry["max_abs_err"], err)
+            entry["tolerance"] = min(entry["tolerance"], tol)
+            entry["rel_rms_err"] = max(entry["rel_rms_err"], rel)
         del q, k, v, out, qr, qt, kt, vt
         torch.cuda.empty_cache()
+    return _attention_entry("flash_attention_q_rope", "q_rope", rope_cases, rope_cases[0],
+                            "one call at the tuned decode shape (3 frames over 9)")
+
+
+# K1's qk_int8 mode at the int8 paths' shapes: (label, query frames, cache
+# frames, K stored int8 with its scales).  The int8 K cache of the tuned
+# config (9 frames); the 12-frame one-shot recache of the interactive
+# config with K quantized per call (pallas_qk8 on a bf16 cache).
+INT8_ATTN_CASES = [
+    ("qk_int8 decode, stored K scales: 3-frame block over the 9-frame int8 cache", 3, 9, True),
+    ("qk_int8 recache (pallas_qk8): 12 frames over the 12-frame bf16 cache", 12, 12, False),
+]
+
+
+def check_attention_int8(torch, A):
+    """K1's qk_int8 mode against its plain version.  ``library_ms`` is
+    ``scaled_dot_product_attention`` on bf16 q, K (dequantized where it is
+    stored int8) and V: no PyTorch call attends with int8 QK^T.  The bound
+    counts QK^T at the int8 rate and PV at the bf16 rate; the bytes are q
+    and the output in bf16, K as the call reads it (int8 and its float32
+    scales, or bf16), V in bf16 and the bias."""
+    import torch.nn.functional as F
+
+    b, n, d, fs = 1, 12, 128, 1560
+    g = torch.Generator(device="cuda").manual_seed(12)
+    cases = []
+    for label, qf, kf, stored in INT8_ATTN_CASES:
+        sq, s = qf * fs, kf * fs
+        q = torch.randn((b, sq, n, d), generator=g, device="cuda").to(torch.bfloat16)
+        kb = torch.randn((b * n, s, d), generator=g, device="cuda").to(torch.bfloat16)
+        v = torch.randn((b * n, s, d), generator=g, device="cuda").to(torch.bfloat16)
+        bias = torch.zeros((b, s), dtype=torch.float32, device="cuda")
+        k, ksc = A.quantize_k_tokens(kb) if stored else (kb, None)
+        out = A.flash_attention(q, k, v, bias, qk_int8=True, k_scales=ksc)
+        ref = A.flash_attention_plain(q, k, v, bias, qk_int8=True, k_scales=ksc)
+        torch.cuda.synchronize()
+        if not torch.isfinite(out).all():
+            fail(f"flash_attention ({label}): non-finite output")
+        err, tol, rel = agreement(out, ref)
+        del ref
+        kd = A.dequantize_k(k, ksc, torch.bfloat16) if stored else kb
+        qt, kt, vt = q.transpose(1, 2), kd.view(b, n, s, d), v.view(b, n, s, d)
+        ms = cuda_ms(torch, lambda: A.flash_attention(q, k, v, bias, qk_int8=True,
+                                                      k_scales=ksc), 10)
+        plain_ms = cuda_ms(torch, lambda: A.flash_attention_plain(q, k, v, bias, qk_int8=True,
+                                                                  k_scales=ksc), 2)
+        lib_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt), 10)
+        work = 2.0 * b * n * sq * s * d
+        k_bytes = k.numel() * (1 if stored else 2) + (ksc.numel() * 4 if stored else 0)
+        t_bound, bound_by = bound(work, 2 * q.numel() * 2 + k_bytes + v.numel() * 2 + b * s * 4,
+                                  int8_ops=work)
+        log(f"flash_attention {label}: max_abs_err={err:.3e} tol={tol:.3e} "
+            f"rel_rms_err={rel:.3e} (limit {REL_RMS_LIMIT:.0e}) ms={ms:.4f} "
+            f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} bound_ms={t_bound:.4f} "
+            f"({bound_by}; {t_bound / ms:.1%} of bound)")
+        if not (err <= tol and rel <= REL_RMS_LIMIT):
+            fail(f"flash_attention ({label}) disagrees with its plain version: "
+                 f"max_abs_err {err} (limit {tol}), rel_rms_err {rel} "
+                 f"(limit {REL_RMS_LIMIT})")
+        cases.append({"case": label, "mode": "qk_int8", "q": [b, sq, n, d],
+                      "kv": [b * n, s, d], "k_stored_int8": stored, "max_abs_err": err,
+                      "tolerance": tol, "rel_rms_err": rel, "ms": ms, "plain_ms": plain_ms,
+                      "library_ms": lib_ms, "bound_ms": t_bound, "bound_by": bound_by})
+        del q, k, kb, kd, v, out, qt, kt, vt
+        torch.cuda.empty_cache()
+    return _attention_entry("flash_attention_qk_int8", "qk_int8", cases, cases[0],
+                            "one call at the int8 decode shape (3 frames over the 9-frame "
+                            "int8 cache)")
+
+
+# K5 at the int8 serving path's shapes: (label, M, K, N).  Per full forward
+# and layer: q, k, v, o, cross q, cross o at M 4680 and fc1; the cross k, v
+# once per prompt and layer at M 512.
+K5_CASES = [
+    ("q, k, v, o, cross q, cross o: 3-frame block", 4680, 1536, 1536),
+    ("fc1: 3-frame block", 4680, 1536, 8960),
+    ("cross k, v: 512 text tokens", 512, 1536, 1536),
+]
+
+
+def check_int8_linear(torch, Q):
+    """K5 against its plain version.  ``library_ms`` is the separate-quantize
+    route (``quantize_activations``, ``torch._int_mm`` and the float32
+    rescale), the JAX package's default route for these linears."""
+    g = torch.Generator(device="cuda").manual_seed(13)
+    cases = []
+    for label, m, k, n in K5_CASES:
+        x = torch.randn((m, k), generator=g, device="cuda").to(torch.bfloat16)
+        lim = math.sqrt(6.0 / (k + n))
+        w = (torch.rand((n, k), generator=g, device="cuda") * 2 - 1) * lim
+        p = Q.quantize_weight(w.to(torch.bfloat16))
+        p["bias"] = (0.02 * torch.randn((n,), generator=g, device="cuda")).to(torch.bfloat16)
+        out = Q.linear_int8_fused(x, p)
+        ref = Q.linear_int8_fused_plain(x, p)
+        torch.cuda.synchronize()
+        if not torch.isfinite(out).all():
+            fail(f"int8_linear ({label}): non-finite output")
+        err, tol, rel = agreement(out, ref)
+        ms = cuda_ms(torch, lambda: Q.linear_int8_fused(x, p), 20)
+        plain_ms = cuda_ms(torch, lambda: Q.linear_int8_fused_plain(x, p), 5)
+        lib_ms = cuda_ms(torch, lambda: Q.linear_int8(x, p), 20)
+        t_bound, bound_by = bound(0.0, 2 * m * k + n * k + 4 * n + 2 * n + 2 * m * n,
+                                  int8_ops=2.0 * m * k * n)
+        log(f"int8_linear {label} (M {m}, K {k}, N {n}): max_abs_err={err:.3e} tol={tol:.3e} "
+            f"rel_rms_err={rel:.3e} equal={(out == ref).float().mean().item():.6f} ms={ms:.4f} "
+            f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} bound_ms={t_bound:.4f} "
+            f"({bound_by}; {t_bound / ms:.1%} of bound)")
+        if not (err <= tol and rel <= REL_RMS_LIMIT):
+            fail(f"int8_linear ({label}) disagrees with its plain version: max_abs_err {err} "
+                 f"(limit {tol}), rel_rms_err {rel} (limit {REL_RMS_LIMIT})")
+        cases.append({"case": label, "m": m, "k": k, "n": n, "max_abs_err": err,
+                      "tolerance": tol, "rel_rms_err": rel, "ms": ms, "plain_ms": plain_ms,
+                      "library_ms": lib_ms, "bound_ms": t_bound, "bound_by": bound_by})
+        del x, w, p, out, ref
+    head = cases[0]
+    return {
+        "name": "int8_linear", "route": "cuda", "source": "longlive_torch/csrc/int8_linear.cu",
+        "replaces": "longlive_tpu/ops/quant.py:131",
+        "max_abs_err": max(c["max_abs_err"] for c in cases),
+        "tolerance": min(c["tolerance"] for c in cases),
+        "rel_rms_err": max(c["rel_rms_err"] for c in cases), "rel_rms_limit": REL_RMS_LIMIT,
+        "ms": head["ms"], "kernel_ms": head["ms"], "plain_ms": head["plain_ms"],
+        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+        "library_ms": head["library_ms"],
+        "unit": "one call at q/k/v/o (M 4680, K 1536, N 1536)", "cases": cases,
+    }
 
 
 # The 30 fused convs of one later latent frame of the Wan2.1 decoder at
@@ -314,13 +488,20 @@ CONV_CASES = [
 ]
 
 
-def check_conv(torch, VC):
-    """K2 at every fused-conv shape of one later latent frame; the headline
-    numbers are sums over the 30 convs of that frame."""
+def check_conv(torch, VC, int8: bool = False):
+    """K2 at every fused-conv shape of one later latent frame, bf16 or the
+    int8 variant (``LONGLIVE_VAE_INT8=1`` around its calls, the int8
+    weights packed once); the headline numbers are sums over the 30 convs
+    of that frame.  ``library_ms`` is cuDNN's bf16 conv3d on the
+    normalised frames in both cases (no PyTorch call convolves in int8);
+    the int8 bound counts the convs' operations at the int8 rate."""
     import torch.nn.functional as F
 
     g = torch.Generator(device="cuda").manual_seed(2)
     bf = torch.bfloat16
+    name = "fused_causal_conv_int8" if int8 else "fused_causal_conv"
+    prev = os.environ.get("LONGLIVE_VAE_INT8")
+    os.environ["LONGLIVE_VAE_INT8"] = "1" if int8 else "0"
     cases = []
     tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "flops": 0.0, "bytes": 0.0}
     assert sum(c[-1] for c in CONV_CASES) == 30
@@ -332,36 +513,43 @@ def check_conv(torch, VC):
         bias = (torch.rand((o,), generator=g, device="cuda") * 2 - 1) * std
         gamma = (1.0 + 0.1 * torch.randn((c,), generator=g, device="cuda")) if norm else None
         resid = torch.randn((t, h, w, o), generator=g, device="cuda").to(bf) if res else None
-        wp = VC.pack_weights(wt)  # packed once, as the VAE's parameters are
-        out, nx = VC.fused_causal_conv(x, cache, wt, bias, gamma, resid, w_packed=wp)
-        ref, ref_nx = VC.fused_causal_conv_plain(x, cache, wt, bias, gamma, resid)
+        # packed once, as the VAE's parameters are
+        pk = dict(w_int8=VC.pack_weights_int8(wt, gamma)) if int8 else dict(
+            w_packed=VC.pack_weights(wt))
+        out, nx = VC.fused_causal_conv(x, cache, wt, bias, gamma, resid, **pk)
+        ref, ref_nx = VC.fused_causal_conv_plain(x, cache, wt, bias, gamma, resid,
+                                                 pk.get("w_int8"))
         torch.cuda.synchronize()
         if not (torch.isfinite(out).all() and torch.isfinite(nx).all()):
-            fail(f"fused_causal_conv ({label}): non-finite output")
+            fail(f"{name} ({label}): non-finite output")
         err, tol, rel = agreement(out, ref)
         err_nx, tol_nx, rel_nx = agreement(nx, ref_nx)
         if not (err_nx <= tol_nx and rel_nx <= REL_RMS_LIMIT):
-            fail(f"fused_causal_conv ({label}) new cache disagrees with its plain "
+            fail(f"{name} ({label}) new cache disagrees with its plain "
                  f"version: max_abs_err {err_nx} (limit {tol_nx}), rel_rms_err "
                  f"{rel_nx} (limit {REL_RMS_LIMIT})")
+        del ref, ref_nx
         xin = VC.norm_silu(x, gamma) if norm else x
         full = torch.cat([cache, xin], 0).permute(3, 0, 1, 2)[None].contiguous()
         wb, bb = wt, bias.to(bf)
         ms = cuda_ms(torch, lambda: VC.fused_causal_conv(
-            x, cache, wt, bias, gamma, resid, w_packed=wp), 5)
+            x, cache, wt, bias, gamma, resid, **pk), 5)
         plain_ms = cuda_ms(torch, lambda: VC.fused_causal_conv_plain(
-            x, cache, wt, bias, gamma, resid), 3)
+            x, cache, wt, bias, gamma, resid, pk.get("w_int8")), 2)
         lib_ms = cuda_ms(torch, lambda: F.conv3d(full, wb, bb, padding=(0, k // 2, k // 2)), 5)
         flops = 2.0 * t * h * w * o * c * 3 * k * k
-        nbytes = 2 * (x.numel() + cache.numel() + wt.numel() + t * h * w * o + 2 * h * w * c
-                      + (resid.numel() if res else 0)) + 4 * (o + (c if norm else 0))
-        t_bound, bound_by = bound(flops, nbytes)
-        log(f"fused_causal_conv {label} x{count}: max_abs_err={err:.3e} tol={tol:.3e} "
+        w_bytes = wt.numel() * (1 if int8 else 2) + (4 * (k * o + c) if int8 else 0)
+        nbytes = (2 * (x.numel() + cache.numel() + t * h * w * o + 2 * h * w * c
+                       + (resid.numel() if res else 0)) + w_bytes
+                  + 4 * (o + (c if norm else 0)))
+        t_bound, bound_by = (bound(0.0, nbytes, int8_ops=flops) if int8
+                             else bound(flops, nbytes))
+        log(f"{name} {label} x{count}: max_abs_err={err:.3e} tol={tol:.3e} "
             f"rel_rms_err={rel:.3e} (new cache {err_nx:.3e} / {tol_nx:.3e}, "
             f"{rel_nx:.3e}) ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
             f"bound_ms={t_bound:.4f} ({bound_by})")
         if not (err <= tol and rel <= REL_RMS_LIMIT):
-            fail(f"fused_causal_conv ({label}) disagrees with its plain version: "
+            fail(f"{name} ({label}) disagrees with its plain version: "
                  f"max_abs_err {err} (limit {tol}), rel_rms_err {rel} "
                  f"(limit {REL_RMS_LIMIT})")
         cases.append({"case": label, "count": count, "max_abs_err": max(err, err_nx),
@@ -371,11 +559,16 @@ def check_conv(torch, VC):
         for key, val in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", lib_ms),
                          ("flops", flops), ("bytes", nbytes)):
             tot[key] += count * val
-        del x, cache, wt, wp, resid, out, nx, ref, ref_nx, full
+        del x, cache, wt, pk, resid, out, nx, full
         torch.cuda.empty_cache()
-    t_bound, bound_by = bound(tot["flops"], tot["bytes"])
+    if prev is None:
+        os.environ.pop("LONGLIVE_VAE_INT8", None)
+    else:
+        os.environ["LONGLIVE_VAE_INT8"] = prev
+    t_bound, bound_by = (bound(0.0, tot["bytes"], int8_ops=tot["flops"]) if int8
+                         else bound(tot["flops"], tot["bytes"]))
     return {
-        "name": "fused_causal_conv", "route": "cuda",
+        "name": name, "route": "cuda", "mode": "int8" if int8 else "bf16",
         "source": "longlive_torch/csrc/causal_conv.cu",
         "replaces": "longlive_tpu/ops/vae_conv.py:78",
         "max_abs_err": max(c["max_abs_err"] for c in cases),
@@ -397,6 +590,17 @@ def rel_err(a, b) -> float:
     return ((a - b).norm() / b.norm().clamp_min(1e-12)).item()
 
 
+def to_dev(tree, dev, dt):
+    """A parameter tree on ``dev`` in ``dt``, without the VAE's packed
+    weights (``vae.pack_fused_weights`` makes them again on the device)."""
+    if isinstance(tree, dict):
+        return {k: to_dev(v, dev, dt) for k, v in tree.items()
+                if k not in ("w_packed", "w_int8")}
+    if isinstance(tree, list):
+        return [to_dev(v, dev, dt) for v in tree]
+    return None if tree is None else tree.to(dev, dt)
+
+
 def check_small_reference(torch):
     """The same small inputs through each generation loop on the GPU (bf16,
     kernels) and on the CPU (float32, plain versions); then the VAE."""
@@ -413,13 +617,6 @@ def check_small_reference(torch):
     geom = LatentGeometry(height=10, width=12)
     base = dict(num_frame_per_block=1, local_attn_size=4, sink_size=1, num_output_frames=6)
     params32 = D.init_dit_params(cfg, torch.float32, "cpu", seed=3, zero_head=False)
-
-    def to_dev(tree, dev, dt):
-        if isinstance(tree, dict):
-            return {k: to_dev(v, dev, dt) for k, v in tree.items()}
-        if isinstance(tree, list):
-            return [to_dev(v, dev, dt) for v in tree]
-        return None if tree is None else tree.to(dev, dt)
 
     g = torch.Generator().manual_seed(4)
     pes = [torch.randn((1, cfg.text_len, cfg.text_dim), generator=g) for _ in range(3)]
@@ -454,7 +651,8 @@ def check_small_reference(torch):
     vp32 = V.init_vae_params(vcfg, torch.float32, "cpu", seed=5)
     z = lat32[:, :3]
     px_cpu = V.vae_decode(vp32, vcfg, z)
-    px_gpu = V.vae_decode(to_dev(vp32, "cuda", torch.bfloat16), vcfg, z.to("cuda", torch.bfloat16))
+    vp_gpu = V.pack_fused_weights(to_dev(vp32, "cuda", torch.bfloat16))
+    px_gpu = V.vae_decode(vp_gpu, vcfg, z.to("cuda", torch.bfloat16))
     errs["VAE pixels"] = rel_err(px_gpu, px_cpu)
     log("small reference (GPU bf16 kernels vs CPU float32 plain; limit 5e-2): "
         + ", ".join(f"{k} rel_err={v:.3e}" for k, v in errs.items()))
@@ -463,6 +661,88 @@ def check_small_reference(torch):
     bad = {k: v for k, v in errs.items() if not v <= 5e-2}
     if bad:
         fail(f"small reference disagrees (limit 5e-2): {bad}")
+
+
+# GPU-vs-CPU limit of the quantized small reference: the GPU's activations
+# are bf16, so its int8 values are taken from inputs ~0.4% away from the
+# CPU's float32 ones and land one step apart at many elements; each step is
+# ~1% of a row's range (measured on the card: see PERF.md)
+INT8_REF_LIMIT = 1e-1
+
+
+def check_small_int8_reference(torch, A, VC):
+    """The quantized serving mode on small inputs, GPU (bf16, kernels) vs
+    CPU (float32, plain versions): int8 block linears with
+    ``LONGLIVE_INT8_FUSED=1`` (256-token frames and dim 256 put them in
+    K5's shape rule), then reactive generation on the int8 K cache and the
+    one-shot int8 recache on a bf16 cache, and the VAE with
+    ``LONGLIVE_VAE_INT8=1``.  Also checks that the GPU runs went through K5,
+    K1's qk_int8 mode and K2's int8 variant."""
+    from longlive_torch.config import DiTConfig, LatentGeometry, PipelineConfig
+    from longlive_torch.models import dit as D
+    from longlive_torch.models import vae as V
+    from longlive_torch.ops import quant as Q
+    from longlive_torch.pipeline import InteractiveCausalInferencePipeline
+
+    cfg = DiTConfig(dim=256, ffn_dim=512, num_heads=2, num_layers=2, in_dim=16, out_dim=16,
+                    text_dim=64, text_len=16, freq_dim=64, local_attn_size=4, sink_size=1,
+                    num_frame_per_block=1, rope_max_pos=64)
+    geom = LatentGeometry(height=32, width=32)
+    base = dict(num_frame_per_block=1, local_attn_size=4, sink_size=1, num_output_frames=6,
+                global_sink=False)
+    params32 = D.init_dit_params(cfg, torch.float32, "cpu", seed=3, zero_head=False)
+    g = torch.Generator().manual_seed(9)
+    pes = [torch.randn((1, cfg.text_len, cfg.text_dim), generator=g) for _ in range(2)]
+    noise = torch.randn((1, 6, 16, geom.height, geom.width), generator=g)
+    loops = [
+        ("int8 K cache, reactive switch", dict(kv_int8=True, reactive_recache_frames=2),
+         lambda p, c: p.generate_latents_reactive(noise, c[0],
+                                                  lambda s: c[1] if s == 3 else None)),
+        ("int8 recache (pallas_qk8)", dict(recache_attn_impl="pallas_qk8"),
+         lambda p, c: p.generate_latents_interactive(noise, c, [3])),
+    ]
+    saved = {k: os.environ.get(k) for k in ("LONGLIVE_INT8_FUSED", "LONGLIVE_VAE_INT8")}
+    os.environ.update(LONGLIVE_INT8_FUSED="1", LONGLIVE_VAE_INT8="1")
+    errs, lat32 = {}, None
+    try:
+        for label, knobs, run in loops:
+            lat = {}
+            for dev, dt in (("cpu", torch.float32), ("cuda", torch.bfloat16)):
+                pipe = InteractiveCausalInferencePipeline(
+                    PipelineConfig(**base, **knobs),
+                    Q.quantize_dit_params(to_dev(params32, dev, dt)), geometry=geom,
+                    dit_config=cfg, device=dev, deterministic_renoise=True)
+                reset_counts(A, VC)
+                lat[dev] = run(pipe, [pipe.prepare_condition(pe) for pe in pes])
+                got = counts(A, VC)
+            if not (got["int8_linear"] > 0 and got["flash_attention"]["qk_int8"] > 0):
+                fail(f"small int8 reference ({label}): the GPU run launched {got}")
+            if not torch.isfinite(lat["cuda"]).all():
+                fail(f"small int8 reference ({label}): non-finite GPU output")
+            errs[label] = rel_err(lat["cuda"], lat["cpu"])
+            lat32 = lat32 if lat32 is not None else lat["cpu"]
+        vcfg = dataclasses.replace(V.tiny_vae_config(), dim=96, z_dim=16)
+        vp32 = V.init_vae_params(vcfg, torch.float32, "cpu", seed=5)
+        z = lat32[:, :3, :, :8, :8]
+        px_cpu = V.vae_decode(vp32, vcfg, z)
+        reset_counts(A, VC)
+        px_gpu = V.vae_decode(V.pack_fused_weights(to_dev(vp32, "cuda", torch.bfloat16)), vcfg,
+                              z.to("cuda", torch.bfloat16))
+        if counts(A, VC)["fused_causal_conv"]["int8"] == 0:
+            fail("small int8 reference: the GPU VAE launched no int8 conv")
+        errs["VAE pixels, int8 convs"] = rel_err(px_gpu, px_cpu)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    log(f"small int8 reference (GPU bf16 kernels vs CPU float32 plain; limit "
+        f"{INT8_REF_LIMIT:.0e}): " + ", ".join(f"{k} rel_err={v:.3e}" for k, v in errs.items()))
+    bad = {k: v for k, v in errs.items() if not v <= INT8_REF_LIMIT}
+    if bad:
+        fail(f"small int8 reference disagrees (limit {INT8_REF_LIMIT}): {bad}")
+    return errs
 
 
 # ---------------------------------------------------------------------------
@@ -475,7 +755,11 @@ def derived():
     commit forward; a block whose commit is skipped, only the former; a
     recache or eager chunk is one commit-like forward.  The VAE runs both
     convs of every res block per latent frame, plus one time conv per
-    temporal upsample from the second frame on."""
+    temporal upsample from the second frame on.  Int8 linears: per layer
+    of a full forward, K5 runs q, k, v, o, cross q, cross o and fc1 (K 1536)
+    and fc2 (K 8960, past K5's K <= 4096) takes the separate-quantize
+    route; the kv_only last layer of a commit runs only its k and v; each
+    prompt's cross-attention K/V run 2 K5 calls per layer (M 512)."""
     from longlive_torch.config import DiTConfig, PipelineConfig
     from longlive_torch.models.vae import VAEConfig
 
@@ -483,9 +767,13 @@ def derived():
     vcfg = VAEConfig()
     n_res = 2 + len(vcfg.dim_mult) * (vcfg.num_res_blocks + 1)
     n_time = sum(vcfg.temperal_upsample[: len(vcfg.dim_mult) - 1])
+    k5_full, k5_commit = 7 * layers, 7 * (layers - 1) + 2
     return {"block": layers * steps + layers - 1, "block_nocommit": layers * steps,
             "recache": layers - 1,
-            "conv": lambda frames: 2 * n_res + (frames - 1) * (2 * n_res + n_time)}
+            "conv": lambda frames: 2 * n_res + (frames - 1) * (2 * n_res + n_time),
+            "k5_block": steps * k5_full + k5_commit, "k5_recache": k5_commit,
+            "k5_prompt": 2 * layers,
+            "fc2_block": steps * layers + layers - 1, "fc2_recache": layers - 1}
 
 
 def check_video(torch, label: str, r: dict, frames: int) -> None:
@@ -518,9 +806,8 @@ def run_inference_path(torch, A, VC, label: str, config: str, attn_mode: str) ->
         fail(f"{label} wrote {len(results)} videos, expected 1")
     r = results[0]
     check_video(torch, label, r, frames)
-    attn = {"bias": 0, "q_rope": 0}
-    attn[attn_mode] = (frames // 3) * dv["block"]
-    check_counts(label, got, {"flash_attention": attn, "fused_causal_conv": dv["conv"](frames)})
+    check_counts(label, got, expect(**{attn_mode: (frames // 3) * dv["block"]},
+                                    conv=dv["conv"](frames)))
     out = {"dit_ms_per_latent_frame": profile_number(
                text, r"steady-state latency=([0-9.]+) ms/latent-frame", label),
            "decode_ms_per_latent_frame": r["decode_s"] / frames * 1e3,
@@ -584,10 +871,8 @@ def run_reactive_path(torch, A, VC) -> dict:
         got = counts(A, VC)
         if tuple(lat.shape) != (1, frames, 16, 60, 104) or not torch.isfinite(lat).all():
             fail(f"reactive ({run}): latents {tuple(lat.shape)} or non-finite")
-        check_counts(f"reactive ({run})", got, {
-            "flash_attention": {"bias": 0,
-                                "q_rope": (frames // 3) * dv["block"] + dv["recache"]},
-            "fused_causal_conv": 0})
+        check_counts(f"reactive ({run})", got,
+                     expect(q_rope=(frames // 3) * dv["block"] + dv["recache"]))
         blocks = [b - a for a, b in zip(marks, marks[1:])]  # one per block start
         sw = switch // 3
         steady = [t for i, t in enumerate(blocks) if i >= 2 and i != sw]
@@ -637,9 +922,8 @@ def run_interactive_paths(torch, A, VC) -> dict:
         fail(f"interactive wrote {len(results)} videos, expected 1")
     r = results[0]
     check_video(torch, "interactive one-shot", r, frames)
-    check_counts("interactive one-shot", got, {
-        "flash_attention": {"bias": 9 * dv["block"] + 2 * dv["recache"], "q_rope": 0},
-        "fused_causal_conv": dv["conv"](frames)})
+    check_counts("interactive one-shot", got, expect(bias=9 * dv["block"] + 2 * dv["recache"],
+                                                      conv=dv["conv"](frames)))
     oneshot = {
         "steady_ms_per_latent_frame": profile_number(
             text, r"steady-state latency=([0-9.]+) ms/latent-frame", "interactive"),
@@ -663,10 +947,8 @@ def run_interactive_paths(torch, A, VC) -> dict:
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     if tuple(lat.shape) != (1, frames, 16, 60, 104) or not torch.isfinite(lat).all():
         fail(f"interactive eager: latents {tuple(lat.shape)} or non-finite")
-    check_counts("interactive eager", got, {
-        "flash_attention": {"bias": 7 * dv["block"] + 2 * dv["block_nocommit"]
-                            + 8 * dv["recache"], "q_rope": 0},
-        "fused_causal_conv": 0})
+    check_counts("interactive eager", got, expect(bias=7 * dv["block"] + 2 * dv["block_nocommit"]
+                                                   + 8 * dv["recache"]))
     # before the first switch both loops compute the same blocks
     e_seg0 = rel_err(lat[:, :12], r["latents"][:, :12])
     if not e_seg0 <= 1e-2:
@@ -684,6 +966,136 @@ def run_interactive_paths(torch, A, VC) -> dict:
         f"{eager['steady_ms_per_latent_frame']:.2f} ms/latent-frame, switch stall "
         f"+{eager['switch_stall_ms']:.2f} ms, first segment vs one-shot rel_err {e_seg0:.2e}")
     return {"interactive_oneshot": oneshot, "interactive_eager": eager}
+
+
+def run_int8_serving_path(torch, A, VC) -> dict:
+    """The quantized serving mode on the tuned config: ``kv_int8: true``,
+    the block linears quantized once (``quantize_dit_params``),
+    ``LONGLIVE_INT8_FUSED=1`` and ``LONGLIVE_VAE_INT8=1``; 15 frames with a
+    reactive switch at frame 9 (the reactive path's inputs), run twice in
+    one process (cold, then warm, as the reactive path), then the VAE
+    decode of the warm run.  Block times are read at each poll, after a
+    synchronise.  ``loading.load_dit_params``' random init has a zero head,
+    so the latents do not depend on the DiT here: the small int8 reference
+    holds its numbers instead."""
+    from longlive_torch.models import vae as V
+    from longlive_torch.ops import quant as Q
+    from longlive_torch.pipeline import InteractiveCausalInferencePipeline
+    from longlive_torch.utils import loading
+
+    frames, switch, dv = 15, 9, derived()
+    blocks = frames // 3
+    saved = {k: os.environ.get(k) for k in ("LONGLIVE_INT8_FUSED", "LONGLIVE_VAE_INT8")}
+    os.environ.update(LONGLIVE_INT8_FUSED="1", LONGLIVE_VAE_INT8="1")
+    out = {}
+    try:
+        config, cfg, params, conds, noise, _ = _cli_inputs(
+            torch, "longlive_inference_tuned.yaml", frames, 2)
+        config = dataclasses.replace(config, kv_int8=True)
+        params = Q.quantize_dit_params(params)
+        pipe = InteractiveCausalInferencePipeline(config, params, dit_config=cfg, device="cuda")
+        vae_params, vcfg = loading.load_vae_params(config, torch.bfloat16, "cuda")
+        for run in ("cold", "warm"):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts(A, VC)
+            cross = [pipe.prepare_condition(c) for c in conds]
+            marks = []
+
+            def poll(s):
+                torch.cuda.synchronize()
+                marks.append(time.perf_counter())
+                return cross[1] if s == switch else None
+
+            gen = torch.Generator(device="cuda").manual_seed(config.seed)
+            lat = pipe.generate_latents_reactive(noise, cross[0], poll, generator=gen)
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+            if tuple(lat.shape) != (1, frames, 16, 60, 104) or not torch.isfinite(lat).all():
+                fail(f"int8 serving ({run}): latents {tuple(lat.shape)} or non-finite")
+            decode_s = None
+            if run == "warm":
+                t0 = time.perf_counter()
+                px = V.vae_decode_scan(vae_params, vcfg, lat.to(torch.bfloat16))[0]
+                torch.cuda.synchronize()
+                decode_s = time.perf_counter() - t0
+                if (tuple(px.shape) != (1, 1 + 4 * (frames - 1), 3, 480, 832)
+                        or not torch.isfinite(px).all()):
+                    fail(f"int8 serving: pixels {tuple(px.shape)} or non-finite")
+            got = counts(A, VC)
+            check_counts(f"int8 serving ({run})", got, expect(
+                qk_int8=blocks * dv["block"] + dv["recache"],
+                conv_int8=dv["conv"](frames) if decode_s is not None else 0,
+                k5=2 * dv["k5_prompt"] + blocks * dv["k5_block"] + dv["k5_recache"],
+                route=blocks * dv["fc2_block"] + dv["fc2_recache"]))
+            times = [b - a for a, b in zip(marks, marks[1:])]  # one per block
+            sw = switch // 3
+            steady = [t for i, t in enumerate(times) if i >= 2 and i != sw]
+            mean = sum(steady) / len(steady)
+            out[run] = {"dit_ms_per_latent_frame": mean / 3 * 1e3,
+                        "block_ms": [t * 1e3 for t in times], "switch_block_ms": times[sw] * 1e3,
+                        "switch_stall_ms": (times[sw] - mean) * 1e3,
+                        "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+            r = out[run]
+            log(f"int8 serving ({run}): DiT {r['dit_ms_per_latent_frame']:.2f} ms/latent-frame, "
+                f"switch stall +{r['switch_stall_ms']:.2f} ms (block {r['switch_block_ms']:.2f} "
+                f"ms), peak device memory {r['peak_gib']:.2f} GiB")
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    out.update(dit_ms_per_latent_frame=out["warm"]["dit_ms_per_latent_frame"],
+               decode_ms_per_latent_frame=decode_s / frames * 1e3, launches=got)
+    log(f"int8 serving: decode {out['decode_ms_per_latent_frame']:.2f} ms/latent-frame "
+        f"(LONGLIVE_VAE_INT8=1)")
+    return out
+
+
+def run_int8_recache_path(torch, A, VC) -> dict:
+    """``run_interactive`` (``profile: true``: the one-shot loop) on the
+    shipped interactive config cut to 18 frames with one switch at 12 and
+    ``recache_attn_impl: pallas_qk8``: the 12-frame recache runs K1 in its
+    qk_int8 mode with K quantized per call on the bf16 cache."""
+    import yaml
+
+    from longlive_torch import run_interactive
+
+    frames, dv = 18, derived()
+    with open(os.path.join(ROOT, "configs", "longlive_interactive_inference.yaml")) as f:
+        raw = yaml.safe_load(f)
+    raw.update(num_output_frames=frames, switch_frame_indices="12",
+               recache_attn_impl="pallas_qk8")
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    path = os.path.join(ROOT, "build", "chip_smoke_int8_recache.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(raw, f)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(A, VC)
+    t0 = time.perf_counter()
+    results, text = run_captured(lambda: run_interactive.main(
+        ["--config_path", path, "--device", "cuda"]))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = counts(A, VC)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if len(results) != 1:
+        fail(f"int8 recache wrote {len(results)} videos, expected 1")
+    r = results[0]
+    check_video(torch, "int8 recache", r, frames)
+    check_counts("int8 recache", got, expect(bias=(frames // 3) * dv["block"],
+                                             qk_int8=dv["recache"], conv=dv["conv"](frames)))
+    out = {"steady_ms_per_latent_frame": profile_number(
+               text, r"steady-state latency=([0-9.]+) ms/latent-frame", "int8 recache"),
+           "switch_stall_ms": profile_number(text, r"\(\+([-0-9.]+) ms recache overhead\)",
+                                             "int8 recache"),
+           "decode_ms_per_latent_frame": r["decode_s"] / frames * 1e3,
+           "wall_s": wall, "peak_gib": peak, "launches": got}
+    log(f"int8 recache: {wall:.1f} s wall, peak device memory {peak:.2f} GiB, steady "
+        f"{out['steady_ms_per_latent_frame']:.2f} ms/latent-frame, 12-frame int8 recache stall "
+        f"+{out['switch_stall_ms']:.2f} ms; output {r['path']}")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -716,24 +1128,26 @@ def train_attention_cases(torch):
 
 
 def check_train_attention(torch, A):
-    """K4 forward and backward (the dQ kernel, then the dK/dV kernel)
-    against their plain versions at each shape class, with times of the
-    kernels, the plain versions, the bound, and
+    """K4's forward kernel and its two backward kernels (dQ with Delta, then
+    dK/dV) against their plain versions at each shape class, with times of
+    the kernels, the plain versions, the bound, and
     ``scaled_dot_product_attention`` (forward; its backward as one
-    ``torch.autograd.grad`` call).  Bounds count valid kv tokens only:
-    forward 4 B N Sq Skv D operations, backward 10 (S recomputed, dP, dV,
-    dK, dQ)."""
+    ``torch.autograd.grad`` call).  The plain backward and the library's
+    compute dq, dk and dv in one call: both backward entries carry that
+    call's time.  Bounds count valid kv tokens only: forward 4 B N Sq Skv D
+    operations, dQ 6 (S recomputed, dP, dQ), dK/dV 8 (S, dP, dV, dK)."""
     import torch.nn.functional as F
 
     b, n, d, bf = 1, 12, 128, torch.bfloat16
     g = torch.Generator(device="cuda").manual_seed(7)
-    fwd_cases, bwd_cases = [], []
+    fwd_cases, dq_cases, dkdv_cases = [], [], []
     for label, sq, skv, valid in train_attention_cases(torch):
         q, k, v, dout = (torch.randn((b, s, n, d), generator=g, device="cuda").to(bf)
                          for s in (sq, skv, skv, sq))
         nvalid = skv if valid is None else int(valid.sum())
         out, lse = A.flash_attention_train_forward(q, k, v, valid)
-        dq, dk, dv = A.flash_attention_train_backward(q, k, v, out, lse, dout, valid)
+        dq, delta = A.flash_attention_train_backward_dq(q, k, v, out, lse, dout, valid)
+        dk, dv = A.flash_attention_train_backward_dkdv(q, k, v, out, lse, dout, delta, valid)
         torch.cuda.synchronize()
         ref, ref_lse = A.flash_attention_train_plain(q, k, v, valid)
         rdq, rdk, rdv = A.flash_attention_train_backward_plain(q, k, v, ref, ref_lse, dout, valid)
@@ -746,8 +1160,10 @@ def check_train_attention(torch, A):
         grads = [agreement(x, y) for x, y in ((dq, rdq), (dk, rdk), (dv, rdv))]
         del ref, ref_lse, rdq, rdk, rdv
         fwd_ms = cuda_ms(torch, lambda: A.flash_attention_train_forward(q, k, v, valid), 5)
-        bwd_ms = cuda_ms(torch, lambda: A.flash_attention_train_backward(
+        dq_ms = cuda_ms(torch, lambda: A.flash_attention_train_backward_dq(
             q, k, v, out, lse, dout, valid), 5)
+        dkdv_ms = cuda_ms(torch, lambda: A.flash_attention_train_backward_dkdv(
+            q, k, v, out, lse, dout, delta, valid), 5)
         plain_fwd = cuda_ms(torch, lambda: A.flash_attention_train_plain(q, k, v, valid), 1)
         plain_bwd = cuda_ms(torch, lambda: A.flash_attention_train_backward_plain(
             q, k, v, out, lse, dout, valid), 1)
@@ -760,20 +1176,20 @@ def check_train_attention(torch, A):
         lib_bwd = cuda_ms(torch, lambda: torch.autograd.grad(lo, (qt, kt, vt), dot,
                                                              retain_graph=True), 5)
         work = b * n * sq * nvalid * d
-        # bytes: q, k, v read and out, lse written; backward reads q, k, v,
-        # out, dout, lse and writes dq, dk, dv
-        io_fwd = 2 * (2 * q.numel() + k.numel() + v.numel()) + 4 * b * n * sq
-        io_bwd = 2 * (4 * q.numel() + 2 * k.numel() + 2 * v.numel()) + 4 * b * n * sq
-        tb_f, by_f = bound(4.0 * work, io_fwd)
-        tb_b, by_b = bound(10.0 * work, io_bwd)
-        g_err = max(e for e, _, _ in grads)
-        g_rel = max(r for _, _, r in grads)
+        # bytes: the forward reads q, k, v and writes out, lse; dQ reads q, k,
+        # v, out, dout, lse and writes dq, delta; dK/dV reads q, k, v, dout,
+        # lse, delta and writes dk, dv
+        rows = 4 * b * n * sq
+        tb_f, by_f = bound(4.0 * work, 2 * (2 * q.numel() + k.numel() + v.numel()) + rows)
+        tb_q, by_q = bound(6.0 * work, 2 * (4 * q.numel() + k.numel() + v.numel()) + 2 * rows)
+        tb_k, by_k = bound(8.0 * work, 2 * (2 * q.numel() + 2 * k.numel() + 2 * v.numel())
+                           + 2 * rows)
         log(f"flash_attention_train {label}: forward max_abs_err={f_err:.3e} tol={f_tol:.3e} "
             f"rel_rms_err={f_rel:.3e} lse max_abs_err={lse_err:.3e}; backward (dq, dk, dv) "
             + ", ".join(f"{e:.3e}/{t:.3e}/{r:.3e}" for e, t, r in grads)
-            + f"; ms fwd={fwd_ms:.4f} bwd={bwd_ms:.4f} plain fwd={plain_fwd:.2f} "
+            + f"; ms fwd={fwd_ms:.4f} dq={dq_ms:.4f} dkdv={dkdv_ms:.4f} plain fwd={plain_fwd:.2f} "
             f"bwd={plain_bwd:.2f} library fwd={lib_fwd:.4f} bwd={lib_bwd:.4f} bound "
-            f"fwd={tb_f:.4f} ({by_f}) bwd={tb_b:.4f} ({by_b})")
+            f"fwd={tb_f:.4f} ({by_f}) dq={tb_q:.4f} ({by_q}) dkdv={tb_k:.4f} ({by_k})")
         if not (f_err <= f_tol and f_rel <= REL_RMS_LIMIT and lse_err <= 1e-2):
             fail(f"flash_attention_train forward ({label}) disagrees with its plain version: "
                  f"max_abs_err {f_err} (limit {f_tol}), rel_rms_err {f_rel}, lse {lse_err}")
@@ -786,11 +1202,15 @@ def check_train_attention(torch, A):
         fwd_cases.append(dict(common, max_abs_err=f_err, tolerance=f_tol, rel_rms_err=f_rel,
                               ms=fwd_ms, plain_ms=plain_fwd, library_ms=lib_fwd,
                               bound_ms=tb_f, bound_by=by_f))
-        bwd_cases.append(dict(common, max_abs_err=g_err,
-                              tolerance=min(t for _, t, _ in grads), rel_rms_err=g_rel,
-                              ms=bwd_ms, plain_ms=plain_bwd, library_ms=lib_bwd,
-                              bound_ms=tb_b, bound_by=by_b))
-        del q, k, v, dout, out, lse, dq, dk, dv, qt, kt, vt, lo
+        (qe, qt_, qr), (ke, kt_, kr), (ve, vt_, vr) = grads
+        dq_cases.append(dict(common, max_abs_err=qe, tolerance=qt_, rel_rms_err=qr, ms=dq_ms,
+                             plain_ms=plain_bwd, library_ms=lib_bwd, bound_ms=tb_q,
+                             bound_by=by_q))
+        worst = max(((ke, kt_), (ve, vt_)), key=lambda et: et[0] / et[1])
+        dkdv_cases.append(dict(common, max_abs_err=worst[0], tolerance=worst[1],
+                               rel_rms_err=max(kr, vr), ms=dkdv_ms, plain_ms=plain_bwd,
+                               library_ms=lib_bwd, bound_ms=tb_k, bound_by=by_k))
+        del q, k, v, dout, out, lse, dq, dk, dv, delta, qt, kt, vt, lo
         torch.cuda.empty_cache()
 
     def entry(name, cases, what):
@@ -813,8 +1233,10 @@ def check_train_attention(torch, A):
         }
 
     return (entry("flash_attention_train", fwd_cases, "forward"),
-            entry("flash_attention_train_backward", bwd_cases,
-                  "backward (dQ kernel + dK/dV kernel)"))
+            entry("flash_attention_train_bwd_dq", dq_cases,
+                  "dQ kernel (plain_ms and library_ms: the whole backward)"),
+            entry("flash_attention_train_bwd_dkdv", dkdv_cases,
+                  "dK/dV kernel (plain_ms and library_ms: the whole backward)"))
 
 
 # ---------------------------------------------------------------------------
@@ -950,7 +1372,7 @@ def run_training_path(torch, A, VC, card: str) -> dict:
         f"{rows[0]['exit_idx']}, critic {[r['critic_exit_idx'] for r in rows]})")
     if got != want:
         fail(f"training: K4 launch counts {got} != {want}")
-    if serving["flash_attention"] != {"bias": 0, "q_rope": 0} or serving["fused_causal_conv"]:
+    if serving != expect():
         fail(f"training: serving kernels launched {serving}")
     if peak >= 80:
         fail(f"training: peak device memory {peak:.2f} GiB")
@@ -1049,6 +1471,7 @@ def main() -> None:
     try:
         from longlive_torch.ops import attention as A
         from longlive_torch.ops import kernels
+        from longlive_torch.ops import quant as Q
         from longlive_torch.ops import vae_conv as VC
     except ImportError as e:
         fail(f"the longlive_torch package is not beside this script: {e}")
@@ -1058,6 +1481,8 @@ def main() -> None:
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     torch.backends.cuda.matmul.allow_tf32 = False  # plain versions in true float32
     torch.backends.cudnn.allow_tf32 = False
+    for knob in ("LONGLIVE_INT8_FUSED", "LONGLIVE_VAE_INT8"):  # set per path below
+        os.environ.pop(knob, None)
 
     t0 = time.perf_counter()
     try:
@@ -1070,13 +1495,16 @@ def main() -> None:
     log(f"build: {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    entries = [check_attention(torch, A), check_conv(torch, VC)]
-    check_attention_cases(torch, A, entries[0])
+    k1 = check_attention(torch, A)
+    entries = [k1, check_attention_cases(torch, A, k1), check_attention_int8(torch, A),
+               check_conv(torch, VC), check_conv(torch, VC, int8=True),
+               check_int8_linear(torch, Q)]
     entries += check_train_attention(torch, A)
     log(f"kernel checks: {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
     check_small_reference(torch)
+    int8_ref = check_small_int8_reference(torch, A, VC)
     check_small_training(torch)
     log(f"small references: {time.perf_counter() - t0:.1f} s")
 
@@ -1089,22 +1517,45 @@ def main() -> None:
     torch.cuda.empty_cache()
     paths.update(run_interactive_paths(torch, A, VC))
     torch.cuda.empty_cache()
+    paths["int8 serving"] = run_int8_serving_path(torch, A, VC)
+    torch.cuda.empty_cache()
+    paths["int8 recache"] = run_int8_recache_path(torch, A, VC)
+    gc.collect()
+    torch.cuda.empty_cache()
     training = run_training_path(torch, A, VC, card)
     gc.collect()
     torch.cuda.empty_cache()
     live = run_live_training_step(torch, A, VC, card)
     log("paths: " + json.dumps(paths))
+    log("small int8 reference: " + json.dumps(int8_ref))
     log("training: " + json.dumps(training))
     log("training, non-zero heads: " + json.dumps(live))
 
-    for entry, name in zip(entries, ("flash_attention", "fused_causal_conv")):
-        by_path = {label: p["launches"][name] for label, p in paths.items()}
-        main_count = by_path["main"]
-        entry["launches"] = sum(main_count.values()) if isinstance(main_count, dict) else main_count
-        entry["launches_by_path"] = by_path
-    for entry, key in zip(entries[2:], ("fwd", "bwd_dq")):
-        entry["launches"] = training["launches"][key]
-        entry["launches_by_path"] = {"training": training["launches"][key]}
+    # each entry's launches: the count of the path that runs it, read from
+    # that path's own run (counts set to 0 just before it)
+    launch_of = {
+        "flash_attention": ("main", "flash_attention", "bias"),
+        "flash_attention_q_rope": ("tuned", "flash_attention", "q_rope"),
+        "flash_attention_qk_int8": ("int8 serving", "flash_attention", "qk_int8"),
+        "fused_causal_conv": ("main", "fused_causal_conv", "bf16"),
+        "fused_causal_conv_int8": ("int8 serving", "fused_causal_conv", "int8"),
+        "int8_linear": ("int8 serving", "int8_linear", None),
+    }
+    for entry in entries:
+        name = entry["name"]
+        if name in launch_of:
+            path, key, mode = launch_of[name]
+            pick = lambda c: c[key] if mode is None else c[key][mode]  # noqa: E731
+            entry["launches_path"] = path
+            entry["launches"] = pick(paths[path]["launches"])
+            entry["launches_by_path"] = {label: pick(p["launches"]) for label, p in paths.items()}
+        else:
+            key = {"flash_attention_train": "fwd", "flash_attention_train_bwd_dq": "bwd_dq",
+                   "flash_attention_train_bwd_dkdv": "bwd_dkdv"}[name]
+            entry["launches_path"] = "training"
+            entry["launches"] = training["launches"][key]
+            entry["launches_by_path"] = {"training": training["launches"][key],
+                                         "training, non-zero heads": live["launches"][key]}
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": entries}), flush=True)
     print(card, flush=True)

@@ -109,6 +109,13 @@ class CacheConfig:
         )
 
 
+# recache_attn_impl values the port carries: None (the forward's own
+# attention) and "pallas_qk8" (int8 QK^T in the recache forwards).  The JAX
+# package's other attention impls select XLA or interpret-mode routes that
+# have no counterpart here.
+RECACHE_ATTN_IMPLS = (None, "pallas_qk8")
+
+
 @dataclasses.dataclass(frozen=True)
 class PipelineConfig:
     """Run configuration (the keys of configs/longlive_inference.yaml)."""
@@ -128,7 +135,7 @@ class PipelineConfig:
     num_samples: int = 1
     save_with_index: bool = False
     inference_iter: int = -1
-    # int8 K cache with per-token scales (serving knob)
+    # int8 K cache with per-token scales (serving knob; turns fused_rope off)
     kv_int8: bool = False
     # keep the last denoise pass's K/V instead of the clean-context commit
     reuse_last_denoise_kv: bool = False
@@ -146,6 +153,11 @@ class PipelineConfig:
     lora_ckpt: Optional[str] = None
     profile: bool = False
     extras: dict = dataclasses.field(default_factory=dict)
+
+    def __post_init__(self):
+        if self.recache_attn_impl not in RECACHE_ATTN_IMPLS:
+            raise ValueError(f"recache_attn_impl {self.recache_attn_impl!r} is not carried by "
+                             f"the port; it takes one of {RECACHE_ATTN_IMPLS}")
 
     def dit_config(self) -> DiTConfig:
         return DiTConfig(

@@ -9,7 +9,13 @@ Plain functions over a parameter dict:
   attend), then the attention kernel reads that layer's rows of the cache
   directly.  A KV-recache passes the slots, the frames to write and the
   attended mask explicitly;
-- ``fused_rope``: q's rotation runs in the attention kernel's prologue;
+- ``fused_rope``: q's rotation runs in the attention kernel's prologue
+  (bf16 cache only);
+- int8 serving: block linears quantized by ``ops.quant.quantize_dit_params``
+  (and optionally fused into one ``qkv`` linear by ``fuse_qkv_params``);
+  an int8 K cache (``kv_int8``) stores each block's roped K quantized once
+  and attends with QK^T in int8 with the stored scales; ``qk_int8``
+  (the ``pallas_qk8`` recache) quantizes a bf16 cache's K per call;
 - RoPE uses absolute frame positions; cross-attention K/V are computed once
   per prompt (``prepare_cross_kv``);
 - adaLN: 6-way per-frame modulation per block, 2-way at the head;
@@ -33,7 +39,8 @@ from ..ops import kv_cache as kvc
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import NEG_INF, attend_train, dense_attention, flash_attention
-from ..ops.attention import flash_attention_train
+from ..ops.attention import flash_attention_train, quantize_k_tokens
+from ..ops.quant import slice_linear
 from ..ops.embeddings import sinusoidal_embedding_1d
 from ..ops.rope import RopeTables, apply_rotary, halfsplit_qk_perm, rope_multipliers
 from . import nn
@@ -210,42 +217,72 @@ def _flat(x: torch.Tensor) -> torch.Tensor:
     return x.reshape(b, f * fs, d)
 
 
+def _projections(layer_p: dict, cfg: DiTConfig, x: torch.Tensor, kv_only: bool = False):
+    """(q or None, k, v) of the block's self-attention, each [B, S, dim].
+    A fused ``qkv`` linear runs once (only its k and v rows for
+    ``kv_only``)."""
+    if "qkv" in layer_p:
+        d = cfg.dim
+        if kv_only:
+            kv = nn.linear(x, slice_linear(layer_p["qkv"], d, 3 * d))
+            return None, kv[..., :d], kv[..., d:]
+        qkv = nn.linear(x, layer_p["qkv"])
+        return qkv[..., :d], qkv[..., d:2 * d], qkv[..., 2 * d:]
+    k = nn.linear(x, layer_p["k"])
+    v = nn.linear(x, layer_p["v"])
+    return (None if kv_only else nn.linear(x, layer_p["q"])), k, v
+
+
+def _rope_k(layer_p: dict, cfg: DiTConfig, k: torch.Tensor, rope_cos: torch.Tensor,
+            rope_sin: torch.Tensor) -> torch.Tensor:
+    """Roped K [B, S, N, D], the RMS scale fused into RoPE's float32 premul."""
+    b, s, _ = k.shape
+    k_pre = nn.rms_scale(k, layer_p["norm_k"]["scale"], cfg.eps) if cfg.qk_norm else None
+    return apply_rotary(k.reshape(b, s, cfg.num_heads, cfg.head_dim), rope_cos, rope_sin,
+                        premul=k_pre, layout=cfg.rope_layout)
+
+
 def _self_kv(layer_p: dict, cfg: DiTConfig, x: torch.Tensor, rope_cos: torch.Tensor,
              rope_sin: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The block's roped K (RMS scale fused into RoPE's float32 premul) and
-    V, each [B, S, N, D]."""
+    """The block's roped K and V, each [B, S, N, D]."""
     b, s, _ = x.shape
-    n, hd = cfg.num_heads, cfg.head_dim
-    k = nn.linear(x, layer_p["k"])
-    v = nn.linear(x, layer_p["v"]).reshape(b, s, n, hd)
-    k_pre = nn.rms_scale(k, layer_p["norm_k"]["scale"], cfg.eps) if cfg.qk_norm else None
-    k = apply_rotary(k.reshape(b, s, n, hd), rope_cos, rope_sin, premul=k_pre,
-                     layout=cfg.rope_layout)
-    return k, v
+    _, k, v = _projections(layer_p, cfg, x, kv_only=True)
+    return (_rope_k(layer_p, cfg, k, rope_cos, rope_sin),
+            v.reshape(b, s, cfg.num_heads, cfg.head_dim))
 
 
 def _attention_layer_cached(
     layer_p: dict, cfg: DiTConfig, cache_cfg: CacheConfig, x: torch.Tensor,
     rope_cos: torch.Tensor, rope_sin: torch.Tensor, cache: kvc.KVCache, layer_idx: int,
     offsets: List[int], write_frames: Tuple[int, ...], bias: torch.Tensor,
-    kv_only: bool = False, fused_rope: bool = False,
+    kv_only: bool = False, fused_rope: bool = False, qk_int8: bool = False,
 ) -> Optional[torch.Tensor]:
     """Self-attention against the cache: frames ``write_frames`` of the
     block's roped K/V are written in place into layer ``layer_idx`` at token
-    ``offsets``, then the queries attend that layer's rows under ``bias``.
+    offsets ``offsets``, then the queries attend that layer's rows under
+    ``bias``.
 
-    ``fused_rope`` (halfsplit layout): q gets the RMS premul, is rounded to
-    its dtype, and is rotated in the attention kernel's prologue."""
+    An int8 K cache (``cache.k_scale`` set) gets the block's roped K
+    quantized once, with its scales, and is attended in the qk_int8 mode
+    with the stored scales; ``qk_int8`` on a bf16 cache quantizes K per
+    call.  ``fused_rope`` (halfsplit layout, bf16 cache): q gets the RMS
+    premul, is rounded to its dtype, and is rotated in the attention
+    kernel's prologue."""
     b, s, _ = x.shape
     n, hd = cfg.num_heads, cfg.head_dim
-    k, v = _self_kv(layer_p, cfg, x, rope_cos, rope_sin)
-    kvc.write_block_kv(cache_cfg, cache, layer_idx, k, v, offsets, write_frames)
+    q, k, v = _projections(layer_p, cfg, x, kv_only)
+    k = _rope_k(layer_p, cfg, k, rope_cos, rope_sin)
+    v = v.reshape(b, s, n, hd)
+    int8_cache = cache.k_scale is not None
+    k_sc = None
+    if int8_cache:
+        k, k_sc = quantize_k_tokens(k)
+    kvc.write_block_kv(cache_cfg, cache, layer_idx, k, v, offsets, write_frames, k_sc)
     if kv_only:
         return None
-    q = nn.linear(x, layer_p["q"])
     q_pre = nn.rms_scale(q, layer_p["norm_q"]["scale"], cfg.eps) if cfg.qk_norm else None
     q_rope = None
-    if fused_rope and cfg.rope_layout == "halfsplit":
+    if fused_rope and not int8_cache and cfg.rope_layout == "halfsplit":
         if q_pre is not None:
             q = (q.float() * q_pre).to(q.dtype)
         q = q.reshape(b, s, n, hd)
@@ -254,8 +291,11 @@ def _attention_layer_cached(
         q = apply_rotary(q.reshape(b, s, n, hd), rope_cos, rope_sin, premul=q_pre,
                          layout=cfg.rope_layout)
     s_tok = cache.k.shape[3]
-    out = flash_attention(q.contiguous(), cache.k[layer_idx].view(b * n, s_tok, hd),
-                          cache.v[layer_idx].view(b * n, s_tok, hd), bias, q_rope=q_rope)
+    out = flash_attention(
+        q.contiguous(), cache.k[layer_idx].view(b * n, s_tok, hd),
+        cache.v[layer_idx].view(b * n, s_tok, hd), bias, q_rope=q_rope,
+        qk_int8=qk_int8 or int8_cache,
+        k_scales=cache.k_scale[layer_idx].view(b * n, s_tok) if int8_cache else None)
     return nn.linear(out.reshape(b, s, n * hd), layer_p["o"])
 
 
@@ -287,7 +327,7 @@ def _block_body(cfg: DiTConfig, cache_cfg: CacheConfig, num_frames: int, x: torc
                 cross_v: torch.Tensor, e0: torch.Tensor, rope_cos, rope_sin,
                 bias: torch.Tensor, layer_idx: int, offsets: List[int],
                 write_frames: Tuple[int, ...], kv_only: bool = False,
-                fused_rope: bool = False) -> torch.Tensor:
+                fused_rope: bool = False, qk_int8: bool = False) -> torch.Tensor:
     """One causal attention block.  ``kv_only``: write this layer's K/V and
     skip the rest (the last layer of a commit forward, whose output nobody
     reads)."""
@@ -297,7 +337,7 @@ def _block_body(cfg: DiTConfig, cache_cfg: CacheConfig, num_frames: int, x: torc
     h = _modulated(x, cfg, f, e_[0], e_[1])
     y = _attention_layer_cached(layer_p["self_attn"], cfg, cache_cfg, h, rope_cos, rope_sin,
                                 cache, layer_idx, offsets, write_frames, bias,
-                                kv_only=kv_only, fused_rope=fused_rope)
+                                kv_only=kv_only, fused_rope=fused_rope, qk_int8=qk_int8)
     if kv_only:
         return x
     return _block_tail(cfg, f, x, y, layer_p, cross_k, cross_v, e_)
@@ -362,7 +402,7 @@ def dit_forward_cached(
     start_frame: int, *, kv_valid: Optional[torch.Tensor] = None,
     offsets: Optional[List[int]] = None, write_frames: Optional[Tuple[int, ...]] = None,
     advance_counters: bool = True, kv_only: bool = False, fused_rope: bool = False,
-    two_segment: bool = False, remat_layers: bool = False,
+    qk_int8: bool = False, two_segment: bool = False, remat_layers: bool = False,
     window_frames: Optional[int] = None, commit_writes: bool = True,
 ) -> Tuple[torch.Tensor, kvc.KVCache]:
     """One cached DiT forward over a block of F frames at absolute frame
@@ -381,15 +421,19 @@ def dit_forward_cached(
     the attended tokens (default: the fill state's mask).  Each layer writes
     those frames, then attends under that mask.
 
+    ``qk_int8``: self-attention runs QK^T in int8 (the JAX package's
+    ``attn_impl="pallas_qk8"``); an int8 K cache always does.
+
     ``two_segment`` selects the training form (``_dit_forward_train``),
     which takes the standard plumbing only, plus ``remat_layers``,
     ``window_frames`` (attend the sink and the latest frames of a cache that
     holds more) and ``commit_writes`` (False: the cache is left as it
     was)."""
     if two_segment:
-        if kv_valid is not None or offsets is not None or write_frames is not None or fused_rope:
-            raise ValueError("the training form takes no explicit cache plumbing "
-                             "and no fused_rope")
+        if (kv_valid is not None or offsets is not None or write_frames is not None
+                or fused_rope or qk_int8 or cache.k_scale is not None):
+            raise ValueError("the training form takes no explicit cache plumbing, "
+                             "no fused_rope and no int8 attention")
         return _dit_forward_train(params, cfg, cache_cfg, tables, x, t, cross_kv, cache,
                                   start_frame, advance_counters=advance_counters,
                                   kv_only=kv_only, remat_layers=remat_layers,
@@ -415,7 +459,8 @@ def dit_forward_cached(
         last_kv_only = kv_only and li == len(blocks) - 1
         tokens = _block_body(cfg, cache_cfg, f, tokens, blocks[li], cache, cross_kv.k[li],
                              cross_kv.v[li], e0, rope_cos, rope_sin, bias, li, offsets,
-                             write_frames, kv_only=last_kv_only, fused_rope=fused_rope)
+                             write_frames, kv_only=last_kv_only, fused_rope=fused_rope,
+                             qk_int8=qk_int8)
     if kv_only:
         flow = torch.zeros((b, f, cfg.out_dim, h, w), dtype=torch.float32, device=x.device)
     else:

@@ -10,14 +10,24 @@ GPU: linears then take bf16 operands, and RMS norms return their input's
 
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
+from ..ops import quant
+
 
 def linear(x: torch.Tensor, p: dict) -> torch.Tensor:
-    """x @ weight.T + bias, output in the input dtype."""
+    """x @ weight.T + bias, output in the input dtype.  Linears quantized by
+    ``ops.quant.quantize_dit_params`` (``w_int8``) take the int8 route:
+    ``LONGLIVE_INT8_FUSED`` set and not ``0`` (read at call time) selects
+    the fused kernel, otherwise the separate-quantize route."""
+    if "w_int8" in p:
+        if os.environ.get("LONGLIVE_INT8_FUSED", "0") != "0":
+            return quant.linear_int8_fused(x, p)
+        return quant.linear_int8(x, p)
     return F.linear(x, p["weight"], p.get("bias"))
 
 

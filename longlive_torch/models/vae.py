@@ -8,8 +8,9 @@
   order (``_CacheThread``); the decoder runs one latent frame per call.
 - Activations are channels-last [B, T, H, W, C].  The wide causal convs of
   the residual blocks and the time convs go to ``ops.vae_conv``'s fused
-  kernel; the narrow convs (decoder conv1 16->384, head 96->3, the 1x1x1
-  convs, the 2-D resample convs) are plain ``F.conv3d`` / ``F.conv2d``.
+  kernel (its int8 variant under ``LONGLIVE_VAE_INT8=1``); the narrow convs
+  (decoder conv1 16->384, head 96->3, the 1x1x1 convs, the 2-D resample
+  convs) are plain ``F.conv3d`` / ``F.conv2d``.
 
 Geometry (dim 96, z 16, dim_mult [1, 2, 4, 4], 2 res blocks, temporal
 downsample [False, True, True]) is Wan2.1's.
@@ -120,15 +121,23 @@ def _fusable(x: torch.Tensor, p: dict, thread: _CacheThread) -> bool:
     return _fusable_weight(p["w"])
 
 
+# the norm whose gamma the int8 weights of a conv fold in
+_NORM_OF = {"conv1": "norm1", "conv2": "norm2", "head_conv": "head_norm"}
+
+
 def pack_fused_weights(params: Any) -> Any:
-    """Adds ``w_packed`` (the fused kernel's weight layout, see
-    ``ops.vae_conv.pack_weights``) beside ``w`` in every conv the fused
-    kernel takes, so decoding packs no weights.  Mutates and returns
-    ``params``; call it again after replacing a ``w``."""
+    """Adds the fused kernel's weights beside ``w`` in every conv it takes:
+    ``w_packed`` (``ops.vae_conv.pack_weights``) and ``w_int8``
+    (``pack_weights_int8`` with the gamma of the norm in front of the conv,
+    for ``LONGLIVE_VAE_INT8=1``), so decoding packs no weights.  Mutates
+    and returns ``params``; call it again after replacing a ``w`` or a
+    norm."""
     if isinstance(params, dict):
-        w = params.get("w")
-        if isinstance(w, torch.Tensor) and _fusable_weight(w):
-            params["w_packed"] = _vc.pack_weights(w)
+        for key, v in params.items():
+            w = v.get("w") if isinstance(v, dict) else None
+            if isinstance(w, torch.Tensor) and _fusable_weight(w):
+                v["w_packed"] = _vc.pack_weights(w)
+                v["w_int8"] = _vc.pack_weights_int8(w, params.get(_NORM_OF.get(key)))
         for v in params.values():
             if isinstance(v, (dict, list)):
                 pack_fused_weights(v)
@@ -142,7 +151,8 @@ def _fused_conv(x, p, thread: _CacheThread, gamma=None, residual=None):
     cache = thread.pull().to(x.dtype)
     out, nx = _vc.fused_causal_conv(
         x[0], cache[0], p["w"], p.get("b"), gamma,
-        None if residual is None else residual[0], w_packed=p.get("w_packed"))
+        None if residual is None else residual[0], w_packed=p.get("w_packed"),
+        w_int8=p.get("w_int8"))
     thread.push(nx[None])
     return out[None]
 

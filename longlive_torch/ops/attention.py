@@ -31,11 +31,12 @@ from typing import Optional
 import torch
 
 from . import kernels
+from .quant import _rdiv
 
 NEG_INF = -1e30  # finite: -inf - -inf would poison the running max with NaN
 
 launches = 0  # kernel launches of flash_attention since the last reset
-mode_launches = {"bias": 0, "q_rope": 0}  # the same launches, by mode
+mode_launches = {"bias": 0, "q_rope": 0, "qk_int8": 0}  # the same launches, by mode
 
 
 # kernel launches of flash_attention_train since the last reset: its forward
@@ -86,25 +87,72 @@ def rope_scaled_q(q: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
     return (qf * cs + qsw * sn).to(q.dtype)
 
 
+def quantize_k_tokens(k: torch.Tensor):
+    """Symmetric int8 quantization of each row of k over its last dim (a
+    roped key per token and head): amax = max|k| + 1e-30,
+    q = round(k * (127 / amax)) (no clip: |q| <= 127), scale = amax / 127 as
+    amax * (1/127), so k ~= q * scale.  k: [..., D] -> (int8 [..., D],
+    float32 scales [...]).  The qk_int8 mode quantizes q (after the softmax
+    scale) with the same formula."""
+    kf = k.float()
+    amax = kf.abs().amax(dim=-1, keepdim=True) + 1e-30
+    ki = torch.round(kf * _rdiv(127.0, amax)).to(torch.int8)
+    return ki, (amax * (1.0 / 127.0)).squeeze(-1)
+
+
+def dequantize_k(k: torch.Tensor, k_scales: torch.Tensor, dtype) -> torch.Tensor:
+    return (k.float() * k_scales.float()[..., None]).to(dtype)
+
+
+def _scaled_q(q: torch.Tensor) -> torch.Tensor:
+    """q pre-scaled by 1/sqrt(D) and rounded to its dtype."""
+    return (q.float() * (1.0 / math.sqrt(q.shape[-1]))).to(q.dtype)
+
+
+def _qk_int8_operands(q, k, k_scales):
+    """The qk_int8 mode's operands: (q8 [B, Sq, N, D], q scales [B, Sq, N],
+    k8 [B*N, S, D], k scales [B*N, S]).  K is quantized here unless it
+    arrives int8 with ``k_scales``."""
+    q8, qsc = quantize_k_tokens(_scaled_q(q))
+    if k_scales is None:
+        k8, ksc = quantize_k_tokens(k)
+    else:
+        k8, ksc = k, k_scales
+    return q8, qsc, k8, ksc
+
+
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          bias: torch.Tensor, q_rope=None) -> torch.Tensor:
+                          bias: torch.Tensor, q_rope=None, qk_int8: bool = False,
+                          k_scales: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The kernel's arithmetic: q is pre-scaled by 1/sqrt(D) (and, with
     ``q_rope``, rotated: ``rope_scaled_q``) and rounded to its dtype, logits
     are float32 plus the bias, P is rounded to V's dtype before PV, and the
-    output is divided by the float32 row sum at the end.  One head at a
-    time, so the logits of a 12-frame recache (18720 x 18720) stay ~1.4 GB.
+    output is divided by the float32 row sum at the end.  ``qk_int8``: the
+    logits are (float(q8 . k8) * q_scale) * k_scale + bias, the integer
+    product exact (|q8 . k8| <= 128 * 127^2 < 2^24, so float32 holds it).
+    One head at a time, so the logits of a 12-frame recache
+    (18720 x 18720) stay ~1.4 GB.
 
-    q: [B, Sq, N, D]; k, v: [B*N, S, D]; bias: [B, S] float32."""
+    q: [B, Sq, N, D]; k, v: [B*N, S, D] (k int8 with ``k_scales`` [B*N, S]);
+    bias: [B, S] float32."""
+    _check_modes(q_rope, qk_int8, k_scales)
     b, sq, n, d = q.shape
-    scale = 1.0 / math.sqrt(d)
-    if q_rope is None:
-        qs = (q.float() * scale).to(q.dtype)
+    if qk_int8:
+        q8, qsc, k8, ksc = _qk_int8_operands(q, k, k_scales)
+        qh = q8.permute(0, 2, 1, 3).reshape(b * n, sq, d)
+        qsc = qsc.permute(0, 2, 1).reshape(b * n, sq)
+    elif q_rope is None:
+        qh = _scaled_q(q).permute(0, 2, 1, 3).reshape(b * n, sq, d)
     else:
-        qs = rope_scaled_q(q, q_rope[0], q_rope[1], scale)
-    qh = qs.permute(0, 2, 1, 3).reshape(b * n, sq, d)
+        qs = rope_scaled_q(q, q_rope[0], q_rope[1], 1.0 / math.sqrt(d))
+        qh = qs.permute(0, 2, 1, 3).reshape(b * n, sq, d)
     out = torch.empty((b * n, sq, d), dtype=torch.float32, device=q.device)
     for bh in range(b * n):
-        logits = qh[bh].float() @ k[bh].float().T + bias[bh // n].float()  # [Sq, S]
+        if qk_int8:
+            logits = ((qh[bh].float() @ k8[bh].float().T) * qsc[bh, :, None] * ksc[bh].float()
+                      + bias[bh // n].float())
+        else:
+            logits = qh[bh].float() @ k[bh].float().T + bias[bh // n].float()  # [Sq, S]
         m = logits.amax(dim=-1, keepdim=True)
         p = torch.exp(logits - m)
         lsum = p.sum(dim=-1, keepdim=True)
@@ -112,8 +160,26 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.view(b, n, sq, d).permute(0, 2, 1, 3).to(q.dtype)
 
 
+def _check_modes(q_rope, qk_int8: bool, k_scales) -> None:
+    if k_scales is not None and not qk_int8:
+        raise ValueError("flash_attention: k_scales (an int8 K) needs qk_int8=True")
+    if q_rope is not None and qk_int8:
+        raise ValueError("q_rope (in-kernel q RoPE) supports the plain bf16 "
+                         "single-segment kernel only")
+
+
+def _check_operand(name: str, t: torch.Tensor, dtype, shape, device) -> None:
+    if t.dtype != dtype or tuple(t.shape) != tuple(shape):
+        raise ValueError(f"flash_attention: {name} must be {dtype} {tuple(shape)}, got "
+                         f"{t.dtype} {tuple(t.shape)}")
+    if not t.is_contiguous() or t.data_ptr() % 16 or t.device != device:
+        raise ValueError(f"flash_attention: {name} must be contiguous, 16-byte aligned "
+                         f"and on {device}")
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    bias: torch.Tensor, q_rope=None) -> torch.Tensor:
+                    bias: torch.Tensor, q_rope=None, qk_int8: bool = False,
+                    k_scales: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Attention of q [B, Sq, N, D] over one cache layer k, v [B*N, S, D]
     with bias [B, S] float32.  Returns [B, Sq, N, D] in q's dtype.
 
@@ -121,33 +187,35 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     premul already applied) and is rotated in the kernel (halfsplit
     layout; see ``rope_scaled_q``).
 
+    ``qk_int8``: QK^T runs on int8 q and K (``quantize_k_tokens`` of the
+    scaled q here, a plain pass as in the JAX package).  K is either the
+    int8 cache layer with its scales ``k_scales`` [B*N, S] float32, read in
+    place, or bf16, quantized here per call.  Neither combines with
+    ``q_rope``.
+
     CPU tensors run the plain version.  CUDA tensors launch the kernel,
-    which takes bf16 q/k/v, D = 128, contiguous 16-byte-aligned operands
-    and a float32 bias; anything else raises ValueError."""
+    which takes bf16 q/v (and K unless int8), D = 128, contiguous 16-byte-
+    aligned operands and a float32 bias; anything else raises ValueError."""
+    _check_modes(q_rope, qk_int8, k_scales)
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, bias, q_rope)
+        return flash_attention_plain(q, k, v, bias, q_rope, qk_int8, k_scales)
     global launches
     b, sq, n, d = q.shape
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.dtype != torch.bfloat16:
-            raise ValueError(f"flash_attention: {name} must be bf16, got {t.dtype}")
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"flash_attention: {name} must be contiguous and "
-                             "16-byte aligned")
-        if t.device != q.device:
-            raise ValueError(f"flash_attention: {name} is on {t.device}, q on {q.device}")
     if d != 128:
         raise ValueError(f"flash_attention: head dim {d} unsupported (kernel takes 128)")
-    s = k.shape[1]
-    if k.shape != (b * n, s, d) or v.shape != k.shape:
-        raise ValueError(f"flash_attention: k/v must be [B*N, S, D] = "
-                         f"[{b * n}, S, {d}], got {tuple(k.shape)} / {tuple(v.shape)}")
+    s = k.shape[1] if k.dim() == 3 else -1
+    k_dtype = torch.int8 if k_scales is not None else torch.bfloat16
+    _check_operand("q", q, torch.bfloat16, (b, sq, n, d), q.device)
+    _check_operand("k", k, k_dtype, (b * n, s, d), q.device)
+    _check_operand("v", v, torch.bfloat16, (b * n, s, d), q.device)
     if (bias.dtype != torch.float32 or bias.shape != (b, s)
             or not bias.is_contiguous() or bias.device != q.device):
         raise ValueError(f"flash_attention: bias must be contiguous float32 [{b}, {s}] "
                          f"on {q.device}, got {bias.dtype} {tuple(bias.shape)}")
+    if k_scales is not None:
+        _check_operand("k_scales", k_scales, torch.float32, (b * n, s), q.device)
     cos_ptr = sin_ptr = None
     if q_rope is not None:
         for name, t in zip(("cos", "sin"), q_rope):
@@ -159,15 +227,24 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         cos_ptr, sin_ptr = q_rope[0].data_ptr(), q_rope[1].data_ptr()
     out = torch.empty_like(q)
     lib = kernels.load("flash_attention")
-    fn = lib.longlive_flash_attention
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_float,
-                                                                ctypes.c_void_p]
-    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), cos_ptr, sin_ptr,
-            out.data_ptr(), b, sq, n, s, 1.0 / math.sqrt(d),
-            torch.cuda.current_stream(q.device).cuda_stream)
-    kernels.check(lib, rc, "flash_attention")
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if qk_int8:
+        q8, qsc, k8, ksc = _qk_int8_operands(q, k, k_scales)
+        fn = lib.longlive_flash_attention_qk8
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        rc = fn(q8.data_ptr(), qsc.data_ptr(), k8.data_ptr(), ksc.data_ptr(), v.data_ptr(),
+                bias.data_ptr(), out.data_ptr(), b, sq, n, s, stream)
+        mode = "qk_int8"
+    else:
+        fn = lib.longlive_flash_attention
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_float,
+                                                                    ctypes.c_void_p]
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), cos_ptr, sin_ptr,
+                out.data_ptr(), b, sq, n, s, 1.0 / math.sqrt(d), stream)
+        mode = "bias" if q_rope is None else "q_rope"
+    kernels.check(lib, rc, f"flash_attention ({mode})")
     launches += 1
-    mode_launches["bias" if q_rope is None else "q_rope"] += 1
+    mode_launches[mode] += 1
     return out
 
 
@@ -325,37 +402,65 @@ def flash_attention_train_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Ten
     return out, lse
 
 
-def flash_attention_train_backward(q, k, v, out, lse, dout,
-                                   kv_valid: Optional[torch.Tensor] = None):
-    """(dq, dk, dv) of ``flash_attention_train``: the plain version for CPU
-    tensors, the dQ kernel then the dK/dV kernel for CUDA tensors."""
-    if q.device.type == "cpu":
-        return flash_attention_train_backward_plain(q, k, v, out, lse, dout, kv_valid)
+def _train_backward_operands(q, k, v, out, lse, dout, kv_valid):
+    """((B, Sq, Skv, N), the mask operand or None) after checking the
+    backward's operands.  The caller keeps the mask alive while a kernel
+    reads it."""
     b, sq, skv, n = _train_geometry(q, k, v)
     mask = _train_mask(kv_valid, b, skv, q.device)
     _check_train_operand("out", out, q.shape, q.device)
     _check_train_operand("dout", dout, q.shape, q.device)
     if lse.dtype != torch.float32 or tuple(lse.shape) != (b, n, sq) or not lse.is_contiguous():
         raise ValueError("flash_attention_train: lse must be contiguous float32 [B, N, Sq]")
-    scale = 1.0 / math.sqrt(q.shape[-1])
-    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    delta = torch.empty_like(lse)
+    return (b, sq, skv, n), mask
+
+
+def flash_attention_train_backward_dq(q, k, v, out, lse, dout,
+                                      kv_valid: Optional[torch.Tensor] = None):
+    """(dq, delta) from the backward's first kernel (CUDA tensors only);
+    delta = rowsum(dO * O) [B, N, Sq] feeds the second."""
+    (b, sq, skv, n), mask = _train_backward_operands(q, k, v, out, lse, dout, kv_valid)
     mask_ptr = None if mask is None else mask.data_ptr()
+    dq, delta = torch.empty_like(q), torch.empty_like(lse)
     lib = kernels.load("flash_attention_train")
     fn = lib.longlive_flash_train_bwd_dq
     fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_float,
                                                                 ctypes.c_void_p]
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr, out.data_ptr(), dout.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b, sq, skv, n, scale, _stream(q))
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b, sq, skv, n,
+            1.0 / math.sqrt(q.shape[-1]), _stream(q))
     kernels.check(lib, rc, "flash_attention_train backward (dq)")
     train_launches["bwd_dq"] += 1
+    return dq, delta
+
+
+def flash_attention_train_backward_dkdv(q, k, v, out, lse, dout, delta,
+                                        kv_valid: Optional[torch.Tensor] = None):
+    """(dk, dv) from the backward's second kernel (CUDA tensors only), with
+    ``delta`` from ``flash_attention_train_backward_dq``."""
+    (b, sq, skv, n), mask = _train_backward_operands(q, k, v, out, lse, dout, kv_valid)
+    mask_ptr = None if mask is None else mask.data_ptr()
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    lib = kernels.load("flash_attention_train")
     fn = lib.longlive_flash_train_bwd_dkdv
     fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_float,
                                                                 ctypes.c_void_p]
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr, dout.data_ptr(), lse.data_ptr(),
-            delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, sq, skv, n, scale, _stream(q))
+            delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, sq, skv, n,
+            1.0 / math.sqrt(q.shape[-1]), _stream(q))
     kernels.check(lib, rc, "flash_attention_train backward (dk, dv)")
     train_launches["bwd_dkdv"] += 1
+    return dk, dv
+
+
+def flash_attention_train_backward(q, k, v, out, lse, dout,
+                                   kv_valid: Optional[torch.Tensor] = None):
+    """(dq, dk, dv) of ``flash_attention_train``: the plain version for CPU
+    tensors, the dQ kernel then the dK/dV kernel for CUDA tensors."""
+    if q.device.type == "cpu":
+        return flash_attention_train_backward_plain(q, k, v, out, lse, dout, kv_valid)
+    dq, delta = flash_attention_train_backward_dq(q, k, v, out, lse, dout, kv_valid)
+    dk, dv = flash_attention_train_backward_dkdv(q, k, v, out, lse, dout, delta, kv_valid)
     return dq, dk, dv
 
 

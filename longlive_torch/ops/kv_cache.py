@@ -17,6 +17,10 @@ and ``kernel_cache`` resolves to the same arithmetic on this layout.
 Buffers are updated in place: forwards write their K/V into them and a
 prompt switch's ``zero_cache`` clears them, so a caller that still needs
 the old contents clones first.
+
+The int8 K cache (``init_cache(k_int8=True)``, the ``kv_int8`` serving
+mode) stores K as int8 with one float32 scale per token and head in
+``k_scale`` [L, B, N, S]; V stays in the cache dtype.
 """
 
 from __future__ import annotations
@@ -31,22 +35,27 @@ from ..config import CacheConfig
 
 @dataclasses.dataclass
 class KVCache:
-    """k, v: [L, B, N, S, D] roped keys / values; counters are host ints."""
+    """k, v: [L, B, N, S, D] roped keys / values; counters are host ints;
+    k_scale: [L, B, N, S] float32 when k is int8, else None."""
 
     k: torch.Tensor
     v: torch.Tensor
     ring_base: int
     sink_filled: int = 0
     ring_filled: int = 0
+    k_scale: Optional[torch.Tensor] = None
 
 
 def init_cache(cfg: CacheConfig, num_layers: int, batch: int, num_heads: int,
-               head_dim: int, dtype=torch.bfloat16, device="cpu") -> KVCache:
+               head_dim: int, dtype=torch.bfloat16, device="cpu",
+               k_int8: bool = False) -> KVCache:
     shape = (num_layers, batch, num_heads, cfg.size_tokens, head_dim)
     return KVCache(
-        k=torch.zeros(shape, dtype=dtype, device=device),
+        k=torch.zeros(shape, dtype=torch.int8 if k_int8 else dtype, device=device),
         v=torch.zeros(shape, dtype=dtype, device=device),
         ring_base=cfg.sink_frames,
+        k_scale=(torch.zeros(shape[:-1], dtype=torch.float32, device=device)
+                 if k_int8 else None),
     )
 
 
@@ -71,10 +80,12 @@ def block_write_offsets(cfg: CacheConfig, cache: KVCache, start_frame: int,
 
 def write_block_kv(cfg: CacheConfig, cache: KVCache, layer: int, new_k: torch.Tensor,
                    new_v: torch.Tensor, offsets: Sequence[int],
-                   write_frames: Optional[Sequence[int]] = None) -> None:
+                   write_frames: Optional[Sequence[int]] = None,
+                   new_k_scale: Optional[torch.Tensor] = None) -> None:
     """Writes frames ``write_frames`` (default all) of a block's roped K/V
     ``new_k``/``new_v`` [B, F*frame_seq, N, D] into layer ``layer`` of the
-    cache, frame ``i`` at token offset ``offsets[i]``.  Frames may land in
+    cache, frame ``i`` at token offset ``offsets[i]``; an int8 cache also
+    takes the block's K scales ``new_k_scale`` [B, F*frame_seq, N].  Frames may land in
     slots that are not consecutive (a sink or ring that is no multiple of
     the block, or a ring base moved by an odd recache): each run of frames
     whose slots do follow each other is one copy, so a block in consecutive
@@ -92,6 +103,8 @@ def write_block_kv(cfg: CacheConfig, cache: KVCache, layer: int, new_k: torch.Te
         src = slice(i * fs, (i + nf) * fs)
         cache.k[layer, :, :, off:off + nf * fs].copy_(new_k[:, src].transpose(1, 2))
         cache.v[layer, :, :, off:off + nf * fs].copy_(new_v[:, src].transpose(1, 2))
+        if cache.k_scale is not None:
+            cache.k_scale[layer, :, :, off:off + nf * fs].copy_(new_k_scale[:, src].transpose(1, 2))
 
 
 def advance(cfg: CacheConfig, cache: KVCache, start_frame: int,
@@ -156,6 +169,8 @@ def zero_cache(cache: KVCache) -> KVCache:
     clears the K/V but not the fill state; ``recache_state`` resets it)."""
     cache.k.zero_()
     cache.v.zero_()
+    if cache.k_scale is not None:
+        cache.k_scale.zero_()
     return dataclasses.replace(cache)
 
 

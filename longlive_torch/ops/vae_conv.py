@@ -7,6 +7,15 @@ the virtual frame sequence [2 cache frames ++ T frames], and returns the new
 a CUDA tensor it launches the hand-written Hopper kernel of
 ``csrc/causal_conv.cu``; on a CPU tensor it runs ``fused_causal_conv_plain``.
 
+``LONGLIVE_VAE_INT8=1`` (read at call time, as in the JAX package) selects
+the int8 variant: the weights are quantized per packed column, that is per
+(kernel column dx, output channel), with the norm's gamma folded in
+(``pack_weights_int8``); the activations get one scale per (output frame,
+row tile of ``row_tile`` rows) over everything that tile's product reads;
+each dx's int32 product is rescaled on its own and the dx terms are summed
+in float32.  On a CUDA tensor it launches the int8 kernels of
+``csrc/causal_conv.cu`` (a per-row amax pre-pass, then the conv).
+
 Layout: channels-last frames [T, H, W, C] (batch 1, folded out by the
 caller); weights in the torch layout [O, C, 3, kh, kw].
 """
@@ -15,14 +24,24 @@ from __future__ import annotations
 
 import ctypes
 import math
+import os
 from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from . import kernels
+from .quant import _div, _rdiv, int_matmul
 
-launches = 0  # kernel launches of fused_causal_conv since the last reset
+launches = 0  # calls of fused_causal_conv that launched kernels since the last reset
+mode_launches = {"bf16": 0, "int8": 0}  # the same, by variant
+
+
+def reset_launches() -> None:
+    global launches
+    launches = 0
+    for mode in mode_launches:
+        mode_launches[mode] = 0
 
 
 def norm_silu(x: torch.Tensor, gamma: torch.Tensor) -> torch.Tensor:
@@ -35,16 +54,127 @@ def norm_silu(x: torch.Tensor, gamma: torch.Tensor) -> torch.Tensor:
     return y * torch.sigmoid(y.float()).to(x.dtype)
 
 
+def _aligned(n: int) -> int:
+    """The JAX kernel's lane-padded channel count (widths >= 96 rounded up
+    to 128-multiples); it enters the row-tile choice."""
+    return n if (n < 96 or n % 128 == 0) else -(-n // 128) * 128
+
+
+def pick_tiles(cp: int, op: int, h: int, w: int, dtype_bytes: int, kh: int = 3, kw: int = 3,
+               budget: float = 20e6) -> Tuple[int, int]:
+    """The JAX kernel's (row tile, output tile) choice for its VMEM budget
+    (``ops/vae_conv.py::_pick_tiles`` at its default budget).  The row tile
+    sets the granularity of the int8 variant's activation scale, so the
+    port takes the same one for the same shape."""
+    bo_cands = [op]
+    if op % 128 == 0:
+        bo_cands += [b for b in (256, 128) if b < op and op % b == 0]
+    wp = w + 16
+    for th in (8, 6, 4, 2):
+        if h % th:
+            continue
+        for bo in bo_cands:
+            kbuf = th * wp * 3 * kh * cp * dtype_bytes
+            stag = 3 * (th + 2) * wp * cp * dtype_bytes
+            wght = 3 * kh * cp * kw * bo * dtype_bytes * 2
+            out9 = th * wp * kw * bo * 4
+            io = 2 * 2 * th * w * bo * dtype_bytes
+            if kbuf + stag + wght + out9 + io < budget:
+                return th, bo
+    return 2, min(bo_cands[-1], 128)
+
+
+def row_tile(x: torch.Tensor, w: torch.Tensor) -> int:
+    """Rows per activation scale of the int8 variant for input x
+    [T, H, W, C] and weights w [O, C, 3, kh, kw]."""
+    o, c = int(w.shape[0]), int(w.shape[1])
+    return pick_tiles(_aligned(max(x.shape[-1], c)), _aligned(o), x.shape[1], x.shape[2],
+                      x.element_size(), int(w.shape[3]), int(w.shape[4]))[0]
+
+
+def pack_weights_int8(w: torch.Tensor, gamma: Optional[torch.Tensor] = None):
+    """Int8 weights of the int8 variant: g = max(|gamma|, 1e-6) (ones
+    without a norm) is folded into the weights along K = (tap, row,
+    channel), and each packed column (kernel column dx, output channel o)
+    gets the scale sc = max(amax over K, 1e-12) / 127, q = round(w g / sc).
+    Returns (wq [3, kh, kw, O, C] int8, sc [kw, O] float32, ginv [C]
+    float32 = 1 / g, which the kernel applies to the activations)."""
+    c = int(w.shape[1])
+    g = (torch.ones(c, dtype=torch.float32, device=w.device) if gamma is None
+         else torch.clamp_min(gamma.abs(), 1e-6).float())
+    wf = w.float().permute(2, 3, 4, 0, 1) * g  # [3, kh, kw, O, C]
+    sc = _div(torch.clamp_min(wf.abs().amax(dim=(0, 1, 4)), 1e-12), 127.0)  # [kw, O]
+    wq = torch.round(wf / sc[None, None, :, :, None]).to(torch.int8)
+    return wq.contiguous(), sc.contiguous(), _rdiv(1.0, g).contiguous()
+
+
+def activation_scales(full: torch.Tensor, ginv: torch.Tensor, th: int, kh: int) -> torch.Tensor:
+    """The int8 variant's activation scale of every (output frame, row)
+    [T, H]: over the three virtual frames t..t+2 of ``full`` [T+2, H, W, C]
+    and the rows of the row tile with its halo (one row each side when
+    kh = 3, clipped at the image), amax = max(max|full * ginv|, 1e-8) and
+    s = amax / 127.  Every row of a tile carries its tile's scale."""
+    rowmax = (full.float() * ginv).abs().amax(dim=(2, 3))  # [T+2, H]
+    fm = torch.maximum(torch.maximum(rowmax[:-2], rowmax[1:-1]), rowmax[2:])  # [T, H]
+    h, ph = full.shape[1], kh // 2
+    tiles = []
+    for r0 in range(0, h, th):
+        amax = fm[:, max(r0 - ph, 0):min(r0 + th + ph, h)].amax(dim=1)
+        tiles.append(_div(torch.clamp_min(amax, 1e-8), 127.0)[:, None].expand(-1, min(th, h - r0)))
+    return torch.cat(tiles, dim=1)
+
+
+def _conv_int8_plain(full: torch.Tensor, w_int8, th: int) -> torch.Tensor:
+    """The int8 variant's product over [T+2, H, W, C] frames: per output
+    frame t, the K-packed operand (tap, row, channel) over the W + 2 pw
+    padded columns, quantized q = round(a / s) with a = full * ginv and
+    its row's scale s; per dx the exact integer product, then
+    float32(int) * (s * sc[dx, o]) summed over dx in order.  Returns
+    float32 [T, H, W, O]."""
+    wq, sc, ginv = w_int8
+    kh, kw, o = wq.shape[1], wq.shape[2], wq.shape[3]
+    t, h, wd = full.shape[0] - 2, full.shape[1], full.shape[2]
+    ph, pw = kh // 2, kw // 2
+    s_row = activation_scales(full, ginv, th, kh)  # [T, H]
+    a = full.float() * ginv
+    wflat = wq.permute(2, 3, 0, 1, 4).reshape(kw * o, -1)  # rows (dx, o), K (tap, row, c)
+    out = []
+    for ti in range(t):
+        taps = []
+        for tau in range(3):
+            fr = torch.nn.functional.pad(a[ti + tau], (0, 0, pw, pw, ph, ph))
+            taps += [fr[dy:dy + h] for dy in range(kh)]
+        op = torch.round(torch.cat(taps, dim=-1) / s_row[ti][:, None, None]).to(torch.int8)
+        prod = int_matmul(op.reshape(h * (wd + 2 * pw), -1), wflat).reshape(h, wd + 2 * pw, kw, o)
+        y = None
+        for dx in range(kw):
+            y_dx = prod[:, dx:dx + wd, dx].float() * (s_row[ti][:, None, None] * sc[dx])
+            y = y_dx if y is None else y + y_dx
+        out.append(y)
+    return torch.stack(out)
+
+
 def fused_causal_conv_plain(
     x: torch.Tensor, cache: torch.Tensor, w: torch.Tensor,
     b: Optional[torch.Tensor] = None, gamma: Optional[torch.Tensor] = None,
-    residual: Optional[torch.Tensor] = None,
+    residual: Optional[torch.Tensor] = None, w_int8=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The kernel's function in plain PyTorch: float32 conv over the
     concatenated [cache ++ normalised x], bias added in float32, one
-    rounding to x's dtype, then the residual added in that dtype."""
+    rounding to x's dtype, then the residual added in that dtype.  With
+    ``w_int8`` (``pack_weights_int8(w, gamma)``) the int8 variant's
+    product (``_conv_int8_plain``, row tile ``row_tile(x, w)``) replaces
+    the float32 conv."""
     xin = norm_silu(x, gamma) if gamma is not None else x
     full = torch.cat([cache.to(x.dtype), xin], dim=0)  # [T+2, H, W, C]
+    if w_int8 is not None:
+        y = _conv_int8_plain(full, w_int8, row_tile(x, w))
+        if b is not None:
+            y = y + b.float()
+        y = y.to(x.dtype)
+        if residual is not None:
+            y = y + residual
+        return y, full[-2:]
     kh, kw = w.shape[3], w.shape[4]
     y = F.conv3d(full.permute(3, 0, 1, 2)[None].float(), w.float(), None,
                  padding=(0, kh // 2, kw // 2))[0]  # [O, T, H, W]
@@ -63,17 +193,30 @@ def pack_weights(w: torch.Tensor) -> torch.Tensor:
     return w.permute(2, 3, 4, 0, 1).contiguous()
 
 
+def _check(name: str, t: Optional[torch.Tensor], dtype, device) -> None:
+    if t is None:
+        return
+    if t.dtype != dtype:
+        raise ValueError(f"fused_causal_conv: {name} must be {dtype}, got {t.dtype}")
+    if not t.is_contiguous() or t.data_ptr() % 16 or t.device != device:
+        raise ValueError(f"fused_causal_conv: {name} must be contiguous, "
+                         f"16-byte aligned and on {device}")
+
+
 def fused_causal_conv(
     x: torch.Tensor, cache: torch.Tensor, w: torch.Tensor,
     b: Optional[torch.Tensor] = None, gamma: Optional[torch.Tensor] = None,
     residual: Optional[torch.Tensor] = None, w_packed: Optional[torch.Tensor] = None,
+    w_int8=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: [T, H, W, C]; cache: [2, H, W, C] (the previous two conv input
     frames, normalised when ``gamma`` is given; zeros before the first
     chunk); w: [O, C, 3, kh, kw] with kh, kw in {1, 3}; b: [O]; gamma: [C];
-    residual: [T, H, W, O]; w_packed: ``pack_weights(w)``, made once where
-    the parameters are built (packed here per call when omitted).  Returns
-    (out [T, H, W, O], new_cache [2, H, W, C]).
+    residual: [T, H, W, O]; w_packed: ``pack_weights(w)`` and w_int8:
+    ``pack_weights_int8(w, gamma)``, made once where the parameters are
+    built (packed here per call when omitted).  Returns (out [T, H, W, O],
+    new_cache [2, H, W, C]).  ``LONGLIVE_VAE_INT8=1`` selects the int8
+    variant.
 
     CPU tensors run the plain version.  CUDA tensors launch the kernel,
     which takes bf16 x/cache/w/residual, C % 32 == 0 and O % 96 == 0;
@@ -82,8 +225,12 @@ def fused_causal_conv(
     kt, kh, kw = (int(s) for s in w.shape[2:])
     if kt != 3 or kh not in (1, 3) or kw not in (1, 3):
         raise ValueError(f"fused_causal_conv: kernel {tuple(w.shape[2:])} unsupported")
+    int8 = os.environ.get("LONGLIVE_VAE_INT8", "0") == "1"
+    if int8 and w_int8 is None:
+        w_int8 = pack_weights_int8(w, gamma)
     if x.device.type == "cpu":
-        return fused_causal_conv_plain(x, cache, w, b, gamma, residual)
+        return fused_causal_conv_plain(x, cache, w, b, gamma, residual,
+                                       w_int8 if int8 else None)
     global launches
     if x.device.type != "cuda":
         raise ValueError(f"fused_causal_conv: unsupported device {x.device}")
@@ -97,31 +244,54 @@ def fused_causal_conv(
     if residual is not None and residual.shape != (t, h, wd, o):
         raise ValueError(f"fused_causal_conv: residual {tuple(residual.shape)} "
                          f"!= {(t, h, wd, o)}")
-    wp = pack_weights(w) if w_packed is None else w_packed
-    if wp.shape != (3, kh, kw, o, c):
-        raise ValueError(f"fused_causal_conv: w_packed {tuple(wp.shape)} != {(3, kh, kw, o, c)}")
     bf = None if b is None else b.float().contiguous()
     gf = None if gamma is None else gamma.float().contiguous()
-    for name, tt in (("x", x), ("cache", cache), ("w", wp), ("residual", residual)):
-        if tt is None:
-            continue
-        if tt.dtype != torch.bfloat16:
-            raise ValueError(f"fused_causal_conv: {name} must be bf16, got {tt.dtype}")
-        if not tt.is_contiguous() or tt.data_ptr() % 16 or tt.device != x.device:
-            raise ValueError(f"fused_causal_conv: {name} must be contiguous, "
-                             f"16-byte aligned and on {x.device}")
+    for name, tt in (("x", x), ("cache", cache), ("residual", residual)):
+        _check(name, tt, torch.bfloat16, x.device)
     for name, tt, n in (("b", bf, o), ("gamma", gf, c)):
         if tt is not None and (tt.shape != (n,) or tt.device != x.device):
             raise ValueError(f"fused_causal_conv: {name} must be [{n}] on {x.device}")
-    out = torch.empty((t, h, wd, o), dtype=x.dtype, device=x.device)
-    nx = torch.empty_like(cache)
-    ptr = lambda a: None if a is None else a.data_ptr()
+    ptr = lambda a: None if a is None else a.data_ptr()  # noqa: E731
+    stream = torch.cuda.current_stream(x.device).cuda_stream
     lib = kernels.load("causal_conv")
-    fn = lib.longlive_causal_conv
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-    rc = fn(x.data_ptr(), cache.data_ptr(), wp.data_ptr(), ptr(bf), ptr(gf),
-            ptr(residual), out.data_ptr(), nx.data_ptr(), t, h, wd, c, o, kh, kw,
-            torch.cuda.current_stream(x.device).cuda_stream)
-    kernels.check(lib, rc, "fused_causal_conv")
+    out = torch.empty((t, h, wd, o), dtype=x.dtype, device=x.device)
+    if int8:
+        wq, sc, ginv = w_int8
+        if wq.shape != (3, kh, kw, o, c) or sc.shape != (kw, o) or ginv.shape != (c,):
+            raise ValueError(f"fused_causal_conv: w_int8 shapes {tuple(wq.shape)}, "
+                             f"{tuple(sc.shape)}, {tuple(ginv.shape)} do not match w")
+        _check("w_int8", wq, torch.int8, x.device)
+        _check("w_int8 scales", sc, torch.float32, x.device)
+        _check("w_int8 ginv", ginv, torch.float32, x.device)
+        xn = torch.empty_like(x) if gamma is not None else x
+        rowmax = torch.empty((t + 2, h), dtype=torch.float32, device=x.device)
+        fn = lib.longlive_causal_conv_int8_rowmax
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        rc = fn(x.data_ptr(), cache.data_ptr(), ptr(gf), ginv.data_ptr(),
+                xn.data_ptr() if gamma is not None else None, rowmax.data_ptr(), t, h, wd, c,
+                stream)
+        kernels.check(lib, rc, "fused_causal_conv (int8 row amax)")
+        fn = lib.longlive_causal_conv_int8
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+        rc = fn(xn.data_ptr(), cache.data_ptr(), wq.data_ptr(), sc.data_ptr(), ginv.data_ptr(),
+                ptr(bf), ptr(residual), rowmax.data_ptr(), out.data_ptr(), t, h, wd, c, o, kh,
+                kw, row_tile(x, w), stream)
+        kernels.check(lib, rc, "fused_causal_conv (int8)")
+        nx = torch.cat([cache[1:], xn[-2:]])[-2:].contiguous()
+        mode = "int8"
+    else:
+        wp = pack_weights(w) if w_packed is None else w_packed
+        if wp.shape != (3, kh, kw, o, c):
+            raise ValueError(f"fused_causal_conv: w_packed {tuple(wp.shape)} != "
+                             f"{(3, kh, kw, o, c)}")
+        _check("w", wp, torch.bfloat16, x.device)
+        nx = torch.empty_like(cache)
+        fn = lib.longlive_causal_conv
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        rc = fn(x.data_ptr(), cache.data_ptr(), wp.data_ptr(), ptr(bf), ptr(gf),
+                ptr(residual), out.data_ptr(), nx.data_ptr(), t, h, wd, c, o, kh, kw, stream)
+        kernels.check(lib, rc, "fused_causal_conv")
+        mode = "bf16"
     launches += 1
+    mode_launches[mode] += 1
     return out, nx

@@ -11,6 +11,12 @@ A prompt switch rebuilds the cache under the new prompt by replaying the
 last generated frames in one kv_only forward (the KV-recache,
 ``build_recache_fn``), or chunk by chunk while those frames are generated
 (``EagerRecache``).
+
+Quantized serving: ``kv_int8`` stores the cache's K as int8 with per-token
+scales (attention then runs QK^T in int8 and q's RoPE is not fused);
+``recache_attn_impl: pallas_qk8`` runs the one-shot recache forwards with
+int8 QK^T on a bf16 cache; int8 block linears come with the parameters
+(``ops.quant.quantize_dit_params``).
 """
 
 from __future__ import annotations
@@ -28,18 +34,6 @@ from ..ops import kv_cache as kvc
 from ..ops import scheduler as S
 from ..ops.rope import make_rope_tables
 from ..utils.device import resolve_device
-
-
-def check_supported(config: PipelineConfig) -> None:
-    """Knobs of the JAX package this slice of the port does not carry yet."""
-    todo = {
-        "kv_int8": (config.kv_int8, "queue 1, item 9 (int8)"),
-        "recache_attn_impl": (config.recache_attn_impl is not None,
-                              "queue 2, K1 mode qk_int8"),
-    }
-    for key, (on, item) in todo.items():
-        if on:
-            raise NotImplementedError(f"{key} is not ported yet: ROADMAP {item}")
 
 
 def build_recache_fn(cfg: DiTConfig, cache_cfg: CacheConfig, tables, sched_context_noise: float,
@@ -151,7 +145,6 @@ class CausalInferencePipeline:
                  geometry: LatentGeometry = LatentGeometry(),
                  dit_config: Optional[DiTConfig] = None, device="cuda",
                  deterministic_renoise: bool = False):
-        check_supported(config)
         self.config = config
         self.params = params
         self.geom = geometry
@@ -179,18 +172,29 @@ class CausalInferencePipeline:
         # frames land in consecutive cache slots and are written at once
         self._contig = (self.cache_cfg.sink_frames % self.frame_block == 0
                         and self.cache_cfg.ring_frames % self.frame_block == 0)
-        # kernel_cache: None = on where the contiguous-ring invariant holds.
-        # The port has one cache layout, so either value computes the same
-        # numbers; True only adds the JAX package's checks.
+        # kernel_cache: None = on where the contiguous-ring invariant holds
+        # and the cache is bf16.  The port has one cache layout, so either
+        # value computes the same numbers; True only adds the JAX package's
+        # checks.
         kc = config.kernel_cache
         if kc is None:
-            kc = self._contig
-        elif kc and not self._contig:
-            raise ValueError(
-                "kernel_cache requires the contiguous-ring invariant "
-                "(sink_size and local_attn_size - sink_size must be "
-                "multiples of num_frame_per_block)")
+            kc = self._contig and not config.kv_int8
+        elif kc:
+            if config.kv_int8:
+                raise ValueError("kernel_cache is a single-device bf16 serving mode "
+                                 "(sp == 1, no kv_int8)")
+            if not self._contig:
+                raise ValueError(
+                    "kernel_cache requires the contiguous-ring invariant "
+                    "(sink_size and local_attn_size - sink_size must be "
+                    "multiples of num_frame_per_block)")
         self.kernel_cache = bool(kc)
+        # the one-shot recache's attention: int8 QK^T for "pallas_qk8"
+        # (config.RECACHE_ATTN_IMPLS); an int8 cache always attends so
+        self._recache_qk8 = config.recache_attn_impl == "pallas_qk8"
+        if self._recache_qk8 and config.fused_rope and not config.kv_int8:
+            raise ValueError("recache_attn_impl 'pallas_qk8' does not combine with fused_rope "
+                             "on a bf16 cache: the int8 QK kernel has no q_rope prologue")
 
     @property
     def dtype(self) -> torch.dtype:
@@ -252,7 +256,7 @@ class CausalInferencePipeline:
     def init_cache(self, batch_size: int, dtype=None) -> kvc.KVCache:
         return kvc.init_cache(self.cache_cfg, self.cfg.num_layers, batch_size,
                               self.cfg.num_heads, self.cfg.head_dim,
-                              dtype or self.dtype, self.device)
+                              dtype or self.dtype, self.device, k_int8=self.config.kv_int8)
 
     def prepare_condition(self, prompt_embeds: torch.Tensor) -> D.CrossKV:
         """prompt_embeds: [B, text_len, text_dim] zero-padded text features."""
@@ -284,9 +288,13 @@ class CausalInferencePipeline:
                       "block-aligned replay sizes (reactive_switch rounds down "
                       "automatically).", file=sys.stderr, flush=True)
                 self._contig = False
+        forward = self._forward
+        if self._recache_qk8:
+            def forward(*a, **kw):
+                return self._forward(*a, qk_int8=True, **kw)
         return build_recache_fn(self.cfg, self.cache_cfg, self.tables,
                                 float(self.config.context_noise), num_frames, global_sink,
-                                overwrite_sink, self.attn_window_frames, forward=self._forward)
+                                overwrite_sink, self.attn_window_frames, forward=forward)
 
     def reactive_switch(self, cache: kvc.KVCache, history: torch.Tensor,
                         cross_new: D.CrossKV, current_frame: int,

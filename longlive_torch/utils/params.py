@@ -4,9 +4,14 @@ The JAX trees stack the DiT's per-layer parameters on a leading [L] axis
 and store linears as ``{"kernel": [in, out], "bias"}``.  These converters
 take such a tree with numpy leaves (``jax.tree.map(np.asarray, tree)``) and
 return the port's layout: a list of per-layer dicts and
-``{"weight": [out, in], "bias"}``.  The halfsplit q/k permutation is already
-applied in a JAX tree (``canonicalize_rope_layout`` ran when it was built)
-and is not applied again.
+``{"weight": [out, in], "bias"}``.  Int8 linears of a tree quantized by the
+JAX package's ``quantize_dit_params`` (``{"w_int8": [in, out],
+"w_scale": [out], "bias"}``, a fused ``qkv`` included) become
+``{"w_int8": [out, in] int8, in contiguous, "w_scale": [out] float32,
+"bias"}``, the operand layout of the port's int8 kernel.  The halfsplit
+q/k permutation is already applied in a JAX tree
+(``canonicalize_rope_layout`` ran when it was built) and is not applied
+again.
 """
 
 from __future__ import annotations
@@ -30,6 +35,13 @@ def _convert(node: Any, dtype, device) -> Any:
     if node is None:
         return None
     if isinstance(node, dict):
+        if "w_int8" in node:
+            out = {"w_int8": _tensor(np.ascontiguousarray(np.asarray(node["w_int8"]).T), None,
+                                     device),
+                   "w_scale": _tensor(node["w_scale"], torch.float32, device)}
+            if node.get("bias") is not None:
+                out["bias"] = _tensor(node["bias"], dtype, device)
+            return out
         if "kernel" in node:
             out = {"weight": _tensor(np.asarray(node["kernel"]).T, dtype, device)}
             if node.get("bias") is not None:

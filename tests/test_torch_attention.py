@@ -1,7 +1,7 @@
 """The plain version of the port's attention kernel (flash_attention on a
 CPU tensor) held against the JAX Pallas ``_flash_kernel`` run in interpret
-mode in its bias + kv_layer and q_rope modes, D = 128, with masked cache
-slots and ragged q and KV tiles."""
+mode in its bias + kv_layer, q_rope and qk_int8 (with and without stored K
+scales) modes, D = 128, with masked cache slots and ragged q and KV tiles."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -64,7 +64,69 @@ def test_plain_q_rope_matches_pallas(sq, s, valid_tokens):
         torch.from_numpy(v_cache[layer].reshape(b * n, s, d)), torch.from_numpy(bias),
         q_rope=(torch.from_numpy(cos), torch.from_numpy(sin)))
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=RTOL, atol=ATOL)
-    assert TA.launches == 0 and TA.mode_launches == {"bias": 0, "q_rope": 0}
+    assert TA.launches == 0 and TA.mode_launches == {"bias": 0, "q_rope": 0, "qk_int8": 0}
+
+
+def test_quantize_k_tokens_equals_jax():
+    rng = np.random.default_rng(13)
+    k = rng.standard_normal((1, 40, 2, 128)).astype(np.float32)
+    k[0, 3] = 0.0  # all-zero tokens take the 1e-30 floor
+    tk, tsc = TA.quantize_k_tokens(torch.from_numpy(k))
+    jk, jsc = JA.quantize_k_tokens(jnp.asarray(k))
+    np.testing.assert_array_equal(tk.numpy(), np.asarray(jk))
+    np.testing.assert_array_equal(tsc.numpy(), np.asarray(jsc))
+    np.testing.assert_array_equal(
+        TA.dequantize_k(tk, tsc, torch.float32).numpy(),
+        np.asarray(JA.dequantize_k(jk, jsc, jnp.float32)))
+
+
+# qk_int8: the integer QK^T is exact on both sides and q is quantized by the
+# same formula; the logits then differ only by float32 summation order in
+# the softmax, as in the bf16 modes
+@pytest.mark.parametrize("stored,sq,s,valid_tokens", [
+    (True, 40, 96, 80), (True, 17, 100, 64), (False, 40, 96, 80), (False, 64, 150, 150)])
+def test_plain_qk_int8_matches_pallas(stored, sq, s, valid_tokens):
+    """The int8 K cache (k int8 with its stored scales) and the per-call
+    quantized K of the pallas_qk8 recache; masked slots and KV lengths
+    that are no multiple of the 32-token tiles (padded slots)."""
+    rng = np.random.default_rng(14)
+    b, n, d = 1, 2, 128
+    q = rng.standard_normal((b, sq, n, d)).astype(np.float32)
+    k = rng.standard_normal((b, s, n, d)).astype(np.float32)
+    v = rng.standard_normal((b, s, n, d)).astype(np.float32)
+    valid = np.arange(s) < valid_tokens
+    valid[5:9] = False
+    bias = np.where(valid, 0.0, -1e30).astype(np.float32)[None]
+    heads = lambda a: np.ascontiguousarray(a.transpose(0, 2, 1, 3).reshape(b * n, s, d))
+    if stored:
+        jk, jsc = JA.quantize_k_tokens(jnp.asarray(k))
+        ref = JA.flash_attention(jnp.asarray(q), jk, jnp.asarray(v), jnp.asarray(bias),
+                                 block_q=16, block_kv=32, qk_int8=True, k_scales=jsc,
+                                 interpret=True)
+        tk = torch.from_numpy(heads(np.asarray(jk)))
+        tsc = torch.from_numpy(np.ascontiguousarray(np.asarray(jsc).transpose(0, 2, 1)
+                                                    .reshape(b * n, s)))
+    else:
+        ref = JA.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                 jnp.asarray(bias), block_q=16, block_kv=32, qk_int8=True,
+                                 interpret=True)
+        tk, tsc = torch.from_numpy(heads(k)), None
+    TA.reset_launches()
+    out = TA.flash_attention(torch.from_numpy(q), tk, torch.from_numpy(heads(v)),
+                             torch.from_numpy(bias), qk_int8=True, k_scales=tsc)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=RTOL, atol=ATOL)
+    assert TA.launches == 0 and TA.mode_launches["qk_int8"] == 0
+
+
+def test_qk_int8_mode_rules():
+    q = torch.zeros((1, 8, 2, 128))
+    kv = torch.zeros((2, 16, 128))
+    bias = torch.zeros((1, 16))
+    rope = (torch.zeros((8, 64)), torch.zeros((8, 64)))
+    with pytest.raises(ValueError, match="q_rope"):
+        TA.flash_attention(q, kv, kv, bias, q_rope=rope, qk_int8=True)
+    with pytest.raises(ValueError, match="qk_int8"):
+        TA.flash_attention(q, kv.to(torch.int8), kv, bias, k_scales=torch.ones((2, 16)))
 
 
 def test_dense_attention_matches_jax():

@@ -109,6 +109,84 @@ def test_causal_conv_kernel_matches_plain(dev, t, h, w, c, o, k, norm, res):
         VC.fused_causal_conv(x.float(), cache, wt, b, gamma, resid)
 
 
+@pytest.mark.parametrize("sq,s,valid,stored", [(40, 100, 100, True), (130, 64, 30, True),
+                                                (1, 257, 200, False), (300, 200, 150, False)])
+def test_flash_attention_qk_int8_kernel_matches_plain(dev, sq, s, valid, stored):
+    """qk_int8 mode: K int8 with stored scales (the int8 K cache) or bf16
+    quantized per call (pallas_qk8), at ragged q and KV tiles."""
+    from longlive_torch.ops import attention as A
+
+    g = torch.Generator(device=dev).manual_seed(4)
+    b, n, d = 1, 3, 128
+    q = torch.randn((b, sq, n, d), generator=g, device=dev).to(torch.bfloat16)
+    k = torch.randn((b * n, s, d), generator=g, device=dev).to(torch.bfloat16)
+    v = torch.randn((b * n, s, d), generator=g, device=dev).to(torch.bfloat16)
+    ks = None
+    if stored:
+        k, ks = A.quantize_k_tokens(k)
+    bias = torch.where(torch.arange(s, device=dev) < valid, 0.0, A.NEG_INF).float()[None]
+    before = dict(A.mode_launches)
+    out = A.flash_attention(q, k, v, bias.contiguous(), qk_int8=True, k_scales=ks)
+    ref = A.flash_attention_plain(q, k, v, bias, qk_int8=True, k_scales=ks)
+    torch.cuda.synchronize()
+    assert A.mode_launches == dict(before, qk_int8=before["qk_int8"] + 1)
+    _assert_agrees(out, ref)
+    if stored:
+        with pytest.raises(ValueError):  # the stored scales cover every token
+            A.flash_attention(q, k, v, bias.contiguous(), qk_int8=True, k_scales=ks[:, :-1])
+
+
+@pytest.mark.parametrize("m,k,n", [(4680, 1536, 1536), (300, 4096, 1000), (257, 128, 8)])
+def test_int8_linear_kernel_matches_plain(dev, m, k, n):
+    """K5 (64-row M tiles; 32 rows when K > 2048; a ragged last N tile) is
+    bit-equal to its plain version: the integer product is exact and the
+    rescale runs the same float32 operations in the same order."""
+    from longlive_torch.ops import quant as Q
+
+    g = torch.Generator(device=dev).manual_seed(8)
+    x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
+    p = Q.quantize_weight(torch.randn((n, k), generator=g, device=dev) * 0.02)
+    p["bias"] = torch.randn((n,), generator=g, device=dev).to(torch.bfloat16)
+    before = Q.launches
+    out = Q.linear_int8_fused(x, p)
+    torch.cuda.synchronize()
+    assert Q.launches == before + 1
+    assert torch.equal(out, Q.linear_int8_fused_plain(x, p))
+    _assert_agrees(out, Q.linear_int8(x, p))  # the other quantizer: one-step differences
+    with pytest.raises(ValueError):
+        Q.linear_int8_fused(x.float(), p)
+
+
+@pytest.mark.parametrize("t,h,w,c,o,k,norm,res", [
+    (1, 5, 13, 32, 96, 3, True, True),
+    (2, 9, 30, 64, 192, 3, True, False),   # tiles span rows and row tiles
+    (2, 7, 20, 96, 192, 1, False, False),  # time conv
+])
+def test_causal_conv_int8_kernel_matches_plain(dev, monkeypatch, t, h, w, c, o, k, norm, res):
+    from longlive_torch.ops import vae_conv as VC
+
+    monkeypatch.setenv("LONGLIVE_VAE_INT8", "1")
+    g = torch.Generator(device=dev).manual_seed(2)
+    bf = torch.bfloat16
+    x = torch.randn((t, h, w, c), generator=g, device=dev).to(bf)
+    cache = torch.randn((2, h, w, c), generator=g, device=dev).to(bf)
+    std = 1.0 / math.sqrt(c * 3 * k * k)
+    wt = ((torch.rand((o, c, 3, k, k), generator=g, device=dev) * 2 - 1) * std).to(bf)
+    b = torch.randn((o,), generator=g, device=dev)
+    gamma = 1.0 + 0.1 * torch.randn((c,), generator=g, device=dev) if norm else None
+    resid = torch.randn((t, h, w, o), generator=g, device=dev).to(bf) if res else None
+    pk = VC.pack_weights_int8(wt, gamma)
+    before = dict(VC.mode_launches)
+    out, nx = VC.fused_causal_conv(x, cache, wt, b, gamma, resid, w_int8=pk)
+    ref, ref_nx = VC.fused_causal_conv_plain(x, cache, wt, b, gamma, resid, w_int8=pk)
+    torch.cuda.synchronize()
+    assert VC.mode_launches == dict(before, int8=before["int8"] + 1)
+    _assert_agrees(out, ref)
+    _assert_agrees(nx, ref_nx)
+    out2, _ = VC.fused_causal_conv(x, cache, wt, b, gamma, resid)  # packed per call
+    assert torch.equal(out2, out)
+
+
 # K4 at ragged shapes: (B, Sq, Skv, N, mask): no mask, a kv-valid mask with
 # a fully masked tile, a per-batch mask, the 512-token cross shape cut short
 @pytest.mark.parametrize("b,sq,skv,n,masked", [

@@ -49,8 +49,18 @@ def test_generate_latents_matches_jax(reuse):
 
 
 def test_unported_knobs_raise():
+    """kv_int8 and recache_attn_impl "pallas_qk8" are ported; a
+    recache_attn_impl the port does not carry is refused by name, as is
+    kernel_cache under kv_int8 (the JAX package's rule)."""
     params = {"patch_embedding": {"weight": torch.zeros(1)}}
-    for knob in (dict(kv_int8=True), dict(recache_attn_impl="xla")):
-        with pytest.raises(NotImplementedError):
-            CausalInferencePipeline(PipelineConfig(**{**_PC, **knob}), params,
-                                    dit_config=tiny_dit_config(), device="cpu")
+    for knob in (dict(kv_int8=True), dict(recache_attn_impl="pallas_qk8"),
+                 dict(kv_int8=True, recache_attn_impl="pallas_qk8")):
+        pipe = CausalInferencePipeline(PipelineConfig(**{**_PC, **knob}), params,
+                                       dit_config=tiny_dit_config(), device="cpu")
+        assert not (pipe.kernel_cache and pipe.config.kv_int8)
+    for impl in ("xla", "pallas_qk8_interpret"):
+        with pytest.raises(ValueError, match=impl):
+            PipelineConfig(**_PC, recache_attn_impl=impl)
+    with pytest.raises(ValueError, match="kv_int8"):
+        CausalInferencePipeline(PipelineConfig(**_PC, kv_int8=True, kernel_cache=True), params,
+                                dit_config=tiny_dit_config(), device="cpu")

@@ -50,3 +50,100 @@ def test_pack_weights_layout():
     p = TV.pack_weights(w)
     assert p.shape == (3, 3, 1, 2, 3)
     assert p[2, 1, 0, 1, 0] == w[1, 0, 2, 1, 0]
+
+
+def _jax_int8_packed(wt, gamma, kh, kw):
+    """JAX's pack_weights_int8 for the kernel's padded widths and output
+    tile, laid out like the port's (wq [3, kh, kw, O, C], sc [kw, O], ginv
+    [C])."""
+    from longlive_tpu.ops.vae_conv import _aligned, _pick_tiles, pack_weights_int8
+
+    o, c = wt.shape[:2]
+    cp, op = _aligned(c), _aligned(o)
+    bo = _pick_tiles(cp, op, 8, 16, 4, kh, kw)[1]
+    g = None
+    if gamma is not None:
+        g = jnp.maximum(jnp.abs(jnp.pad(jnp.asarray(gamma), (0, cp - c))), 1e-6)
+    wq, sc, ginv = pack_weights_int8(jnp.asarray(wt), cp, op, bo, kh, g)
+    wq = np.asarray(wq).reshape(op // bo, 3, kh, cp, kw, bo).transpose(1, 2, 4, 0, 5, 3)
+    sc = np.asarray(sc).reshape(op // bo, kw, bo).transpose(1, 0, 2)
+    return (wq.reshape(3, kh, kw, op, cp)[:, :, :, :o, :c], sc.reshape(kw, op)[:, :o],
+            np.asarray(ginv)[0, :c])
+
+
+@pytest.mark.parametrize("c,o,khw,norm", [(96, 96, 3, True), (192, 96, 3, False),
+                                          (384, 768, 1, False)])
+def test_pack_weights_int8_equals_jax(c, o, khw, norm):
+    rng = np.random.default_rng(6)
+    wt = (rng.standard_normal((o, c, 3, khw, khw)) * 0.05).astype(np.float32)
+    gamma = rng.standard_normal(c).astype(np.float32) if norm else None
+    wq, sc, ginv = TV.pack_weights_int8(torch.from_numpy(wt),
+                                        None if gamma is None else torch.from_numpy(gamma))
+    jwq, jsc, jginv = _jax_int8_packed(wt, gamma, khw, khw)
+    assert wq.dtype == torch.int8 and wq.shape == (3, khw, khw, o, c)
+    np.testing.assert_array_equal(wq.numpy(), jwq)
+    np.testing.assert_array_equal(sc.numpy(), jsc)
+    np.testing.assert_array_equal(ginv.numpy(), jginv)
+
+
+def test_pick_tiles_matches_jax():
+    from longlive_tpu.ops.vae_conv import _pick_tiles
+
+    for args in ((128, 128, 480, 832, 2, 3, 3), (256, 256, 240, 416, 2, 3, 3),
+                 (384, 384, 60, 104, 2, 3, 3), (384, 768, 120, 208, 2, 1, 1),
+                 (256, 256, 16, 16, 4, 3, 3), (128, 128, 8, 16, 4, 3, 3)):
+        assert TV.pick_tiles(*args) == _pick_tiles(*args, budget=20e6), args
+    # the decoder's widest stage at 480x832 (bf16): 2 rows per scale
+    assert TV.row_tile(torch.empty((4, 480, 832, 96), dtype=torch.bfloat16),
+                       torch.empty((96, 96, 3, 3, 3))) == 2
+
+
+# The int8 variant against the JAX kernel interpreted, both float32.  The
+# integer products are exact on both sides and the scales are computed the
+# same way; the normalised activations may differ by one float32 ulp
+# (another summation order of the per-pixel norm), which can move a value
+# across an int8 rounding boundary: one step of one element moves an output
+# by s_act * s_w * |q_w| <= ~2e-4 here (s_act ~ max|a| / 127, s_w ~ max|w| /
+# 127), so the limit is 1e-3 absolute against outputs of magnitude ~1-10.
+INT8_ATOL = 1e-3
+
+
+@pytest.mark.parametrize("t,h,w,c,o,norm,res,khw", [
+    (1, 8, 16, 96, 96, True, True, 3),      # res conv2 at the 96 stage
+    (2, 16, 16, 192, 192, True, False, 3),  # two row tiles of 8 (th < H)
+    (1, 8, 16, 96, 192, False, True, 3),
+    (2, 8, 16, 384, 768, False, False, 1),  # time conv
+])
+def test_plain_int8_conv_matches_pallas(monkeypatch, t, h, w, c, o, norm, res, khw):
+    from longlive_tpu.models import nn as JN
+    from longlive_tpu.models import vae as JV
+
+    monkeypatch.setenv("LONGLIVE_VAE_INT8", "1")
+    rng = np.random.default_rng(8)
+    x = rng.standard_normal((t, h, w, c)).astype(np.float32)
+    cache = rng.standard_normal((2, h, w, c)).astype(np.float32)
+    wt = (rng.standard_normal((o, c, 3, khw, khw)) * 0.05).astype(np.float32)
+    b = rng.standard_normal((o,)).astype(np.float32)
+    gamma = (1.0 + 0.3 * rng.standard_normal((c,))).astype(np.float32) if norm else None
+    residual = rng.standard_normal((t, h, w, o)).astype(np.float32) if res else None
+    if norm:  # a streaming cache holds normalised frames
+        cache = np.array(JN.silu(JV.rms_norm_channel(jnp.asarray(cache)[None],
+                                                       jnp.asarray(gamma))[0]))
+
+    j = lambda a: None if a is None else jnp.asarray(a)
+    tt = lambda a: None if a is None else torch.from_numpy(a)
+    ref_out, ref_cache = jax_fused(j(x), j(cache), j(wt), j(b), j(gamma), j(residual),
+                                   interpret=True)
+    TV.reset_launches()
+    out, new_cache = TV.fused_causal_conv(tt(x), tt(cache), tt(wt), tt(b), tt(gamma),
+                                          tt(residual))
+    assert TV.launches == 0
+    th = TV.row_tile(tt(x), tt(wt))
+    assert th == (8 if h == 16 else h)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref_out)[..., :o], rtol=0,
+                               atol=INT8_ATOL)
+    np.testing.assert_allclose(new_cache.numpy(), np.asarray(ref_cache)[..., :c], atol=1e-5)
+    # the float32 conv of the bf16 variant is ~1e-2 away: int8 is in effect
+    exact, _ = TV.fused_causal_conv_plain(tt(x), tt(cache), tt(wt), tt(b), tt(gamma),
+                                          tt(residual))
+    assert np.abs(exact.numpy() - out.numpy()).max() > 10 * INT8_ATOL
