@@ -9,17 +9,19 @@ Phases, each of which exits non-zero when it fails:
 
 1. card identity (``nvidia-smi`` name and power limit);
 2. build of every CUDA kernel of the paths below from ``longlive_torch/csrc``;
-3. kernel checks at the paths' shapes: each kernel (K1 in its bias, q_rope
-   and qk_int8 modes, K2 bf16 and int8, K5, K4's forward and its two
-   backward kernels at the four training shapes) against its plain PyTorch
-   version on the same inputs, with times of the kernel, the plain version,
-   the least time the card could take, and one PyTorch library call
-   computing the same function (timed here only, never used by the port);
+3. kernel checks at the paths' shapes: each kernel (K1 in its bias, q_rope,
+   qk_int8 and two-segment modes and under the exp2 + mxu_lsum switches,
+   K2 bf16 and int8, K6, K5, K4's forward and its two backward kernels at
+   the four training shapes) against its plain PyTorch version on the same
+   inputs, with times of the kernel, the plain version, the least time the
+   card could take, and one PyTorch library call computing the same
+   function (timed here only, never used by the port);
 4. a small-input reference: the port on the GPU (bf16, kernels) against the
    port on the CPU (float32, plain versions), for single-prompt, fused-rope,
    one-shot-recache, eager-recache and reactive generation, the quantized
    serving mode (int8 linears, int8 K cache, int8 recache, int8 VAE convs),
-   and one training step;
+   the serving options (two-segment decode, exp2, mxu_lsum, the fused res
+   block) and one training step;
 5. the paths, at full Wan2.1-1.3B width with random weights, each with
    every kernel's launch count checked against the count derived from the
    model structure:
@@ -39,6 +41,11 @@ Phases, each of which exits non-zero when it fails:
    f. int8 recache: ``run_interactive`` on the interactive config with
       ``recache_attn_impl: pallas_qk8`` (bf16 cache), 18 frames, one switch
       at 12;
+   s. serving options: ``run_inference`` on a copy of
+      ``configs/longlive_inference.yaml`` with ``kernel_cache: false`` and
+      ``LONGLIVE_TWO_SEGMENT=1``, ``LONGLIVE_EXP2=1``,
+      ``LONGLIVE_MXU_LSUM=1``, ``LONGLIVE_VAE_PAIR=1`` (set for this path
+      only), 15 latent frames, VAE decode and the video;
    g. training: ``run_train`` on ``configs/longlive_train_init.yaml`` (21
       frames, generator, critic and teacher all 1.3B) for 2 steps, K4's
       forward and backward launches checked; then one step of the same
@@ -161,6 +168,24 @@ def profile_number(text: str, pattern: str, what: str) -> float:
     return float(m.group(1))
 
 
+SWITCHES = ("LONGLIVE_TWO_SEGMENT", "LONGLIVE_EXP2", "LONGLIVE_MXU_LSUM", "LONGLIVE_VAE_PAIR")
+
+
+@contextlib.contextmanager
+def switched(**env):
+    """Environment switches set for the body only, restored after it."""
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
 def reset_counts(A, VC) -> None:
     from longlive_torch.ops import quant as Q
 
@@ -170,19 +195,24 @@ def reset_counts(A, VC) -> None:
 
 
 def counts(A, VC) -> dict:
-    """Serving launches: K1 and K2 by mode, K5, and the calls of the int8
-    linears' separate-quantize route (fc2, outside K5's shape rule)."""
+    """Serving launches: K1 by mode and by switch, K2 by mode, K6, K5, and
+    the calls of the int8 linears' separate-quantize route (fc2, outside
+    K5's shape rule)."""
     from longlive_torch.ops import quant as Q
 
     return {"flash_attention": dict(A.mode_launches),
-            "fused_causal_conv": dict(VC.mode_launches),
+            "flash_attention_switches": dict(A.flag_launches),
+            "fused_causal_conv": dict(VC.mode_launches), "fused_res_block": VC.pair_launches,
             "int8_linear": Q.launches, "linear_int8_route": Q.linear_int8_calls}
 
 
-def expect(bias=0, q_rope=0, qk_int8=0, conv=0, conv_int8=0, k5=0, route=0) -> dict:
+def expect(bias=0, q_rope=0, qk_int8=0, two_segment=0, exp2=0, mxu_lsum=0, conv=0,
+           conv_int8=0, pair=0, k5=0, route=0) -> dict:
     """A full set of expected counts (``counts``' keys), zero by default."""
-    return {"flash_attention": {"bias": bias, "q_rope": q_rope, "qk_int8": qk_int8},
-            "fused_causal_conv": {"bf16": conv, "int8": conv_int8},
+    return {"flash_attention": {"bias": bias, "q_rope": q_rope, "qk_int8": qk_int8,
+                                "two_segment": two_segment},
+            "flash_attention_switches": {"exp2": exp2, "mxu_lsum": mxu_lsum},
+            "fused_causal_conv": {"bf16": conv, "int8": conv_int8}, "fused_res_block": pair,
             "int8_linear": k5, "linear_int8_route": route}
 
 
@@ -413,6 +443,182 @@ def check_attention_int8(torch, A):
                             "int8 cache)")
 
 
+# K1's two-segment mode at the serving-options decode: a 3-frame block (4680
+# queries, 12 heads of 128) over one layer of the 12-frame cache (sink 3 +
+# ring 9) in which the block's own 3 slots are masked and elided, ++ the
+# block's fresh K/V as segment 2.  (label, the block's cache slots, valid
+# cache frames): the steady state after the ring wrapped, and a block's
+# first forward, where no cache token is valid and the softmax state must
+# come out of segment 2 alone.
+TWO_SEG_CASES = [
+    ("two-segment decode: block at ring slots 3-5, 9 cache frames valid", (3, 4, 5), 9),
+    ("two-segment first block: block at the sink slots, no cache token valid", (0, 1, 2), 0),
+]
+
+
+def _two_segment_inputs(torch, A, g, slots, valid_frames):
+    """(q, k, v, k2, v2, bias, skip_ranges, SDPA operands, valid tokens,
+    bytes the call must read and write)."""
+    b, n, d, fs, frames = 1, 12, 128, 1560, 12
+    sq, s = 3 * fs, frames * fs
+    bf = torch.bfloat16
+    q, k2, v2 = (torch.randn((b, sq, n, d), generator=g, device="cuda").to(bf) for _ in range(3))
+    k, v = (torch.randn((b * n, s, d), generator=g, device="cuda").to(bf) for _ in range(2))
+    fvalid = [bool(valid_frames) and f not in slots for f in range(frames)]
+    assert sum(fvalid) == valid_frames
+    valid = torch.tensor(fvalid, device="cuda").repeat_interleave(fs)
+    bias = torch.where(valid, 0.0, A.NEG_INF).float()[None].contiguous()
+    skip = [(f * fs, (f + 1) * fs) for f in slots]
+    kt = torch.cat([k.view(b, n, s, d), k2.transpose(1, 2)], dim=2)
+    vt = torch.cat([v.view(b, n, s, d), v2.transpose(1, 2)], dim=2)
+    mask = torch.cat([valid, torch.ones(sq, dtype=torch.bool, device="cuda")])[None, None, None]
+    nvalid = int(valid.sum()) + sq
+    live = s - len(slots) * fs  # cache tokens the kernel reads
+    nbytes = 2 * 2 * q.numel() + 2 * 2 * (live + sq) * b * n * d + 4 * b * s
+    return q, k, v, k2, v2, bias, skip, (q.transpose(1, 2), kt, vt, mask), nvalid, nbytes
+
+
+def check_attention_two_segment(torch, A):
+    """K1's two-segment mode (switches off) against its plain version at
+    the serving-options decode.  ``library_ms`` is
+    ``scaled_dot_product_attention`` over [cache ++ block] concatenated
+    beforehand, with the mask; ``no_skip_ms`` the same kernel call without
+    ``skip_ranges`` (the block's dead slots computed and masked).  The
+    bound counts the valid KV tokens (14040 of the cache + the block's
+    4680) and the bytes of the tiles read."""
+    import torch.nn.functional as F
+
+    g = torch.Generator(device="cuda").manual_seed(14)
+    cases = []
+    with switched(LONGLIVE_EXP2="0", LONGLIVE_MXU_LSUM="0"):
+        for label, slots, vf in TWO_SEG_CASES:
+            q, k, v, k2, v2, bias, skip, lib, nvalid, nbytes = _two_segment_inputs(
+                torch, A, g, slots, vf)
+            call = lambda sk=skip: A.flash_attention(q, k, v, bias, k2=k2, v2=v2,  # noqa: E731
+                                                     skip_ranges=sk)
+            out = call()
+            ref = A.flash_attention_plain(q, k, v, bias, k2=k2, v2=v2, skip_ranges=skip)
+            torch.cuda.synchronize()
+            if not torch.isfinite(out).all():
+                fail(f"flash_attention ({label}): non-finite output")
+            err, tol, rel = agreement(out, ref)
+            del ref
+            ms = cuda_ms(torch, call, 10)
+            no_skip_ms = cuda_ms(torch, lambda: call(None), 10)
+            plain_ms = cuda_ms(torch, lambda: A.flash_attention_plain(
+                q, k, v, bias, k2=k2, v2=v2, skip_ranges=skip), 2)
+            lib_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+                lib[0], lib[1], lib[2], attn_mask=lib[3]), 10)
+            t_bound, bound_by = bound(4.0 * 12 * q.shape[1] * nvalid * 128, nbytes)
+            log(f"flash_attention {label}: max_abs_err={err:.3e} tol={tol:.3e} "
+                f"rel_rms_err={rel:.3e} (limit {REL_RMS_LIMIT:.0e}) ms={ms:.4f} "
+                f"no_skip_ms={no_skip_ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
+                f"bound_ms={t_bound:.4f} ({bound_by}; {t_bound / ms:.1%} of bound)")
+            if not (err <= tol and rel <= REL_RMS_LIMIT):
+                fail(f"flash_attention ({label}) disagrees with its plain version: "
+                     f"max_abs_err {err} (limit {tol}), rel_rms_err {rel} "
+                     f"(limit {REL_RMS_LIMIT})")
+            cases.append({"case": label, "mode": "two_segment", "q": list(q.shape),
+                          "kv": list(k.shape), "kv2": list(k2.shape), "valid_tokens": nvalid,
+                          "max_abs_err": err, "tolerance": tol, "rel_rms_err": rel, "ms": ms,
+                          "no_skip_ms": no_skip_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                          "bound_ms": t_bound, "bound_by": bound_by})
+            del q, k, v, k2, v2, out, lib
+            torch.cuda.empty_cache()
+    return _attention_entry("flash_attention_two_segment", "two_segment", cases, cases[0],
+                            "one call at the serving-options decode (3 frames over the "
+                            "12-frame cache, the block's slots elided, ++ the block)")
+
+
+# LONGLIVE_EXP2=1 + LONGLIVE_MXU_LSUM=1 (and each alone at the path's call)
+# in every K1 mode, at the paths' decode shapes: (label, mode, exp2, mxu_lsum)
+SWITCH_CASES = [
+    ("exp2 + mxu_lsum, two-segment decode (the serving-options call)", "two_segment", 1, 1),
+    ("exp2 only, two-segment decode", "two_segment", 1, 0),
+    ("mxu_lsum only, two-segment decode", "two_segment", 0, 1),
+    ("exp2 + mxu_lsum, bias decode: 3 frames over the 12-frame cache", "bias", 1, 1),
+    ("exp2 + mxu_lsum, q_rope tuned decode: 3 frames over 9", "q_rope", 1, 1),
+    ("exp2 + mxu_lsum, qk_int8 decode, stored K scales: 3 frames over 9", "qk_int8", 1, 1),
+]
+
+
+def check_attention_switches(torch, A):
+    """K1 under the exp2 and mxu_lsum switches against its plain version
+    with the same switches; ``library_ms`` is the mode's SDPA call, as in
+    the checks above (the switches change the arithmetic, not the
+    function)."""
+    import torch.nn.functional as F
+
+    from longlive_torch.ops.rope import make_rope_tables, rope_multipliers
+
+    b, n, d, fs = 1, 12, 128, 1560
+    g = torch.Generator(device="cuda").manual_seed(15)
+    tables = make_rope_tables(d, 1024, device="cuda")
+    cases = []
+    for label, mode, exp2, lsum in SWITCH_CASES:
+        kw, lib = {}, None
+        if mode == "two_segment":
+            q, k, v, k2, v2, bias, skip, lib, nvalid, nbytes = _two_segment_inputs(
+                torch, A, g, TWO_SEG_CASES[0][1], TWO_SEG_CASES[0][2])
+            kw = dict(k2=k2, v2=v2, skip_ranges=skip)
+        else:
+            kf = 12 if mode == "bias" else 9
+            sq, s = 3 * fs, kf * fs
+            q = torch.randn((b, sq, n, d), generator=g, device="cuda").to(torch.bfloat16)
+            k, v = (torch.randn((b * n, s, d), generator=g, device="cuda").to(torch.bfloat16)
+                    for _ in range(2))
+            bias = torch.zeros((b, s), dtype=torch.float32, device="cuda")
+            nvalid = s
+            nbytes = 2 * 2 * q.numel() + 2 * 2 * k.numel() + 4 * b * s
+            qr, kd = q, k
+            if mode == "q_rope":
+                kw["q_rope"] = rope_multipliers(tables, 3, 30, 52, start_frame=24)
+                qr = A.rope_scaled_q(q, kw["q_rope"][0], kw["q_rope"][1], 1.0)
+            if mode == "qk_int8":
+                k, ksc = A.quantize_k_tokens(k)
+                kw.update(qk_int8=True, k_scales=ksc)
+                nbytes -= k.numel()
+            lib = (qr.transpose(1, 2), kd.view(b, n, s, d), v.view(b, n, s, d), None)
+        with switched(LONGLIVE_EXP2=str(exp2), LONGLIVE_MXU_LSUM=str(lsum)):
+            before = dict(A.flag_launches)
+            out = A.flash_attention(q, k, v, bias, **kw)
+            if A.flag_launches != {"exp2": before["exp2"] + exp2,
+                                   "mxu_lsum": before["mxu_lsum"] + lsum}:
+                fail(f"flash_attention ({label}): switch counts {A.flag_launches} after {before}")
+            ref = A.flash_attention_plain(q, k, v, bias, exp2=bool(exp2), mxu_lsum=bool(lsum),
+                                          **kw)
+            torch.cuda.synchronize()
+            if not torch.isfinite(out).all():
+                fail(f"flash_attention ({label}): non-finite output")
+            err, tol, rel = agreement(out, ref)
+            del ref
+            ms = cuda_ms(torch, lambda: A.flash_attention(q, k, v, bias, **kw), 10)
+            plain_ms = cuda_ms(torch, lambda: A.flash_attention_plain(
+                q, k, v, bias, exp2=bool(exp2), mxu_lsum=bool(lsum), **kw), 2)
+        lib_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+            lib[0], lib[1], lib[2], attn_mask=lib[3]), 10)
+        work = 4.0 * b * n * q.shape[1] * nvalid * d
+        t_bound, bound_by = (bound(work / 2, nbytes, int8_ops=work / 2) if mode == "qk_int8"
+                             else bound(work, nbytes))
+        log(f"flash_attention {label}: max_abs_err={err:.3e} tol={tol:.3e} "
+            f"rel_rms_err={rel:.3e} (limit {REL_RMS_LIMIT:.0e}) ms={ms:.4f} "
+            f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} bound_ms={t_bound:.4f} "
+            f"({bound_by}; {t_bound / ms:.1%} of bound)")
+        if not (err <= tol and rel <= REL_RMS_LIMIT):
+            fail(f"flash_attention ({label}) disagrees with its plain version: "
+                 f"max_abs_err {err} (limit {tol}), rel_rms_err {rel} (limit {REL_RMS_LIMIT})")
+        cases.append({"case": label, "mode": mode, "exp2": bool(exp2), "mxu_lsum": bool(lsum),
+                      "q": list(q.shape), "kv": list(k.shape), "valid_tokens": nvalid,
+                      "max_abs_err": err, "tolerance": tol, "rel_rms_err": rel, "ms": ms,
+                      "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": t_bound,
+                      "bound_by": bound_by})
+        del q, k, v, out, lib
+        kw.clear()
+        torch.cuda.empty_cache()
+    return _attention_entry("flash_attention_exp2_mxu_lsum", "exp2 + mxu_lsum", cases, cases[0],
+                            "one call at the serving-options decode with both switches")
+
+
 # K5 at the int8 serving path's shapes: (label, M, K, N).  Per full forward
 # and layer: q, k, v, o, cross q, cross o at M 4680 and fc1; the cross k, v
 # once per prompt and layer at M 512.
@@ -495,13 +701,31 @@ def check_conv(torch, VC, int8: bool = False):
     of that frame.  ``library_ms`` is cuDNN's bf16 conv3d on the
     normalised frames in both cases (no PyTorch call convolves in int8);
     the int8 bound counts the convs' operations at the int8 rate."""
+    name = "fused_causal_conv_int8" if int8 else "fused_causal_conv"
+    with switched(LONGLIVE_VAE_INT8="1" if int8 else "0"):
+        cases, tot = _conv_cases(torch, VC, int8, name)
+    t_bound, bound_by = (bound(0.0, tot["bytes"], int8_ops=tot["flops"]) if int8
+                         else bound(tot["flops"], tot["bytes"]))
+    return {
+        "name": name, "route": "cuda", "mode": "int8" if int8 else "bf16",
+        "source": "longlive_torch/csrc/causal_conv.cu",
+        "replaces": "longlive_tpu/ops/vae_conv.py:78",
+        "max_abs_err": max(c["max_abs_err"] for c in cases),
+        "tolerance": min(c["tolerance"] for c in cases),
+        "rel_rms_err": max(c["rel_rms_err"] for c in cases),
+        "rel_rms_limit": REL_RMS_LIMIT,
+        "ms": tot["ms"], "kernel_ms": tot["ms"], "plain_ms": tot["plain_ms"],
+        "bound_ms": t_bound, "bound_by": bound_by, "library_ms": tot["library_ms"],
+        "unit": "sum over the 30 fused convs of one later latent frame", "cases": cases,
+    }
+
+
+def _conv_cases(torch, VC, int8: bool, name: str):
+    """check_conv's cases and their count-weighted sums."""
     import torch.nn.functional as F
 
     g = torch.Generator(device="cuda").manual_seed(2)
     bf = torch.bfloat16
-    name = "fused_causal_conv_int8" if int8 else "fused_causal_conv"
-    prev = os.environ.get("LONGLIVE_VAE_INT8")
-    os.environ["LONGLIVE_VAE_INT8"] = "1" if int8 else "0"
     cases = []
     tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "flops": 0.0, "bytes": 0.0}
     assert sum(c[-1] for c in CONV_CASES) == 30
@@ -561,23 +785,114 @@ def check_conv(torch, VC, int8: bool = False):
             tot[key] += count * val
         del x, cache, wt, pk, resid, out, nx, full
         torch.cuda.empty_cache()
-    if prev is None:
-        os.environ.pop("LONGLIVE_VAE_INT8", None)
-    else:
-        os.environ["LONGLIVE_VAE_INT8"] = prev
-    t_bound, bound_by = (bound(0.0, tot["bytes"], int8_ops=tot["flops"]) if int8
-                         else bound(tot["flops"], tot["bytes"]))
+    return cases, tot
+
+
+# K6 at the no-shortcut res blocks of one later latent frame of the Wan2.1
+# decoder at 480x832: (label, T, H, W, C, calls per later latent frame).
+# The last case is no path's (a chunk of 4 latent frames at the 384-wide
+# stage): it takes the kernel's 8 x 4 tile.
+PAIR_CASES = [
+    ("res block 384@60x104 (middle, stage 0)", 1, 60, 104, 384, 5),
+    ("res block 384@120x208 (stage 1)", 2, 120, 208, 384, 2),
+    ("res block 192@240x416 (stage 2)", 4, 240, 416, 192, 3),
+    ("res block 96@480x832 (stage 3)", 4, 480, 832, 96, 3),
+    ("res block 384@60x104 over 4 frames (8x4 tile; no path's)", 4, 60, 104, 384, 0),
+]
+
+
+def check_res_block_pair(torch, VC):
+    """K6 against its plain version (the two-call plain chain) and against
+    the chain of two K2 launches, at every pair shape of one later latent
+    frame; the headline numbers are sums over its 13 calls.  No single
+    PyTorch call computes a res block: ``library_ms`` is two cuDNN bf16
+    conv3d calls on the normalised inputs (norms excluded), ``chain_ms``
+    the two K2 launches."""
+    import torch.nn.functional as F
+
+    g = torch.Generator(device="cuda").manual_seed(16)
+    bf = torch.bfloat16
+    cases = []
+    tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "chain_ms": 0.0, "flops": 0.0,
+           "bytes": 0.0}
+    assert sum(c[-1] for c in PAIR_CASES) == 13
+    for label, t, h, w, c, count in PAIR_CASES:
+        x = torch.randn((t, h, w, c), generator=g, device="cuda").to(bf)
+        c1, c2 = (torch.randn((2, h, w, c), generator=g, device="cuda").to(bf) for _ in range(2))
+        std = 1.0 / math.sqrt(27 * c)
+        w1, w2 = (((torch.rand((c, c, 3, 3, 3), generator=g, device="cuda") * 2 - 1) * std)
+                  .to(bf) for _ in range(2))
+        b1, b2 = ((torch.rand((c,), generator=g, device="cuda") * 2 - 1) * std for _ in range(2))
+        g1, g2 = (1.0 + 0.1 * torch.randn((c,), generator=g, device="cuda") for _ in range(2))
+        p1, p2 = VC.pack_weights(w1), VC.pack_weights(w2)  # packed once, as the VAE's are
+        args = (x, c1, c2, w1, b1, g1, w2, b2, g2)
+        before = VC.pair_launches
+        got = VC.fused_res_block(*args, w1_packed=p1, w2_packed=p2)
+        if VC.pair_launches != before + 1:
+            fail(f"fused_res_block ({label}): {VC.pair_launches - before} launches, expected 1")
+        ref = VC.fused_res_block_plain(*args)
+
+        def chain():
+            y, n1 = VC.fused_causal_conv(x, c1, w1, b1, g1, w_packed=p1)
+            out, n2 = VC.fused_causal_conv(y, c2, w2, b2, g2, residual=x, w_packed=p2)
+            return out, n1, n2
+
+        via_k2 = chain()
+        torch.cuda.synchronize()
+        if not all(torch.isfinite(a).all() for a in got):
+            fail(f"fused_res_block ({label}): non-finite output")
+        errs = {}
+        for what, other in (("plain", ref), ("two K2", via_k2)):
+            for name, a, r in zip(("out", "new cache1", "new cache2"), got, other):
+                err, tol, rel = agreement(a, r)
+                errs[f"{name} vs {what}"] = (err, tol, rel)
+                if not (err <= tol and rel <= REL_RMS_LIMIT):
+                    fail(f"fused_res_block ({label}) {name} disagrees with the {what} version: "
+                         f"max_abs_err {err} (limit {tol}), rel_rms_err {rel} "
+                         f"(limit {REL_RMS_LIMIT})")
+        del ref, via_k2
+        full1 = torch.cat([c1, VC.norm_silu(x, g1)], 0).permute(3, 0, 1, 2)[None].contiguous()
+        y = got[0]  # any bf16 frames of the right shape: cuDNN's time does not depend on them
+        full2 = torch.cat([c2, y], 0).permute(3, 0, 1, 2)[None].contiguous()
+        b1b, b2b = b1.to(bf), b2.to(bf)
+        ms = cuda_ms(torch, lambda: VC.fused_res_block(*args, w1_packed=p1, w2_packed=p2), 5)
+        chain_ms = cuda_ms(torch, chain, 5)
+        plain_ms = cuda_ms(torch, lambda: VC.fused_res_block_plain(*args), 2)
+        lib_ms = cuda_ms(torch, lambda: (F.conv3d(full1, w1, b1b, padding=(0, 1, 1)),
+                                         F.conv3d(full2, w2, b2b, padding=(0, 1, 1))), 5)
+        flops = 2 * 2.0 * t * h * w * c * c * 27
+        nbytes = 2 * (2 * x.numel() + 4 * c1.numel()) + 2 * 2 * w1.numel() + 4 * 4 * c
+        t_bound, bound_by = bound(flops, nbytes)
+        worst = max(errs.values(), key=lambda e: e[0] / e[1])
+        log(f"fused_res_block {label} x{count}: "
+            + ", ".join(f"{k} {e:.3e}/{tl:.3e}/{r:.3e}" for k, (e, tl, r) in errs.items())
+            + f"; ms={ms:.4f} chain_ms={chain_ms:.4f} plain_ms={plain_ms:.4f} "
+            f"library_ms={lib_ms:.4f} bound_ms={t_bound:.4f} ({bound_by}; "
+            f"{t_bound / ms:.1%} of bound)")
+        cases.append({"case": label, "count": count, "t": t, "h": h, "w": w, "c": c,
+                      "tile": list(VC.pair_tile(c, t)), "max_abs_err": worst[0],
+                      "tolerance": worst[1], "rel_rms_err": max(e[2] for e in errs.values()),
+                      "ms": ms, "chain_ms": chain_ms, "plain_ms": plain_ms,
+                      "library_ms": lib_ms, "bound_ms": t_bound, "bound_by": bound_by})
+        for key, val in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", lib_ms),
+                         ("chain_ms", chain_ms), ("flops", flops), ("bytes", nbytes)):
+            tot[key] += count * val
+        del x, c1, c2, w1, w2, p1, p2, got, full1, full2, y
+        torch.cuda.empty_cache()
+    t_bound, bound_by = bound(tot["flops"], tot["bytes"])
     return {
-        "name": name, "route": "cuda", "mode": "int8" if int8 else "bf16",
-        "source": "longlive_torch/csrc/causal_conv.cu",
-        "replaces": "longlive_tpu/ops/vae_conv.py:78",
+        "name": "fused_res_block", "route": "cuda",
+        "source": "longlive_torch/csrc/res_block_pair.cu",
+        "replaces": "longlive_tpu/ops/vae_conv.py:650",
         "max_abs_err": max(c["max_abs_err"] for c in cases),
         "tolerance": min(c["tolerance"] for c in cases),
-        "rel_rms_err": max(c["rel_rms_err"] for c in cases),
-        "rel_rms_limit": REL_RMS_LIMIT,
+        "rel_rms_err": max(c["rel_rms_err"] for c in cases), "rel_rms_limit": REL_RMS_LIMIT,
         "ms": tot["ms"], "kernel_ms": tot["ms"], "plain_ms": tot["plain_ms"],
         "bound_ms": t_bound, "bound_by": bound_by, "library_ms": tot["library_ms"],
-        "unit": "sum over the 30 fused convs of one later latent frame", "cases": cases,
+        "chain_ms": tot["chain_ms"],
+        "unit": "sum over the 13 res blocks of one later latent frame (library_ms: two cuDNN "
+                "bf16 conv3d per block; chain_ms: two K2 launches per block)",
+        "cases": cases,
     }
 
 
@@ -701,10 +1016,8 @@ def check_small_int8_reference(torch, A, VC):
         ("int8 recache (pallas_qk8)", dict(recache_attn_impl="pallas_qk8"),
          lambda p, c: p.generate_latents_interactive(noise, c, [3])),
     ]
-    saved = {k: os.environ.get(k) for k in ("LONGLIVE_INT8_FUSED", "LONGLIVE_VAE_INT8")}
-    os.environ.update(LONGLIVE_INT8_FUSED="1", LONGLIVE_VAE_INT8="1")
     errs, lat32 = {}, None
-    try:
+    with switched(LONGLIVE_INT8_FUSED="1", LONGLIVE_VAE_INT8="1"):
         for label, knobs, run in loops:
             lat = {}
             for dev, dt in (("cpu", torch.float32), ("cuda", torch.bfloat16)):
@@ -731,17 +1044,70 @@ def check_small_int8_reference(torch, A, VC):
         if counts(A, VC)["fused_causal_conv"]["int8"] == 0:
             fail("small int8 reference: the GPU VAE launched no int8 conv")
         errs["VAE pixels, int8 convs"] = rel_err(px_gpu, px_cpu)
-    finally:
-        for k, v in saved.items():
-            if v is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = v
     log(f"small int8 reference (GPU bf16 kernels vs CPU float32 plain; limit "
         f"{INT8_REF_LIMIT:.0e}): " + ", ".join(f"{k} rel_err={v:.3e}" for k, v in errs.items()))
     bad = {k: v for k, v in errs.items() if not v <= INT8_REF_LIMIT}
     if bad:
         fail(f"small int8 reference disagrees (limit {INT8_REF_LIMIT}): {bad}")
+    return errs
+
+
+def check_small_serving_options_reference(torch, A, VC):
+    """The serving options on small inputs, GPU (bf16, kernels) vs CPU
+    (float32, plain versions): generation with ``kernel_cache: false``,
+    ``LONGLIVE_TWO_SEGMENT=1``, ``LONGLIVE_EXP2=1`` and
+    ``LONGLIVE_MXU_LSUM=1`` (64-token frames: each of a block's slots is
+    one whole KV tile, so elision runs), then the VAE (widths 192 and 96)
+    with ``LONGLIVE_VAE_PAIR=1``.  Checks that the GPU runs went through
+    the two-segment mode with both switches and through K6."""
+    from longlive_torch.config import DiTConfig, LatentGeometry, PipelineConfig
+    from longlive_torch.models import dit as D
+    from longlive_torch.models import vae as V
+    from longlive_torch.pipeline import CausalInferencePipeline
+
+    cfg = DiTConfig(dim=256, ffn_dim=512, num_heads=2, num_layers=2, in_dim=16, out_dim=16,
+                    text_dim=64, text_len=16, freq_dim=64, local_attn_size=4, sink_size=1,
+                    num_frame_per_block=1, rope_max_pos=64)
+    geom = LatentGeometry(height=16, width=16)
+    pc = PipelineConfig(num_frame_per_block=1, local_attn_size=4, sink_size=1,
+                        num_output_frames=6, kernel_cache=False)
+    params32 = D.init_dit_params(cfg, torch.float32, "cpu", seed=3, zero_head=False)
+    g = torch.Generator().manual_seed(10)
+    pe = torch.randn((1, cfg.text_len, cfg.text_dim), generator=g)
+    noise = torch.randn((1, 6, 16, geom.height, geom.width), generator=g)
+    errs, lat = {}, {}
+    with switched(**{k: "1" for k in SWITCHES}):
+        for dev, dt in (("cpu", torch.float32), ("cuda", torch.bfloat16)):
+            pipe = CausalInferencePipeline(pc, to_dev(params32, dev, dt), geometry=geom,
+                                           dit_config=cfg, device=dev, deterministic_renoise=True)
+            reset_counts(A, VC)
+            lat[dev] = pipe.generate_latents(noise, pipe.prepare_condition(pe))
+        got = counts(A, VC)
+        att = got["flash_attention"]
+        if not (att["two_segment"] > 0 and att["two_segment"] == A.launches
+                == got["flash_attention_switches"]["exp2"]
+                == got["flash_attention_switches"]["mxu_lsum"]):
+            fail(f"small serving-options reference: the GPU run launched {got}")
+        if not torch.isfinite(lat["cuda"]).all():
+            fail("small serving-options reference: non-finite GPU latents")
+        errs["two-segment generation, exp2, mxu_lsum"] = rel_err(lat["cuda"], lat["cpu"])
+        vcfg = dataclasses.replace(V.tiny_vae_config(), dim=96, z_dim=16)
+        vp32 = V.init_vae_params(vcfg, torch.float32, "cpu", seed=5)
+        z = lat["cpu"][:, :3]
+        px_cpu = V.vae_decode(vp32, vcfg, z)
+        reset_counts(A, VC)
+        px_gpu = V.vae_decode(V.pack_fused_weights(to_dev(vp32, "cuda", torch.bfloat16)), vcfg,
+                              z.to("cuda", torch.bfloat16))
+        if VC.pair_launches == 0:
+            fail("small serving-options reference: the GPU VAE launched no fused_res_block")
+        if not torch.isfinite(px_gpu).all():
+            fail("small serving-options reference: non-finite GPU pixels")
+        errs["VAE pixels, fused res blocks"] = rel_err(px_gpu, px_cpu)
+    log("small serving-options reference (GPU bf16 kernels vs CPU float32 plain; limit "
+        "5e-2): " + ", ".join(f"{k} rel_err={v:.3e}" for k, v in errs.items()))
+    bad = {k: v for k, v in errs.items() if not v <= 5e-2}
+    if bad:
+        fail(f"small serving-options reference disagrees (limit 5e-2): {bad}")
     return errs
 
 
@@ -755,7 +1121,8 @@ def derived():
     commit forward; a block whose commit is skipped, only the former; a
     recache or eager chunk is one commit-like forward.  The VAE runs both
     convs of every res block per latent frame, plus one time conv per
-    temporal upsample from the second frame on.  Int8 linears: per layer
+    temporal upsample from the second frame on; under LONGLIVE_VAE_PAIR=1
+    each res block without a shortcut is one K6 launch instead.  Int8 linears: per layer
     of a full forward, K5 runs q, k, v, o, cross q, cross o and fc1 (K 1536)
     and fc2 (K 8960, past K5's K <= 4096) takes the separate-quantize
     route; the kv_only last layer of a commit runs only its k and v; each
@@ -767,10 +1134,17 @@ def derived():
     vcfg = VAEConfig()
     n_res = 2 + len(vcfg.dim_mult) * (vcfg.num_res_blocks + 1)
     n_time = sum(vcfg.temperal_upsample[: len(vcfg.dim_mult) - 1])
+    # the stages whose first res block changes width carry a shortcut; every
+    # other res block is one fused_res_block under LONGLIVE_VAE_PAIR=1
+    dims = [vcfg.dim * u for u in (vcfg.dim_mult[-1],) + tuple(reversed(vcfg.dim_mult))]
+    n_short = sum((dims[i] // 2 if i else dims[i]) != dims[i + 1]
+                  for i in range(len(vcfg.dim_mult)))
     k5_full, k5_commit = 7 * layers, 7 * (layers - 1) + 2
     return {"block": layers * steps + layers - 1, "block_nocommit": layers * steps,
             "recache": layers - 1,
             "conv": lambda frames: 2 * n_res + (frames - 1) * (2 * n_res + n_time),
+            "pair": lambda frames: (n_res - n_short) * frames,
+            "conv_pair": lambda frames: 2 * n_short + (frames - 1) * (2 * n_short + n_time),
             "k5_block": steps * k5_full + k5_commit, "k5_recache": k5_commit,
             "k5_prompt": 2 * layers,
             "fc2_block": steps * layers + layers - 1, "fc2_recache": layers - 1}
@@ -985,10 +1359,8 @@ def run_int8_serving_path(torch, A, VC) -> dict:
 
     frames, switch, dv = 15, 9, derived()
     blocks = frames // 3
-    saved = {k: os.environ.get(k) for k in ("LONGLIVE_INT8_FUSED", "LONGLIVE_VAE_INT8")}
-    os.environ.update(LONGLIVE_INT8_FUSED="1", LONGLIVE_VAE_INT8="1")
     out = {}
-    try:
+    with switched(LONGLIVE_INT8_FUSED="1", LONGLIVE_VAE_INT8="1"):
         config, cfg, params, conds, noise, _ = _cli_inputs(
             torch, "longlive_inference_tuned.yaml", frames, 2)
         config = dataclasses.replace(config, kv_int8=True)
@@ -1040,12 +1412,6 @@ def run_int8_serving_path(torch, A, VC) -> dict:
             log(f"int8 serving ({run}): DiT {r['dit_ms_per_latent_frame']:.2f} ms/latent-frame, "
                 f"switch stall +{r['switch_stall_ms']:.2f} ms (block {r['switch_block_ms']:.2f} "
                 f"ms), peak device memory {r['peak_gib']:.2f} GiB")
-    finally:
-        for k, v in saved.items():
-            if v is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = v
     out.update(dit_ms_per_latent_frame=out["warm"]["dit_ms_per_latent_frame"],
                decode_ms_per_latent_frame=decode_s / frames * 1e3, launches=got)
     log(f"int8 serving: decode {out['decode_ms_per_latent_frame']:.2f} ms/latent-frame "
@@ -1095,6 +1461,53 @@ def run_int8_recache_path(torch, A, VC) -> dict:
     log(f"int8 recache: {wall:.1f} s wall, peak device memory {peak:.2f} GiB, steady "
         f"{out['steady_ms_per_latent_frame']:.2f} ms/latent-frame, 12-frame int8 recache stall "
         f"+{out['switch_stall_ms']:.2f} ms; output {r['path']}")
+    return out
+
+
+def run_serving_options_path(torch, A, VC) -> dict:
+    """``run_inference`` on ``configs/longlive_inference.yaml`` with
+    ``kernel_cache: false`` (a copy written under ``build/``) and the four
+    serving switches set for this path only: 15 latent frames, the VAE
+    decode and the video.  Every self-attention is K1's two-segment mode
+    with exp2 and mxu_lsum; every no-shortcut res block is one K6 launch."""
+    import yaml
+
+    from longlive_torch import run_inference
+
+    frames, dv = 15, derived()
+    with open(os.path.join(ROOT, "configs", "longlive_inference.yaml")) as f:
+        raw = yaml.safe_load(f)
+    raw["kernel_cache"] = False
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    path = os.path.join(ROOT, "build", "chip_smoke_serving_options.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(raw, f)
+    label = "serving options"
+    with switched(**{k: "1" for k in SWITCHES}):
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(A, VC)
+        t0 = time.perf_counter()
+        results, text = run_captured(lambda: run_inference.main([
+            "--config_path", path, "--num_output_frames", str(frames), "--device", "cuda"]))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = counts(A, VC)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if len(results) != 1:
+        fail(f"{label} wrote {len(results)} videos, expected 1")
+    r = results[0]
+    check_video(torch, label, r, frames)
+    k1 = (frames // 3) * dv["block"]
+    check_counts(label, got, expect(two_segment=k1, exp2=k1, mxu_lsum=k1,
+                                    conv=dv["conv_pair"](frames), pair=dv["pair"](frames)))
+    out = {"dit_ms_per_latent_frame": profile_number(
+               text, r"steady-state latency=([0-9.]+) ms/latent-frame", label),
+           "decode_ms_per_latent_frame": r["decode_s"] / frames * 1e3,
+           "wall_s": wall, "peak_gib": peak, "launches": got}
+    log(f"{label}: {wall:.1f} s wall, peak device memory {peak:.2f} GiB, DiT "
+        f"{out['dit_ms_per_latent_frame']:.2f} ms/latent-frame, decode "
+        f"{out['decode_ms_per_latent_frame']:.2f} ms/latent-frame; output {r['path']} "
+        f"({os.path.getsize(r['path'])} bytes)")
     return out
 
 
@@ -1481,7 +1894,7 @@ def main() -> None:
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     torch.backends.cuda.matmul.allow_tf32 = False  # plain versions in true float32
     torch.backends.cudnn.allow_tf32 = False
-    for knob in ("LONGLIVE_INT8_FUSED", "LONGLIVE_VAE_INT8"):  # set per path below
+    for knob in ("LONGLIVE_INT8_FUSED", "LONGLIVE_VAE_INT8") + SWITCHES:  # set per path below
         os.environ.pop(knob, None)
 
     t0 = time.perf_counter()
@@ -1497,14 +1910,16 @@ def main() -> None:
     t0 = time.perf_counter()
     k1 = check_attention(torch, A)
     entries = [k1, check_attention_cases(torch, A, k1), check_attention_int8(torch, A),
+               check_attention_two_segment(torch, A), check_attention_switches(torch, A),
                check_conv(torch, VC), check_conv(torch, VC, int8=True),
-               check_int8_linear(torch, Q)]
+               check_res_block_pair(torch, VC), check_int8_linear(torch, Q)]
     entries += check_train_attention(torch, A)
     log(f"kernel checks: {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
     check_small_reference(torch)
     int8_ref = check_small_int8_reference(torch, A, VC)
+    options_ref = check_small_serving_options_reference(torch, A, VC)
     check_small_training(torch)
     log(f"small references: {time.perf_counter() - t0:.1f} s")
 
@@ -1520,6 +1935,8 @@ def main() -> None:
     paths["int8 serving"] = run_int8_serving_path(torch, A, VC)
     torch.cuda.empty_cache()
     paths["int8 recache"] = run_int8_recache_path(torch, A, VC)
+    torch.cuda.empty_cache()
+    paths["serving options"] = run_serving_options_path(torch, A, VC)
     gc.collect()
     torch.cuda.empty_cache()
     training = run_training_path(torch, A, VC, card)
@@ -1528,6 +1945,7 @@ def main() -> None:
     live = run_live_training_step(torch, A, VC, card)
     log("paths: " + json.dumps(paths))
     log("small int8 reference: " + json.dumps(int8_ref))
+    log("small serving-options reference: " + json.dumps(options_ref))
     log("training: " + json.dumps(training))
     log("training, non-zero heads: " + json.dumps(live))
 
@@ -1540,6 +1958,9 @@ def main() -> None:
         "fused_causal_conv": ("main", "fused_causal_conv", "bf16"),
         "fused_causal_conv_int8": ("int8 serving", "fused_causal_conv", "int8"),
         "int8_linear": ("int8 serving", "int8_linear", None),
+        "flash_attention_two_segment": ("serving options", "flash_attention", "two_segment"),
+        "flash_attention_exp2_mxu_lsum": ("serving options", "flash_attention_switches", "exp2"),
+        "fused_res_block": ("serving options", "fused_res_block", None),
     }
     for entry in entries:
         name = entry["name"]

@@ -19,6 +19,12 @@ Plain functions over a parameter dict:
 - RoPE uses absolute frame positions; cross-attention K/V are computed once
   per prompt (``prepare_cross_kv``);
 - adaLN: 6-way per-frame modulation per block, 2-way at the head;
+- the serving two-segment form (``LONGLIVE_TWO_SEGMENT=1`` on the standard
+  decode, not under ``kernel_cache`` nor an int8 K cache): the cache is
+  read-only inside the layer loop; each layer attends [its cache rows, the
+  block's own slots masked and their tiles elided, ++ the block's fresh
+  K/V] in one kernel call, and the block's K/V of every layer are written
+  once after the loop (not at all under ``commit_writes=False``);
 - the training form (``two_segment=True``): the cache is read-only inside
   the layer loop, each layer attends [cache ++ its fresh block] through the
   differentiable ``attend_train`` (cross-attention too) and returns the
@@ -30,6 +36,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import os
 from typing import List, NamedTuple, Optional, Tuple
 
 import torch
@@ -256,11 +263,17 @@ def _attention_layer_cached(
     rope_cos: torch.Tensor, rope_sin: torch.Tensor, cache: kvc.KVCache, layer_idx: int,
     offsets: List[int], write_frames: Tuple[int, ...], bias: torch.Tensor,
     kv_only: bool = False, fused_rope: bool = False, qk_int8: bool = False,
+    block_kv: Optional[list] = None, skip_ranges: Optional[List[Tuple[int, int]]] = None,
 ) -> Optional[torch.Tensor]:
     """Self-attention against the cache: frames ``write_frames`` of the
     block's roped K/V are written in place into layer ``layer_idx`` at token
     offsets ``offsets``, then the queries attend that layer's rows under
     ``bias``.
+
+    ``block_kv`` (a list) selects the serving two-segment form: the cache is
+    not written; the block's roped K and V ([B, S, N, D]) are appended to
+    the list and attended as the kernel's second segment, with the dead
+    cache tiles ``skip_ranges`` elided and q's RoPE never fused.
 
     An int8 K cache (``cache.k_scale`` set) gets the block's roped K
     quantized once, with its scales, and is attended in the qk_int8 mode
@@ -274,15 +287,19 @@ def _attention_layer_cached(
     k = _rope_k(layer_p, cfg, k, rope_cos, rope_sin)
     v = v.reshape(b, s, n, hd)
     int8_cache = cache.k_scale is not None
-    k_sc = None
-    if int8_cache:
-        k, k_sc = quantize_k_tokens(k)
-    kvc.write_block_kv(cache_cfg, cache, layer_idx, k, v, offsets, write_frames, k_sc)
+    two_segment = block_kv is not None
+    if two_segment:
+        block_kv.append((k, v))
+    else:
+        k_sc = None
+        if int8_cache:
+            k, k_sc = quantize_k_tokens(k)
+        kvc.write_block_kv(cache_cfg, cache, layer_idx, k, v, offsets, write_frames, k_sc)
     if kv_only:
         return None
     q_pre = nn.rms_scale(q, layer_p["norm_q"]["scale"], cfg.eps) if cfg.qk_norm else None
     q_rope = None
-    if fused_rope and not int8_cache and cfg.rope_layout == "halfsplit":
+    if fused_rope and not two_segment and not int8_cache and cfg.rope_layout == "halfsplit":
         if q_pre is not None:
             q = (q.float() * q_pre).to(q.dtype)
         q = q.reshape(b, s, n, hd)
@@ -295,7 +312,9 @@ def _attention_layer_cached(
         q.contiguous(), cache.k[layer_idx].view(b * n, s_tok, hd),
         cache.v[layer_idx].view(b * n, s_tok, hd), bias, q_rope=q_rope,
         qk_int8=qk_int8 or int8_cache,
-        k_scales=cache.k_scale[layer_idx].view(b * n, s_tok) if int8_cache else None)
+        k_scales=cache.k_scale[layer_idx].view(b * n, s_tok) if int8_cache else None,
+        k2=k.contiguous() if two_segment else None, v2=v.contiguous() if two_segment else None,
+        skip_ranges=skip_ranges)
     return nn.linear(out.reshape(b, s, n * hd), layer_p["o"])
 
 
@@ -327,17 +346,21 @@ def _block_body(cfg: DiTConfig, cache_cfg: CacheConfig, num_frames: int, x: torc
                 cross_v: torch.Tensor, e0: torch.Tensor, rope_cos, rope_sin,
                 bias: torch.Tensor, layer_idx: int, offsets: List[int],
                 write_frames: Tuple[int, ...], kv_only: bool = False,
-                fused_rope: bool = False, qk_int8: bool = False) -> torch.Tensor:
+                fused_rope: bool = False, qk_int8: bool = False,
+                block_kv: Optional[list] = None,
+                skip_ranges: Optional[List[Tuple[int, int]]] = None) -> torch.Tensor:
     """One causal attention block.  ``kv_only``: write this layer's K/V and
     skip the rest (the last layer of a commit forward, whose output nobody
-    reads)."""
+    reads).  ``block_kv``, ``skip_ranges``: the serving two-segment form
+    (see ``_attention_layer_cached``)."""
     f = num_frames
     e = layer_p["modulation"][None, None].to(e0.dtype) + e0  # [B, F, 6, dim]
     e_ = [e[:, :, i][:, :, None] for i in range(6)]
     h = _modulated(x, cfg, f, e_[0], e_[1])
     y = _attention_layer_cached(layer_p["self_attn"], cfg, cache_cfg, h, rope_cos, rope_sin,
                                 cache, layer_idx, offsets, write_frames, bias,
-                                kv_only=kv_only, fused_rope=fused_rope, qk_int8=qk_int8)
+                                kv_only=kv_only, fused_rope=fused_rope, qk_int8=qk_int8,
+                                block_kv=block_kv, skip_ranges=skip_ranges)
     if kv_only:
         return x
     return _block_tail(cfg, f, x, y, layer_p, cross_k, cross_v, e_)
@@ -404,6 +427,7 @@ def dit_forward_cached(
     advance_counters: bool = True, kv_only: bool = False, fused_rope: bool = False,
     qk_int8: bool = False, two_segment: bool = False, remat_layers: bool = False,
     window_frames: Optional[int] = None, commit_writes: bool = True,
+    serving_two_segment: Optional[bool] = None, kernel_cache: bool = False,
 ) -> Tuple[torch.Tensor, kvc.KVCache]:
     """One cached DiT forward over a block of F frames at absolute frame
     ``start_frame``.  x: [B, F, C, H, W] noisy latents; t: [B, F].
@@ -424,11 +448,21 @@ def dit_forward_cached(
     ``qk_int8``: self-attention runs QK^T in int8 (the JAX package's
     ``attn_impl="pallas_qk8"``); an int8 K cache always does.
 
+    ``serving_two_segment`` (None: ``LONGLIVE_TWO_SEGMENT=1``, read here as
+    the JAX package reads it) selects the serving two-segment form, taken
+    only on the standard plumbing, on a bf16 cache, and not when
+    ``kernel_cache`` (the pipeline's resolution of its ``kernel_cache`` key:
+    the JAX package runs that cache in its kernel layout, which has no
+    two-segment form).  There the cache is read-only in the layer loop,
+    each layer attends [cache, the block's slots masked and their tiles
+    elided, ++ the block's K/V] and the block's K/V are written after the
+    loop, unless ``commit_writes`` is False (the cache is then left as it
+    was; the write-then-attend form writes in place regardless);
+    ``window_frames`` caps the attended window.
+
     ``two_segment`` selects the training form (``_dit_forward_train``),
     which takes the standard plumbing only, plus ``remat_layers``,
-    ``window_frames`` (attend the sink and the latest frames of a cache that
-    holds more) and ``commit_writes`` (False: the cache is left as it
-    was)."""
+    ``window_frames`` and ``commit_writes`` as above."""
     if two_segment:
         if (kv_valid is not None or offsets is not None or write_frames is not None
                 or fused_rope or qk_int8 or cache.k_scale is not None):
@@ -440,12 +474,26 @@ def dit_forward_cached(
                                   window_frames=window_frames, commit_writes=commit_writes)
     b, f, c, h, w = x.shape
     dtype = params["patch_embedding"]["weight"].dtype
+    if kernel_cache and serving_two_segment:
+        raise ValueError("kernel_cache takes no two-segment forward")
+    if serving_two_segment is None:
+        serving_two_segment = os.environ.get("LONGLIVE_TWO_SEGMENT", "0") == "1"
+    serving_two_segment = (serving_two_segment and not kernel_cache and kv_valid is None
+                           and offsets is None and write_frames is None
+                           and cache.k_scale is None)
     if offsets is None:
         offsets = kvc.block_write_offsets(cache_cfg, cache, start_frame, f)
     if write_frames is None:
         write_frames = tuple(range(f))
     if kv_valid is None:
-        kv_valid = kvc.validity_mask(cache_cfg, cache, start_frame, f, device=x.device)
+        kv_valid = kvc.validity_mask(cache_cfg, cache, start_frame, f,
+                                     window_frames=window_frames, device=x.device,
+                                     exclude_block=serving_two_segment)
+    skip_ranges = None
+    if serving_two_segment:
+        # the block's own slots are masked out of the cache segment: hand
+        # the kernel their token ranges so it elides those tiles outright
+        skip_ranges = [(offsets[i], offsets[i] + cache_cfg.frame_seq) for i in write_frames]
 
     tokens = nn.linear(patchify(x.to(dtype), cfg), params["patch_embedding"])
     e, e0 = time_modulation(params, cfg, t, dtype)
@@ -455,12 +503,18 @@ def dit_forward_cached(
     bias = bias[None].expand(b, -1).contiguous()
 
     blocks = params["blocks"]
+    pending = []  # the two-segment form's block K/V of every layer, to commit
     for li in range(len(blocks)):
         last_kv_only = kv_only and li == len(blocks) - 1
+        block_kv = [] if serving_two_segment else None
         tokens = _block_body(cfg, cache_cfg, f, tokens, blocks[li], cache, cross_kv.k[li],
                              cross_kv.v[li], e0, rope_cos, rope_sin, bias, li, offsets,
                              write_frames, kv_only=last_kv_only, fused_rope=fused_rope,
-                             qk_int8=qk_int8)
+                             qk_int8=qk_int8, block_kv=block_kv, skip_ranges=skip_ranges)
+        if serving_two_segment and commit_writes:
+            pending.append(block_kv[0])
+    for li, (k_blk, v_blk) in enumerate(pending):
+        kvc.write_block_kv(cache_cfg, cache, li, k_blk, v_blk, offsets, write_frames)
     if kv_only:
         flow = torch.zeros((b, f, cfg.out_dim, h, w), dtype=torch.float32, device=x.device)
     else:

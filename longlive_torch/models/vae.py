@@ -11,6 +11,10 @@
   kernel (its int8 variant under ``LONGLIVE_VAE_INT8=1``); the narrow convs
   (decoder conv1 16->384, head 96->3, the 1x1x1 convs, the 2-D resample
   convs) are plain ``F.conv3d`` / ``F.conv2d``.
+- ``LONGLIVE_VAE_PAIR=1`` (read at call time, as in the JAX package): each
+  no-shortcut residual block runs as ONE ``ops.vae_conv.fused_res_block``
+  kernel (both convs, conv1's normalised output kept on chip) instead of
+  two fused convs; off under ``LONGLIVE_VAE_INT8=1``.
 
 Geometry (dim 96, z 16, dim_mult [1, 2, 4, 4], 2 res blocks, temporal
 downsample [False, True, True]) is Wan2.1's.
@@ -20,6 +24,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import os
 from typing import Any, List, Optional, Tuple
 
 import torch
@@ -188,7 +193,35 @@ def norm_silu_causal_conv(x, gamma, p, thread: _CacheThread, residual=None):
 # blocks
 
 
+def _pair_fusable(x, p, thread: _CacheThread) -> bool:
+    """True when ``fused_res_block`` takes the whole block:
+    ``LONGLIVE_VAE_PAIR=1`` without ``LONGLIVE_VAE_INT8=1``, no shortcut,
+    both convs with a bias, both [C, C, 3, 3, 3] and each taken by the
+    fused conv on its own (streaming, batch 1, C >= 96)."""
+    if os.environ.get("LONGLIVE_VAE_PAIR", "0") != "1":
+        return False
+    if os.environ.get("LONGLIVE_VAE_INT8", "0") == "1":
+        return False  # the pair kernel is bf16 only
+    if p.get("shortcut") is not None:
+        return False
+    if p["conv1"].get("b") is None or p["conv2"].get("b") is None:
+        return False
+    if not (_fusable(x, p["conv1"], thread) and _fusable(x, p["conv2"], thread)):
+        return False
+    c = p["conv1"]["w"].shape[1]
+    return all(tuple(p[k]["w"].shape) == (c, c, 3, 3, 3) for k in ("conv1", "conv2"))
+
+
 def res_block(x, p, thread: _CacheThread):
+    if _pair_fusable(x, p, thread):
+        c1, c2 = (thread.pull().to(x.dtype) for _ in range(2))
+        out, n1, n2 = _vc.fused_res_block(
+            x[0], c1[0], c2[0], p["conv1"]["w"], p["conv1"]["b"], p["norm1"],
+            p["conv2"]["w"], p["conv2"]["b"], p["norm2"],
+            w1_packed=p["conv1"].get("w_packed"), w2_packed=p["conv2"].get("w_packed"))
+        thread.push(n1[None])
+        thread.push(n2[None])
+        return out[None]
     h = x
     if p.get("shortcut") is not None:
         h = causal_conv3d(x, p["shortcut"], _CacheThread(None))  # 1x1x1

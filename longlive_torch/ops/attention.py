@@ -4,10 +4,17 @@
   the KV cache with an additive float32 bias per KV token (0 = attend,
   -1e30 = masked).  On a CUDA tensor it launches the hand-written Hopper
   kernel of ``csrc/flash_attention.cu``; on a CPU tensor it runs
-  ``flash_attention_plain``, the same arithmetic in plain PyTorch.  Two
-  modes: ``bias`` (q arrives roped) and ``q_rope`` (q arrives un-roped and
-  the kernel applies the halfsplit rotation, with the softmax scale folded
-  in, while it stages the q tile).
+  ``flash_attention_plain``, the same arithmetic in plain PyTorch.  Modes:
+  ``bias`` (q arrives roped), ``q_rope`` (q arrives un-roped and the kernel
+  applies the halfsplit rotation, with the softmax scale folded in, while
+  it stages the q tile), ``qk_int8`` (QK^T in int8) and ``two_segment``
+  (a second, fully valid KV segment ``k2``/``v2`` -- the fresh block of the
+  serving decode -- beside the cache, one online softmax over both, with
+  the dead cache tiles named by ``skip_ranges`` elided).  Two switches,
+  read at call time as in the JAX package, apply in every mode:
+  ``LONGLIVE_EXP2=1`` folds log2(e) into the softmax scale (and the bias)
+  and takes exp2; ``LONGLIVE_MXU_LSUM=1`` sums each softmax row from P
+  rounded to V's dtype (on the tensor cores in the kernel).
 - ``dense_attention``: plain softmax attention, used for cross-attention
   (the text context is only 512 tokens).
 - ``flash_attention_train``: differentiable attention with a [B, Skv]
@@ -17,16 +24,18 @@
   their plain versions, ``flash_attention_train_plain`` and
   ``flash_attention_train_backward_plain``.
 
-Layout: q and the output are [B, Sq, N, D]; ``flash_attention``'s K and V
-are one layer's rows of the cache, [B*N, S, D] (head-major, token rows
-contiguous); ``flash_attention_train``'s are [B, Skv, N, D].
+Layout: q, the output and ``k2``/``v2`` are [B, Sq, N, D];
+``flash_attention``'s K and V are one layer's rows of the cache,
+[B*N, S, D] (head-major, token rows contiguous); ``flash_attention_train``'s
+are [B, Skv, N, D].
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional
+import os
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -35,8 +44,15 @@ from .quant import _rdiv
 
 NEG_INF = -1e30  # finite: -inf - -inf would poison the running max with NaN
 
+LOG2E = math.log2(math.e)
+KV_TILE = 64  # KV tokens per tile of the kernel: the granularity of dead-tile elision
+LIVE_WORDS = 64  # 32-tile words of the kernel's live-tile mask (up to 131072 cache tokens)
+
 launches = 0  # kernel launches of flash_attention since the last reset
-mode_launches = {"bias": 0, "q_rope": 0, "qk_int8": 0}  # the same launches, by mode
+# the same launches, by mode (a two-segment launch counts as two_segment,
+# whatever its QK^T type), and those that ran with each switch on
+mode_launches = {"bias": 0, "q_rope": 0, "qk_int8": 0, "two_segment": 0}
+flag_launches = {"exp2": 0, "mxu_lsum": 0}
 
 
 # kernel launches of flash_attention_train since the last reset: its forward
@@ -49,10 +65,9 @@ _PLAIN_ROWS = 8192  # query rows per chunk of the plain training versions
 def reset_launches() -> None:
     global launches
     launches = 0
-    for mode in mode_launches:
-        mode_launches[mode] = 0
-    for name in train_launches:
-        train_launches[name] = 0
+    for counter in (mode_launches, flag_launches, train_launches):
+        for name in counter:
+            counter[name] = 0
 
 
 def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -104,16 +119,31 @@ def dequantize_k(k: torch.Tensor, k_scales: torch.Tensor, dtype) -> torch.Tensor
     return (k.float() * k_scales.float()[..., None]).to(dtype)
 
 
-def _scaled_q(q: torch.Tensor) -> torch.Tensor:
-    """q pre-scaled by 1/sqrt(D) and rounded to its dtype."""
-    return (q.float() * (1.0 / math.sqrt(q.shape[-1]))).to(q.dtype)
+def switches() -> Tuple[bool, bool]:
+    """(exp2, mxu_lsum): ``LONGLIVE_EXP2=1`` and ``LONGLIVE_MXU_LSUM=1``,
+    read at each ``flash_attention`` call as the JAX package reads them."""
+    return (os.environ.get("LONGLIVE_EXP2", "0") == "1",
+            os.environ.get("LONGLIVE_MXU_LSUM", "0") == "1")
 
 
-def _qk_int8_operands(q, k, k_scales):
+def softmax_scale(d: int, exp2: bool = False) -> float:
+    """1/sqrt(D), times log2(e) in the exp2 mode (exp(x) == exp2(x log2 e)),
+    as a Python float; the kernels and the plain version round it to
+    float32 where they multiply."""
+    scale = 1.0 / math.sqrt(d)
+    return scale * LOG2E if exp2 else scale
+
+
+def _scaled_q(q: torch.Tensor, scale: float) -> torch.Tensor:
+    """q pre-scaled by the softmax scale and rounded to its dtype."""
+    return (q.float() * scale).to(q.dtype)
+
+
+def _qk_int8_operands(q, k, k_scales, scale: float):
     """The qk_int8 mode's operands: (q8 [B, Sq, N, D], q scales [B, Sq, N],
     k8 [B*N, S, D], k scales [B*N, S]).  K is quantized here unless it
     arrives int8 with ``k_scales``."""
-    q8, qsc = quantize_k_tokens(_scaled_q(q))
+    q8, qsc = quantize_k_tokens(_scaled_q(q, scale))
     if k_scales is None:
         k8, ksc = quantize_k_tokens(k)
     else:
@@ -121,51 +151,91 @@ def _qk_int8_operands(q, k, k_scales):
     return q8, qsc, k8, ksc
 
 
+def live_kv_tiles(skip_ranges: Sequence[Tuple[int, int]], s: int,
+                  tile: int = KV_TILE) -> List[bool]:
+    """Liveness of each of the ceil(s / tile) KV tiles of the first
+    segment (the JAX package's ``_skip_tile_arrays``' ``live``): a tile is
+    dead only when the disjoint token ranges ``skip_ranges`` ((start, end)
+    pairs) cover all of its ``tile`` positions.  A partly covered tile is
+    live and its bias masks the covered tokens, so elision changes no
+    result.  Python ints in, Python bools out: no device work."""
+    live = []
+    for i in range(-(-s // tile)):
+        lo, hi = i * tile, (i + 1) * tile
+        cov = sum(max(0, min(hi, b) - max(lo, a)) for a, b in skip_ranges)
+        live.append(cov < tile)
+    return live
+
+
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           bias: torch.Tensor, q_rope=None, qk_int8: bool = False,
-                          k_scales: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """The kernel's arithmetic: q is pre-scaled by 1/sqrt(D) (and, with
-    ``q_rope``, rotated: ``rope_scaled_q``) and rounded to its dtype, logits
-    are float32 plus the bias, P is rounded to V's dtype before PV, and the
-    output is divided by the float32 row sum at the end.  ``qk_int8``: the
-    logits are (float(q8 . k8) * q_scale) * k_scale + bias, the integer
-    product exact (|q8 . k8| <= 128 * 127^2 < 2^24, so float32 holds it).
-    One head at a time, so the logits of a 12-frame recache
+                          k_scales: Optional[torch.Tensor] = None,
+                          k2: Optional[torch.Tensor] = None, v2: Optional[torch.Tensor] = None,
+                          skip_ranges=None, exp2: bool = False,
+                          mxu_lsum: bool = False) -> torch.Tensor:
+    """The kernel's arithmetic: q is pre-scaled by the softmax scale (and,
+    with ``q_rope``, rotated: ``rope_scaled_q``) and rounded to its dtype,
+    logits are float32 plus the bias, P is rounded to V's dtype before PV,
+    and the output is divided by the float32 row sum at the end.
+    ``qk_int8``: the logits are (float(q8 . k8) * q_scale) * k_scale + bias,
+    the integer product exact (|q8 . k8| <= 128 * 127^2 < 2^24, so float32
+    holds it); a second segment's keys are quantized here per call.
+    ``k2``/``v2``: a second, fully valid segment after the first, one
+    softmax over both (``bias`` covers the first only); ``skip_ranges``
+    only elides tiles the bias masks, so it changes nothing here.
+    ``exp2``: the scale carries log2(e), the bias is multiplied by it and
+    P = exp2(s - m).  ``mxu_lsum``: the row sum is taken over P rounded to
+    V's dtype.  One head at a time, so the logits of a 12-frame recache
     (18720 x 18720) stay ~1.4 GB.
 
     q: [B, Sq, N, D]; k, v: [B*N, S, D] (k int8 with ``k_scales`` [B*N, S]);
-    bias: [B, S] float32."""
-    _check_modes(q_rope, qk_int8, k_scales)
+    bias: [B, S] float32; k2, v2: [B, S2, N, D]."""
+    _check_modes(q_rope, qk_int8, k_scales, k2, v2, skip_ranges)
     b, sq, n, d = q.shape
+    scale = softmax_scale(d, exp2)
     if qk_int8:
-        q8, qsc, k8, ksc = _qk_int8_operands(q, k, k_scales)
+        q8, qsc, k8, ksc = _qk_int8_operands(q, k, k_scales, scale)
         qh = q8.permute(0, 2, 1, 3).reshape(b * n, sq, d)
         qsc = qsc.permute(0, 2, 1).reshape(b * n, sq)
+        if k2 is not None:
+            k2, k2sc = quantize_k_tokens(k2)
     elif q_rope is None:
-        qh = _scaled_q(q).permute(0, 2, 1, 3).reshape(b * n, sq, d)
+        qh = _scaled_q(q, scale).permute(0, 2, 1, 3).reshape(b * n, sq, d)
     else:
-        qs = rope_scaled_q(q, q_rope[0], q_rope[1], 1.0 / math.sqrt(d))
+        qs = rope_scaled_q(q, q_rope[0], q_rope[1], scale)
         qh = qs.permute(0, 2, 1, 3).reshape(b * n, sq, d)
+    bias = bias.float() * LOG2E if exp2 else bias.float()
     out = torch.empty((b * n, sq, d), dtype=torch.float32, device=q.device)
     for bh in range(b * n):
+        bi, h = divmod(bh, n)
+        qf = qh[bh].float()
         if qk_int8:
-            logits = ((qh[bh].float() @ k8[bh].float().T) * qsc[bh, :, None] * ksc[bh].float()
-                      + bias[bh // n].float())
+            logits = (qf @ k8[bh].float().T) * qsc[bh, :, None] * ksc[bh].float() + bias[bi]
         else:
-            logits = qh[bh].float() @ k[bh].float().T + bias[bh // n].float()  # [Sq, S]
+            logits = qf @ k[bh].float().T + bias[bi]  # [Sq, S]
+        vv = v[bh]
+        if k2 is not None:
+            l2 = qf @ k2[bi, :, h].float().T
+            if qk_int8:
+                l2 = l2 * qsc[bh, :, None] * k2sc[bi, :, h]
+            logits = torch.cat([logits, l2], dim=-1)
+            vv = torch.cat([vv, v2[bi, :, h]], dim=0)
         m = logits.amax(dim=-1, keepdim=True)
-        p = torch.exp(logits - m)
-        lsum = p.sum(dim=-1, keepdim=True)
-        out[bh] = (p.to(v.dtype).float() @ v[bh].float()) / lsum
+        p = torch.exp2(logits - m) if exp2 else torch.exp(logits - m)
+        pv = p.to(v.dtype).float()
+        lsum = (pv if mxu_lsum else p).sum(dim=-1, keepdim=True)
+        out[bh] = (pv @ vv.float()) / lsum
     return out.view(b, n, sq, d).permute(0, 2, 1, 3).to(q.dtype)
 
 
-def _check_modes(q_rope, qk_int8: bool, k_scales) -> None:
+def _check_modes(q_rope, qk_int8: bool, k_scales, k2=None, v2=None, skip_ranges=None) -> None:
     if k_scales is not None and not qk_int8:
         raise ValueError("flash_attention: k_scales (an int8 K) needs qk_int8=True")
-    if q_rope is not None and qk_int8:
+    if q_rope is not None and (qk_int8 or k2 is not None or skip_ranges is not None):
         raise ValueError("q_rope (in-kernel q RoPE) supports the plain bf16 "
                          "single-segment kernel only")
+    if (k2 is None) != (v2 is None):
+        raise ValueError("flash_attention: k2 and v2 come together")
 
 
 def _check_operand(name: str, t: torch.Tensor, dtype, shape, device) -> None:
@@ -177,9 +247,30 @@ def _check_operand(name: str, t: torch.Tensor, dtype, shape, device) -> None:
                          f"and on {device}")
 
 
+class _LiveTiles(ctypes.Structure):
+    """The kernel's live-tile mask, passed by value: bit i of word i // 32
+    is set when first-segment KV tile i is computed."""
+
+    _fields_ = [("bits", ctypes.c_uint32 * LIVE_WORDS)]
+
+
+def _live_mask(skip_ranges, s: int) -> _LiveTiles:
+    mask = _LiveTiles()
+    tiles = live_kv_tiles(skip_ranges, s)
+    if len(tiles) > 32 * LIVE_WORDS:
+        raise ValueError(f"flash_attention: skip_ranges over {s} tokens: the kernel's "
+                         f"live-tile mask covers {32 * LIVE_WORDS * KV_TILE}")
+    for i, ok in enumerate(tiles):
+        if ok:
+            mask.bits[i >> 5] |= 1 << (i & 31)
+    return mask
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     bias: torch.Tensor, q_rope=None, qk_int8: bool = False,
-                    k_scales: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    k_scales: Optional[torch.Tensor] = None,
+                    k2: Optional[torch.Tensor] = None, v2: Optional[torch.Tensor] = None,
+                    skip_ranges: Optional[Sequence[Tuple[int, int]]] = None) -> torch.Tensor:
     """Attention of q [B, Sq, N, D] over one cache layer k, v [B*N, S, D]
     with bias [B, S] float32.  Returns [B, Sq, N, D] in q's dtype.
 
@@ -190,15 +281,26 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``qk_int8``: QK^T runs on int8 q and K (``quantize_k_tokens`` of the
     scaled q here, a plain pass as in the JAX package).  K is either the
     int8 cache layer with its scales ``k_scales`` [B*N, S] float32, read in
-    place, or bf16, quantized here per call.  Neither combines with
-    ``q_rope``.
+    place, or bf16, quantized here per call.
+
+    ``k2``/``v2`` [B, S2, N, D] (bf16): a second, fully valid KV segment
+    attended after the cache (its ragged tail masked); ``bias`` covers the
+    cache only.  ``skip_ranges``: disjoint (start, end) token ranges of the
+    cache that the bias masks; the KV tiles they cover completely are not
+    read at all (``live_kv_tiles``).  Neither combines with ``q_rope``.
+
+    ``LONGLIVE_EXP2=1`` and ``LONGLIVE_MXU_LSUM=1`` (see ``switches``)
+    select the exp2 and the row-sum-on-tensor-core arithmetic in any mode.
 
     CPU tensors run the plain version.  CUDA tensors launch the kernel,
-    which takes bf16 q/v (and K unless int8), D = 128, contiguous 16-byte-
-    aligned operands and a float32 bias; anything else raises ValueError."""
-    _check_modes(q_rope, qk_int8, k_scales)
+    which takes bf16 q/v/k2/v2 (and K unless int8), D = 128, contiguous
+    16-byte-aligned operands and a float32 bias; anything else raises
+    ValueError."""
+    _check_modes(q_rope, qk_int8, k_scales, k2, v2, skip_ranges)
+    exp2, mxu_lsum = switches()
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, bias, q_rope, qk_int8, k_scales)
+        return flash_attention_plain(q, k, v, bias, q_rope, qk_int8, k_scales, k2, v2,
+                                     skip_ranges, exp2, mxu_lsum)
     global launches
     b, sq, n, d = q.shape
     if q.device.type != "cuda":
@@ -216,6 +318,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"on {q.device}, got {bias.dtype} {tuple(bias.shape)}")
     if k_scales is not None:
         _check_operand("k_scales", k_scales, torch.float32, (b * n, s), q.device)
+    s2 = 0
+    if k2 is not None:
+        s2 = k2.shape[1] if k2.dim() == 4 else -1
+        _check_operand("k2", k2, torch.bfloat16, (b, s2, n, d), q.device)
+        _check_operand("v2", v2, torch.bfloat16, (b, s2, n, d), q.device)
+    if s + s2 == 0:
+        raise ValueError("flash_attention: no KV tokens")
     cos_ptr = sin_ptr = None
     if q_rope is not None:
         for name, t in zip(("cos", "sin"), q_rope):
@@ -225,26 +334,31 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                  f"16-byte aligned float32 [{sq}, {d // 2}] on {q.device}, got "
                                  f"{t.dtype} {tuple(t.shape)} on {t.device}")
         cos_ptr, sin_ptr = q_rope[0].data_ptr(), q_rope[1].data_ptr()
-    out = torch.empty_like(q)
-    lib = kernels.load("flash_attention")
-    stream = torch.cuda.current_stream(q.device).cuda_stream
+    live = _live_mask(skip_ranges, s) if skip_ranges is not None else _LiveTiles()
+    scale = softmax_scale(d, exp2)
+    qsc = ksc = k2sc = None
     if qk_int8:
-        q8, qsc, k8, ksc = _qk_int8_operands(q, k, k_scales)
-        fn = lib.longlive_flash_attention_qk8
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-        rc = fn(q8.data_ptr(), qsc.data_ptr(), k8.data_ptr(), ksc.data_ptr(), v.data_ptr(),
-                bias.data_ptr(), out.data_ptr(), b, sq, n, s, stream)
-        mode = "qk_int8"
-    else:
-        fn = lib.longlive_flash_attention
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_float,
-                                                                    ctypes.c_void_p]
-        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), cos_ptr, sin_ptr,
-                out.data_ptr(), b, sq, n, s, 1.0 / math.sqrt(d), stream)
-        mode = "bias" if q_rope is None else "q_rope"
+        q, qsc, k, ksc = _qk_int8_operands(q, k, k_scales, scale)
+        if k2 is not None:
+            k2, k2sc = quantize_k_tokens(k2)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    out = torch.empty((b, sq, n, d), dtype=torch.bfloat16, device=q.device)
+    lib = kernels.load("flash_attention")
+    fn = lib.longlive_flash_attention
+    fn.argtypes = ([ctypes.c_void_p] * 11 + [_LiveTiles, ctypes.c_int, ctypes.c_void_p]
+                   + [ctypes.c_int] * 5 + [ctypes.c_float] + [ctypes.c_int] * 3
+                   + [ctypes.c_void_p])
+    rc = fn(q.data_ptr(), ptr(qsc), k.data_ptr(), ptr(ksc), v.data_ptr(), bias.data_ptr(),
+            cos_ptr, sin_ptr, ptr(k2), ptr(k2sc), ptr(v2), live, int(skip_ranges is not None),
+            out.data_ptr(), b, sq, n, s, s2, scale, int(qk_int8), int(exp2), int(mxu_lsum),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    mode = ("two_segment" if k2 is not None else "qk_int8" if qk_int8
+            else "bias" if q_rope is None else "q_rope")
     kernels.check(lib, rc, f"flash_attention ({mode})")
     launches += 1
     mode_launches[mode] += 1
+    flag_launches["exp2"] += int(exp2)
+    flag_launches["mxu_lsum"] += int(mxu_lsum)
     return out
 
 

@@ -17,7 +17,8 @@ import subprocess
 from pathlib import Path
 from typing import Dict, Iterable
 
-KERNELS = ("flash_attention", "causal_conv", "flash_attention_train", "int8_linear")
+KERNELS = ("flash_attention", "causal_conv", "flash_attention_train", "int8_linear",
+           "res_block_pair")
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD = _CSRC.parent.parent / "build" / "kernels"

@@ -16,6 +16,14 @@ each dx's int32 product is rescaled on its own and the dx terms are summed
 in float32.  On a CUDA tensor it launches the int8 kernels of
 ``csrc/causal_conv.cu`` (a per-row amax pre-pass, then the conv).
 
+``fused_res_block`` computes a whole no-shortcut residual block,
+``conv2(silu(norm2(conv1(silu(norm1(x)))))) + x`` with both convs' 2-frame
+caches, in ONE launch of ``csrc/res_block_pair.cu`` on a CUDA tensor (the
+decoder's ``LONGLIVE_VAE_PAIR=1`` mode); conv1's normalised output stays in
+shared memory.  Its plain version, ``fused_res_block_plain``, is the chain
+of two ``fused_causal_conv_plain`` calls, which rounds where the kernel
+does.
+
 Layout: channels-last frames [T, H, W, C] (batch 1, folded out by the
 caller); weights in the torch layout [O, C, 3, kh, kw].
 """
@@ -35,11 +43,17 @@ from .quant import _div, _rdiv, int_matmul
 
 launches = 0  # calls of fused_causal_conv that launched kernels since the last reset
 mode_launches = {"bf16": 0, "int8": 0}  # the same, by variant
+pair_launches = 0  # launches of fused_res_block's kernel since the last reset
+
+# fused_res_block's kernel: shared memory a CTA may use on sm_90, and the
+# candidate output tiles (rows x columns), largest first
+SMEM_LIMIT = 232448
+PAIR_TILES = ((8, 8), (8, 4))
 
 
 def reset_launches() -> None:
-    global launches
-    launches = 0
+    global launches, pair_launches
+    launches = pair_launches = 0
     for mode in mode_launches:
         mode_launches[mode] = 0
 
@@ -295,3 +309,103 @@ def fused_causal_conv(
     launches += 1
     mode_launches[mode] += 1
     return out, nx
+
+
+# ---------------------------------------------------------------------------
+# a whole no-shortcut residual block (the decoder's LONGLIVE_VAE_PAIR=1 mode)
+
+
+def fused_res_block_plain(
+    x: torch.Tensor, cache1: torch.Tensor, cache2: torch.Tensor, w1: torch.Tensor,
+    b1: torch.Tensor, gamma1: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
+    gamma2: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The kernel's function in plain PyTorch: the two-call chain
+    ``y = conv1(norm1silu(x)) + b1`` rounded to x's dtype, then
+    ``out = conv2(norm2silu(y)) + b2`` rounded, plus x.  Returns (out,
+    new cache1, new cache2): the last two frames of [cache1 ++ norm1silu(x)]
+    and of [cache2 ++ norm2silu(y)] (for T = 1: [cache[1], the new frame])."""
+    y, nc1 = fused_causal_conv_plain(x, cache1, w1, b1, gamma1)
+    out, nc2 = fused_causal_conv_plain(y, cache2, w2, b2, gamma2, residual=x)
+    return out, nc1, nc2
+
+
+def pair_smem_bytes(c: int, t: int, tile: Tuple[int, int]) -> int:
+    """Shared memory of fused_res_block's kernel for C channels, T frames
+    and an output tile (rows, cols): the ring of min(T, 3) normalised conv1
+    frames over the tile with its 1-pixel halo (rows padded to C + 8), the
+    staged input chunk (tile + 2-pixel halo, 32 channels), the weight chunk
+    (3 kernel columns x 96 outputs x 32 channels) and conv1's input norms
+    (3 frames)."""
+    th, tw = tile
+    halo1, halo2 = (th + 2) * (tw + 2), (th + 4) * (tw + 4)
+    return (2 * min(t, 3) * halo1 * (c + 8) + 2 * halo2 * 40 + 2 * 3 * 96 * 40
+            + 4 * 3 * halo2)
+
+
+def pair_tile(c: int, t: int) -> Optional[Tuple[int, int]]:
+    """The largest of PAIR_TILES whose shared memory fits a CTA, or None."""
+    for tile in PAIR_TILES:
+        if pair_smem_bytes(c, t, tile) <= SMEM_LIMIT:
+            return tile
+    return None
+
+
+def fused_res_block(
+    x: torch.Tensor, cache1: torch.Tensor, cache2: torch.Tensor, w1: torch.Tensor,
+    b1: torch.Tensor, gamma1: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
+    gamma2: torch.Tensor, w1_packed: Optional[torch.Tensor] = None,
+    w2_packed: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """A no-shortcut residual block: x [T, H, W, C]; cache1, cache2
+    [2, H, W, C] (the normalised inputs of conv1 and conv2 of the two frames
+    before x; zeros before the first chunk); w1, w2 [C, C, 3, 3, 3]; b1,
+    b2, gamma1, gamma2 [C]; w*_packed: ``pack_weights`` of each, made once
+    with the parameters (packed here per call when omitted).  Returns (out
+    [T, H, W, C], new cache1, new cache2).
+
+    CPU tensors run the plain version.  CUDA tensors launch the kernel once,
+    which takes bf16 x/caches/weights, C % 96 == 0 and a C whose tiles fit
+    shared memory (``pair_tile``); anything else raises ValueError."""
+    c = int(w1.shape[1])
+    for name, w in (("w1", w1), ("w2", w2)):
+        if tuple(w.shape) != (c, c, 3, 3, 3):
+            raise ValueError(f"fused_res_block: {name} {tuple(w.shape)} is not [C, C, 3, 3, 3]")
+    if x.device.type == "cpu":
+        return fused_res_block_plain(x, cache1, cache2, w1, b1, gamma1, w2, b2, gamma2)
+    global pair_launches
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_res_block: unsupported device {x.device}")
+    t, h, wd, cx = x.shape
+    if cx != c or cache1.shape != (2, h, wd, c) or cache2.shape != (2, h, wd, c):
+        raise ValueError(f"fused_res_block: x {tuple(x.shape)} / caches {tuple(cache1.shape)}, "
+                         f"{tuple(cache2.shape)} do not match C = {c}")
+    if c % 96:
+        raise ValueError(f"fused_res_block: needs C % 96 == 0, got C={c}")
+    tile = pair_tile(c, t)
+    if tile is None:
+        raise ValueError(f"fused_res_block: C={c} over {t} frames fits no tile of {PAIR_TILES} "
+                         f"in {SMEM_LIMIT} bytes of shared memory")
+    packed = [pack_weights(w) if wp is None else wp
+              for w, wp in ((w1, w1_packed), (w2, w2_packed))]
+    vecs = [None if vv is None else vv.float().contiguous() for vv in (b1, gamma1, b2, gamma2)]
+    for name, tt in (("x", x), ("cache1", cache1), ("cache2", cache2), ("w1_packed", packed[0]),
+                     ("w2_packed", packed[1])):
+        _check(name, tt, torch.bfloat16, x.device)
+        if name.endswith("packed") and tt.shape != (3, 3, 3, c, c):
+            raise ValueError(f"fused_res_block: {name} {tuple(tt.shape)} != {(3, 3, 3, c, c)}")
+    for name, tt in zip(("b1", "gamma1", "b2", "gamma2"), vecs):
+        if tt is None or tt.shape != (c,) or tt.device != x.device:
+            raise ValueError(f"fused_res_block: {name} must be [{c}] on {x.device}")
+    out = torch.empty_like(x)
+    nc1, nc2 = torch.empty_like(cache1), torch.empty_like(cache2)
+    lib = kernels.load("res_block_pair")
+    fn = lib.longlive_res_block_pair
+    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    rc = fn(x.data_ptr(), cache1.data_ptr(), cache2.data_ptr(), packed[0].data_ptr(),
+            vecs[0].data_ptr(), vecs[1].data_ptr(), packed[1].data_ptr(), vecs[2].data_ptr(),
+            vecs[3].data_ptr(), out.data_ptr(), nc1.data_ptr(), nc2.data_ptr(), t, h, wd, c,
+            tile[1], torch.cuda.current_stream(x.device).cuda_stream)
+    kernels.check(lib, rc, "fused_res_block")
+    pair_launches += 1
+    return out, nc1, nc2

@@ -12,6 +12,14 @@ last generated frames in one kv_only forward (the KV-recache,
 ``build_recache_fn``), or chunk by chunk while those frames are generated
 (``EagerRecache``).
 
+Serving two-segment decode (``LONGLIVE_TWO_SEGMENT=1`` with ``kernel_cache:
+false``): every standard forward -- the denoise passes and the commit --
+attends [cache ++ fresh block] without writing the cache in the layer loop;
+the denoise passes commit nothing and the commit (or, under
+``reuse_last_denoise_kv``, the last denoise pass) writes the block's K/V
+once after it.  The recaches pass explicit cache plumbing and keep the
+write-then-attend form.
+
 Quantized serving: ``kv_int8`` stores the cache's K as int8 with per-token
 scales (attention then runs QK^T in int8 and q's RoPE is not fused);
 ``recache_attn_impl: pallas_qk8`` runs the one-shot recache forwards with
@@ -173,9 +181,10 @@ class CausalInferencePipeline:
         self._contig = (self.cache_cfg.sink_frames % self.frame_block == 0
                         and self.cache_cfg.ring_frames % self.frame_block == 0)
         # kernel_cache: None = on where the contiguous-ring invariant holds
-        # and the cache is bf16.  The port has one cache layout, so either
-        # value computes the same numbers; True only adds the JAX package's
-        # checks.
+        # and the cache is bf16.  The port has one cache layout; the value
+        # decides, as in the JAX package, whether LONGLIVE_TWO_SEGMENT may
+        # take the two-segment decode (only without it), and True adds the
+        # JAX package's checks.
         kc = config.kernel_cache
         if kc is None:
             kc = self._contig and not config.kv_int8
@@ -204,6 +213,7 @@ class CausalInferencePipeline:
         b, f = x.shape[:2]
         t = torch.full((b, f), t_val, dtype=torch.float32, device=x.device)
         kw.setdefault("fused_rope", self.config.fused_rope)
+        kw.setdefault("kernel_cache", self.kernel_cache)
         return D.dit_forward_cached(params, self.cfg, self.cache_cfg, self.tables,
                                     x, t, cross_kv, cache, start_frame, **kw)
 
@@ -229,10 +239,11 @@ class CausalInferencePipeline:
         reuse_kv = self.config.reuse_last_denoise_kv and not skip_commit
         for i, t_val in enumerate(self.denoise_timesteps):
             # reuse_last_denoise_kv: the last denoise pass commits its K/V
-            # in place of the clean-context commit forward
+            # in place of the clean-context commit forward; the other passes'
+            # writes are dropped (two-segment: never made)
             commit = reuse_kv and i == n_steps - 1
             flow, cache = self._forward(self.params, x, t_val, cross_kv, cache, start_frame,
-                                        advance_counters=commit)
+                                        advance_counters=commit, commit_writes=commit)
             t_flat = torch.full((b * f,), t_val, dtype=torch.float32, device=x.device)
             x0 = S.convert_flow_to_x0(
                 self.sched, flow.reshape(b * f, *flow.shape[2:]),

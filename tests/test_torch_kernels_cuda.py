@@ -264,3 +264,103 @@ def test_flash_attention_train_two_segment_and_empty_rows(dev):
     with pytest.raises(ValueError):
         A.flash_attention_train(q[..., :64].contiguous(), kc[..., :64].contiguous(),
                                 vc[..., :64].contiguous())
+
+
+@pytest.mark.parametrize("exp2,lsum", [(0, 0), (1, 0), (0, 1), (1, 1)])
+@pytest.mark.parametrize("sq,s,s2,slots,int8", [
+    (40, 300, 70, (64, 192), False),   # ragged segment 2, two whole tiles elided
+    (130, 256, 64, (0, 256), False),   # no cache token valid: segment 2 alone
+    (17, 200, 33, (64, 128), True),    # K quantized per call, segment 2 too
+])
+def test_flash_attention_two_segment_kernel_matches_plain(dev, monkeypatch, exp2, lsum, sq, s,
+                                                          s2, slots, int8):
+    """Two-segment mode: the cache's slots ``slots`` masked and elided, the
+    block as segment 2 in its [B, S2, N, D] layout, under each switch."""
+    from longlive_torch.ops import attention as A
+
+    monkeypatch.setenv("LONGLIVE_EXP2", str(exp2))
+    monkeypatch.setenv("LONGLIVE_MXU_LSUM", str(lsum))
+    g = torch.Generator(device=dev).manual_seed(9)
+    b, n, d = 1, 3, 128
+    bf = torch.bfloat16
+    q, k2, v2 = (torch.randn((b, m, n, d), generator=g, device=dev).to(bf)
+                 for m in (sq, s2, s2))
+    k, v = (torch.randn((b * n, s, d), generator=g, device=dev).to(bf) for _ in range(2))
+    tok = torch.arange(s, device=dev)
+    valid = ~((tok >= slots[0]) & (tok < slots[1]))
+    bias = torch.where(valid, 0.0, A.NEG_INF).float()[None].contiguous()
+    skip = [slots]
+    before, flags = dict(A.mode_launches), dict(A.flag_launches)
+    out = A.flash_attention(q, k, v, bias, qk_int8=int8, k2=k2, v2=v2, skip_ranges=skip)
+    ref = A.flash_attention_plain(q, k, v, bias, qk_int8=int8, k2=k2, v2=v2, skip_ranges=skip,
+                                  exp2=bool(exp2), mxu_lsum=bool(lsum))
+    torch.cuda.synchronize()
+    assert A.mode_launches == dict(before, two_segment=before["two_segment"] + 1)
+    assert A.flag_launches == {"exp2": flags["exp2"] + exp2, "mxu_lsum": flags["mxu_lsum"] + lsum}
+    assert torch.isfinite(out).all()
+    _assert_agrees(out, ref)
+    # elision changes no result: the same call computing the dead tiles
+    _assert_agrees(A.flash_attention(q, k, v, bias, qk_int8=int8, k2=k2, v2=v2), ref)
+    with pytest.raises(ValueError):
+        A.flash_attention(q, k, v, bias, k2=k2[:, :, :2].contiguous(), v2=v2)
+
+
+@pytest.mark.parametrize("mode", ["bias", "q_rope", "qk_int8"])
+def test_flash_attention_switches_kernel_matches_plain(dev, monkeypatch, mode):
+    """exp2 and mxu_lsum together in the single-segment modes."""
+    from longlive_torch.ops import attention as A
+
+    monkeypatch.setenv("LONGLIVE_EXP2", "1")
+    monkeypatch.setenv("LONGLIVE_MXU_LSUM", "1")
+    g = torch.Generator(device=dev).manual_seed(10)
+    b, n, d, sq, s = 1, 3, 128, 130, 257
+    q = torch.randn((b, sq, n, d), generator=g, device=dev).to(torch.bfloat16)
+    k, v = (torch.randn((b * n, s, d), generator=g, device=dev).to(torch.bfloat16)
+            for _ in range(2))
+    bias = torch.where(torch.arange(s, device=dev) < 200, 0.0, A.NEG_INF).float()[None]
+    kw = {}
+    if mode == "q_rope":
+        ang = torch.rand((sq, d // 2), generator=g, device=dev) * 6.3
+        kw["q_rope"] = (ang.cos().contiguous(), ang.sin().contiguous())
+    if mode == "qk_int8":
+        k, ks = A.quantize_k_tokens(k)
+        kw.update(qk_int8=True, k_scales=ks)
+    out = A.flash_attention(q, k, v, bias.contiguous(), **kw)
+    ref = A.flash_attention_plain(q, k, v, bias, exp2=True, mxu_lsum=True, **kw)
+    torch.cuda.synchronize()
+    _assert_agrees(out, ref)
+
+
+# the four decoder geometries of the no-shortcut res blocks, a ragged frame
+# (tiles cut at the image's edges), and the 8 x 4 tile (384 wide, 4 frames)
+@pytest.mark.parametrize("t,h,w,c", [(1, 60, 104, 384), (2, 120, 208, 384), (4, 240, 416, 192),
+                                     (4, 480, 832, 96), (3, 13, 21, 96), (4, 20, 28, 384)])
+def test_res_block_pair_kernel_matches_plain(dev, t, h, w, c):
+    """K6 against its plain version and against two K2 launches: the
+    output and both new caches."""
+    from longlive_torch.ops import vae_conv as VC
+
+    g = torch.Generator(device=dev).manual_seed(11)
+    bf = torch.bfloat16
+    x = torch.randn((t, h, w, c), generator=g, device=dev).to(bf)
+    c1, c2 = (torch.randn((2, h, w, c), generator=g, device=dev).to(bf) for _ in range(2))
+    std = 1.0 / math.sqrt(27 * c)
+    w1, w2 = (((torch.rand((c, c, 3, 3, 3), generator=g, device=dev) * 2 - 1) * std).to(bf)
+              for _ in range(2))
+    b1, b2 = (torch.randn((c,), generator=g, device=dev) * 0.1 for _ in range(2))
+    g1, g2 = (1.0 + 0.1 * torch.randn((c,), generator=g, device=dev) for _ in range(2))
+    before = VC.pair_launches
+    got = VC.fused_res_block(x, c1, c2, w1, b1, g1, w2, b2, g2)
+    ref = VC.fused_res_block_plain(x, c1, c2, w1, b1, g1, w2, b2, g2)
+    y, n1 = VC.fused_causal_conv(x, c1, w1, b1, g1)
+    chain = VC.fused_causal_conv(y, c2, w2, b2, g2, residual=x) + (n1,)
+    torch.cuda.synchronize()
+    assert VC.pair_launches == before + 1
+    for a, r in zip(got, ref):
+        _assert_agrees(a, r)
+    for a, r in zip(got, (chain[0], chain[2], chain[1])):
+        _assert_agrees(a, r)
+    with pytest.raises(ValueError):
+        VC.fused_res_block(x[..., :64].contiguous(), c1[..., :64].contiguous(),
+                           c2[..., :64].contiguous(), w1[:64, :64].contiguous(), b1[:64],
+                           g1[:64], w2[:64, :64].contiguous(), b2[:64], g2[:64])
