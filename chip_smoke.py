@@ -10,9 +10,11 @@ Phases, each of which exits non-zero when it fails:
 1. card identity (``nvidia-smi`` name and power limit);
 2. build of every CUDA kernel of the paths below from ``longlive_torch/csrc``;
 3. kernel checks at the paths' shapes: each kernel (K1 in its bias, q_rope,
-   qk_int8 and two-segment modes and under the exp2 + mxu_lsum switches,
-   K2 bf16 and int8, K6, K5, K4's forward and its two backward kernels at
-   the four training shapes) against its plain PyTorch version on the same
+   qk_int8 and two-segment modes, under the exp2 + mxu_lsum switches and as
+   the cross-attention, K2 bf16 and int8, K6, K5, K3 under its three mask
+   kinds at the full forwards' shapes, elided bit-equal to unelided, K4's
+   forward and its two backward kernels at the four training shapes)
+   against its plain PyTorch version on the same
    inputs, with times of the kernel, the plain version, the least time the
    card could take, and one PyTorch library call computing the same
    function (timed here only, never used by the port);
@@ -21,7 +23,9 @@ Phases, each of which exits non-zero when it fails:
    one-shot-recache, eager-recache and reactive generation, the quantized
    serving mode (int8 linears, int8 K cache, int8 recache, int8 VAE convs),
    the serving options (two-segment decode, exp2, mxu_lsum, the fused res
-   block) and one training step;
+   block), the full-sequence forwards (teacher forcing, and a sink-window
+   ``FrameMaskSpec``; once more under ``LONGLIVE_CROSS_FLASH=1``) and one
+   training step;
 5. the paths, at full Wan2.1-1.3B width with random weights, each with
    every kernel's launch count checked against the count derived from the
    model structure:
@@ -46,6 +50,12 @@ Phases, each of which exits non-zero when it fails:
       ``LONGLIVE_TWO_SEGMENT=1``, ``LONGLIVE_EXP2=1``,
       ``LONGLIVE_MXU_LSUM=1``, ``LONGLIVE_VAE_PAIR=1`` (set for this path
       only), 15 latent frames, VAE decode and the video;
+   t. full forwards: ``dit_forward_teacher_forcing`` over the 21 frames of
+      ``configs/longlive_train_init.yaml`` (65520 tokens), then
+      ``dit_forward_full`` under a sink-window ``FrameMaskSpec`` (32760
+      tokens), then the teacher-forcing forward again under
+      ``LONGLIVE_CROSS_FLASH=1``, non-zero heads, K3 launched once per
+      layer (and K1 as the cross-attention once per layer in the last);
    g. training: ``run_train`` on ``configs/longlive_train_init.yaml`` (21
       frames, generator, critic and teacher all 1.3B) for 2 steps, K4's
       forward and backward launches checked; then one step of the same
@@ -195,23 +205,28 @@ def reset_counts(A, VC) -> None:
 
 
 def counts(A, VC) -> dict:
-    """Serving launches: K1 by mode and by switch, K2 by mode, K6, K5, and
-    the calls of the int8 linears' separate-quantize route (fc2, outside
-    K5's shape rule)."""
+    """Serving launches: K1 by mode and by switch, K3 by mask kind, K2 by
+    mode, K6, K5, and the calls of the int8 linears' separate-quantize route
+    (fc2, outside K5's shape rule)."""
     from longlive_torch.ops import quant as Q
 
     return {"flash_attention": dict(A.mode_launches),
             "flash_attention_switches": dict(A.flag_launches),
+            "flash_attention_frame_masked": dict(A.masked_launches),
             "fused_causal_conv": dict(VC.mode_launches), "fused_res_block": VC.pair_launches,
             "int8_linear": Q.launches, "linear_int8_route": Q.linear_int8_calls}
 
 
-def expect(bias=0, q_rope=0, qk_int8=0, two_segment=0, exp2=0, mxu_lsum=0, conv=0,
-           conv_int8=0, pair=0, k5=0, route=0) -> dict:
+def expect(bias=0, q_rope=0, qk_int8=0, two_segment=0, cross=0, exp2=0, mxu_lsum=0,
+           block_causal=0, sink_window=0, teacher_forcing=0, conv=0, conv_int8=0, pair=0, k5=0,
+           route=0) -> dict:
     """A full set of expected counts (``counts``' keys), zero by default."""
     return {"flash_attention": {"bias": bias, "q_rope": q_rope, "qk_int8": qk_int8,
-                                "two_segment": two_segment},
+                                "two_segment": two_segment, "cross": cross},
             "flash_attention_switches": {"exp2": exp2, "mxu_lsum": mxu_lsum},
+            "flash_attention_frame_masked": {"block_causal": block_causal,
+                                             "sink_window": sink_window,
+                                             "teacher_forcing": teacher_forcing},
             "fused_causal_conv": {"bf16": conv, "int8": conv_int8}, "fused_res_block": pair,
             "int8_linear": k5, "linear_int8_route": route}
 
@@ -617,6 +632,180 @@ def check_attention_switches(torch, A):
         torch.cuda.empty_cache()
     return _attention_entry("flash_attention_exp2_mxu_lsum", "exp2 + mxu_lsum", cases, cases[0],
                             "one call at the serving-options decode with both switches")
+
+
+# K1 at the cross-attention's shapes under LONGLIVE_CROSS_FLASH=1: (label,
+# query tokens); 512 prompt tokens, a zero bias
+CROSS_CASES = [
+    ("cross: a 3-frame block over the 512-token prompt", 4680),
+    ("cross: the 21-frame teacher-forcing sequence over the prompt", 65520),
+]
+
+
+def check_attention_cross(torch, A, entry):
+    """K1 as the cross-attention (``cross=True``, zero bias) against its
+    plain version; the cases join K1's bias entry.  ``library_ms`` is SDPA
+    without a mask."""
+    import torch.nn.functional as F
+
+    b, n, d, s = 1, 12, 128, 512
+    g = torch.Generator(device="cuda").manual_seed(17)
+    for label, sq in CROSS_CASES:
+        q = torch.randn((b, sq, n, d), generator=g, device="cuda").to(torch.bfloat16)
+        k, v = (torch.randn((b * n, s, d), generator=g, device="cuda").to(torch.bfloat16)
+                for _ in range(2))
+        bias = torch.zeros((b, s), dtype=torch.float32, device="cuda")
+        before = A.mode_launches["cross"]
+        out = A.flash_attention(q, k, v, bias, cross=True)
+        if A.mode_launches["cross"] != before + 1:
+            fail(f"flash_attention ({label}): not counted as a cross launch")
+        ref = A.flash_attention_plain(q, k, v, bias)
+        torch.cuda.synchronize()
+        if not torch.isfinite(out).all():
+            fail(f"flash_attention ({label}): non-finite output")
+        err, tol, rel = agreement(out, ref)
+        del ref
+        ms = cuda_ms(torch, lambda: A.flash_attention(q, k, v, bias, cross=True), 10)
+        plain_ms = cuda_ms(torch, lambda: A.flash_attention_plain(q, k, v, bias), 2)
+        qt, kt, vt = q.transpose(1, 2), k.view(b, n, s, d), v.view(b, n, s, d)
+        lib_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt), 10)
+        t_bound, bound_by = bound(4.0 * b * n * sq * s * d,
+                                  2 * 2 * q.numel() + 2 * 2 * k.numel() + 4 * b * s)
+        log(f"flash_attention {label}: max_abs_err={err:.3e} tol={tol:.3e} "
+            f"rel_rms_err={rel:.3e} (limit {REL_RMS_LIMIT:.0e}) ms={ms:.4f} "
+            f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} bound_ms={t_bound:.4f} "
+            f"({bound_by}; {t_bound / ms:.1%} of bound)")
+        if not (err <= tol and rel <= REL_RMS_LIMIT):
+            fail(f"flash_attention ({label}) disagrees with its plain version: "
+                 f"max_abs_err {err} (limit {tol}), rel_rms_err {rel} (limit {REL_RMS_LIMIT})")
+        entry["cases"].append({"case": label, "mode": "cross", "q": [b, sq, n, d],
+                               "kv": [b * n, s, d], "max_abs_err": err, "tolerance": tol,
+                               "rel_rms_err": rel, "ms": ms, "plain_ms": plain_ms,
+                               "library_ms": lib_ms, "bound_ms": t_bound, "bound_by": bound_by})
+        # the entry keeps the error and limit of its worst case (the cross
+        # outputs are larger, and so are their errors and limits)
+        if err / tol > entry["max_abs_err"] / entry["tolerance"]:
+            entry["max_abs_err"], entry["tolerance"] = err, tol
+        entry["rel_rms_err"] = max(entry["rel_rms_err"], rel)
+        del q, k, v, out, qt, kt, vt
+        torch.cuda.empty_cache()
+
+
+# K3 at the full forwards' shapes (1560 tokens per frame, 12 heads of 128):
+# (label, mask kind, frames, blocks of, local, sink, SDPA timed).  The
+# teacher-forcing sequence is [clean | noisy], twice the frames' tokens.
+MASKED_CASES = [
+    ("teacher_forcing, 21 frames (65520 tokens)", "teacher_forcing", 21, 3, -1, 0, True),
+    ("sink_window, 21 frames (32760 tokens), window 12, sink 3", "sink_window", 21, 3, 12, 3,
+     True),
+    ("block_causal, 21 frames (32760 tokens)", "block_causal", 21, 3, -1, 0, True),
+    ("teacher_forcing, 20 frames (62400 tokens, a partial last block)", "teacher_forcing", 20,
+     3, -1, 0, False),
+]
+
+
+def timed_once(torch, fn):
+    """(fn(), its device ms) for one call, from CUDA events."""
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def check_frame_masked(torch, A):
+    """K3 against its plain version at the full forwards' shapes.  The bound
+    counts the unmasked (q, kv) pairs of the mask (its frame pairs times
+    1560^2; the diagonal adds none) at the bf16 rate, against q, k, v and
+    the output once.  ``plain_ms`` is the plain call that gives the
+    reference (one call); ``library_ms`` is ``scaled_dot_product_attention``
+    with the materialized mask as an additive bf16 [S, S] tensor (8.6 GB at
+    65520 tokens), built outside the timing.  At the first shape the
+    unelided kernel must equal the elided one bit for bit; its time against
+    the elided one's shows the skipping (``frame_mask_live_tiles`` counts
+    the live tiles)."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from longlive_torch.ops.masks import FrameMaskSpec, expand_frame_mask
+
+    b, n, d, fs = 1, 12, 128, 1560
+    g = torch.Generator(device="cuda").manual_seed(18)
+    cases = []
+    for i, (label, kind, f, nfb, local, sink, lib) in enumerate(MASKED_CASES):
+        tf = kind == "teacher_forcing"
+        s = (2 if tf else 1) * f * fs
+        kw = dict(mask_kind=kind, frame_seq=fs, nfb=nfb, local=local, sink=sink,
+                  clean_frames=f if tf else 0)
+        q, k, v = (torch.randn((b, s, n, d), generator=g, device="cuda").to(torch.bfloat16)
+                   for _ in range(3))
+        before = A.masked_launches[kind]
+        out = A.flash_attention_frame_masked(q, k, v, elide_dead_tiles=True, **kw)
+        if A.masked_launches[kind] != before + 1:
+            fail(f"flash_attention_frame_masked ({label}): launch not counted")
+        ref, plain_ms = timed_once(torch, lambda: A.flash_attention_frame_masked_plain(
+            q, k, v, **kw))
+        if not torch.isfinite(out).all():
+            fail(f"flash_attention_frame_masked ({label}): non-finite output")
+        err, tol, rel = agreement(out, ref)
+        del ref
+        extra = {}
+        if i == 0:
+            full = A.flash_attention_frame_masked(q, k, v, elide_dead_tiles=False, **kw)
+            host = A.frame_mask_live_tiles(kind, s, s, A.MASKED_TILE_Q, A.MASKED_TILE_KV, fs, nfb,
+                                           local, sink, kw["clean_frames"])
+            if not torch.equal(full, out):
+                fail(f"flash_attention_frame_masked ({label}): elided != unelided, max diff "
+                     f"{(full.float() - out.float()).abs().max().item()}")
+            del full
+            extra = {"elided_equals_unelided": True, "live_tiles": int(host.sum()),
+                     "tiles": host.numel(),
+                     "unelided_ms": cuda_ms(torch, lambda: A.flash_attention_frame_masked(
+                         q, k, v, elide_dead_tiles=False, **kw), 3)}
+        ms = cuda_ms(torch, lambda: A.flash_attention_frame_masked(q, k, v, **kw), 5)
+        frame_mask = FrameMaskSpec(kind, nfb, local, sink, f if tf else 0).materialize(f)
+        pairs = int(frame_mask.sum()) * fs * fs
+        t_bound, bound_by = bound(4.0 * b * n * pairs * d, 4 * 2 * q.numel())
+        lib_ms = None
+        if lib:
+            mask = torch.full((s, s), A.NEG_INF, dtype=torch.bfloat16, device="cuda")
+            mask = mask.masked_fill_(expand_frame_mask(frame_mask.to("cuda"), fs), 0.0)[None, None]
+            qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+            with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+                lib_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=mask), 3)
+            del mask, qt, kt, vt
+        log(f"flash_attention_frame_masked {label}: max_abs_err={err:.3e} tol={tol:.3e} "
+            f"rel_rms_err={rel:.3e} (limit {REL_RMS_LIMIT:.0e}) ms={ms:.4f} "
+            f"plain_ms={plain_ms:.4f} library_ms={lib_ms} bound_ms={t_bound:.4f} ({bound_by}; "
+            f"{t_bound / ms:.1%} of bound; {pairs / s / s:.1%} of the pairs unmasked) "
+            + " ".join(f"{k}={v}" for k, v in extra.items()))
+        if not (err <= tol and rel <= REL_RMS_LIMIT):
+            fail(f"flash_attention_frame_masked ({label}) disagrees with its plain version: "
+                 f"max_abs_err {err} (limit {tol}), rel_rms_err {rel} (limit {REL_RMS_LIMIT})")
+        cases.append({"case": label, "mask_kind": kind, "q": [b, s, n, d], "kv": [b, s, n, d],
+                      "unmasked_pairs": pairs, "max_abs_err": err, "tolerance": tol,
+                      "rel_rms_err": rel, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                      "bound_ms": t_bound, "bound_by": bound_by, **extra})
+        del q, k, v, out
+        torch.cuda.empty_cache()
+    head = cases[0]
+    return {
+        "name": "flash_attention_frame_masked", "route": "cuda",
+        "mode": "teacher_forcing, sink_window, block_causal",
+        "source": "longlive_torch/csrc/flash_attention_masked.cu",
+        "replaces": "longlive_tpu/ops/attention.py:780",
+        "max_abs_err": max(c["max_abs_err"] for c in cases),
+        "tolerance": min(c["tolerance"] for c in cases),
+        "rel_rms_err": max(c["rel_rms_err"] for c in cases), "rel_rms_limit": REL_RMS_LIMIT,
+        "ms": head["ms"], "kernel_ms": head["ms"], "plain_ms": head["plain_ms"],
+        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+        "library_ms": head["library_ms"],
+        "unit": "one teacher-forcing call at the 21-frame training geometry (65520 tokens)",
+        "cases": cases,
+    }
 
 
 # K5 at the int8 serving path's shapes: (label, M, K, N).  Per full forward
@@ -1111,6 +1300,67 @@ def check_small_serving_options_reference(torch, A, VC):
     return errs
 
 
+def check_small_full_forwards(torch, A, VC):
+    """The full-sequence forwards on small inputs, GPU (bf16, kernels) vs
+    CPU (float32, plain versions): ``dit_forward_teacher_forcing`` over 5
+    frames (blocks of 2: a partial last block; 64-token frames, a ragged
+    kv tail) with ``aug_t``, ``dit_forward_full`` with a sink-window
+    ``FrameMaskSpec`` from frame 2, then the teacher-forcing forward again
+    under ``LONGLIVE_CROSS_FLASH=1``.  Checks that each GPU forward
+    launched K3 once per layer (and K1 as the cross-attention once per
+    layer under the switch), and nothing else."""
+    from longlive_torch.config import DiTConfig
+    from longlive_torch.models import dit as D
+    from longlive_torch.ops.masks import FrameMaskSpec
+    from longlive_torch.ops.rope import make_rope_tables
+
+    cfg = DiTConfig(dim=256, ffn_dim=512, num_heads=2, num_layers=2, in_dim=16, out_dim=16,
+                    text_dim=64, text_len=16, freq_dim=64, num_frame_per_block=2,
+                    rope_max_pos=64)
+    params32 = D.init_dit_params(cfg, torch.float32, "cpu", seed=3, zero_head=False)
+    g = torch.Generator().manual_seed(19)
+    pe = torch.randn((1, cfg.text_len, cfg.text_dim), generator=g)
+    noisy, clean = (torch.randn((1, 5, 16, 16, 16), generator=g) for _ in range(2))
+    t, aug_t = torch.rand((1, 5), generator=g) * 1000, torch.rand((1, 5), generator=g) * 200
+    x6, t6 = torch.randn((1, 6, 16, 16, 16), generator=g), torch.rand((1, 6), generator=g) * 1000
+    spec = FrameMaskSpec("sink_window", 2, 4, 1)
+    layers = cfg.num_layers
+    runs = [
+        ("teacher forcing", {}, lambda p, c, tab, dev, dt: D.dit_forward_teacher_forcing(
+            p, cfg, tab, *(a.to(dev, dt) for a in (noisy, clean)), t.to(dev), c, aug_t.to(dev),
+            attn_impl="pallas"), expect(teacher_forcing=layers)),
+        ("full, sink_window spec, start_frame 2", {}, lambda p, c, tab, dev, dt:
+         D.dit_forward_full(p, cfg, tab, x6.to(dev, dt), t6.to(dev), c, spec, start_frame=2),
+         expect(sink_window=layers)),
+        ("teacher forcing, LONGLIVE_CROSS_FLASH=1", {"LONGLIVE_CROSS_FLASH": "1"},
+         lambda p, c, tab, dev, dt: D.dit_forward_teacher_forcing(
+             p, cfg, tab, *(a.to(dev, dt) for a in (noisy, clean)), t.to(dev), c,
+             aug_t.to(dev), attn_impl="pallas"), expect(teacher_forcing=layers, cross=layers)),
+    ]
+    errs = {}
+    with torch.no_grad():
+        for label, env, run, want in runs:
+            out = {}
+            with switched(**env):
+                for dev, dt in (("cpu", torch.float32), ("cuda", torch.bfloat16)):
+                    p = to_dev(params32, dev, dt)
+                    cross = D.prepare_cross_kv(p, cfg, pe.to(dev), dt)
+                    tables = make_rope_tables(cfg.head_dim, cfg.rope_max_pos, device=dev)
+                    reset_counts(A, VC)
+                    out[dev] = run(p, cross, tables, dev, dt)
+                    got = counts(A, VC)
+            check_counts(f"small full forwards ({label}), GPU", got, want)
+            if not torch.isfinite(out["cuda"]).all():
+                fail(f"small full forwards ({label}): non-finite GPU output")
+            errs[label] = rel_err(out["cuda"], out["cpu"])
+    log("small full-forward reference (GPU bf16 kernels vs CPU float32 plain; limit 5e-2): "
+        + ", ".join(f"{k} rel_err={v:.3e}" for k, v in errs.items()))
+    bad = {k: v for k, v in errs.items() if not v <= 5e-2}
+    if bad:
+        fail(f"small full-forward reference disagrees (limit 5e-2): {bad}")
+    return errs
+
+
 # ---------------------------------------------------------------------------
 # phase 5: the paths at full width
 
@@ -1511,6 +1761,72 @@ def run_serving_options_path(torch, A, VC) -> dict:
     return out
 
 
+def run_full_forwards_path(torch, A, VC) -> dict:
+    """The full-sequence forwards at full width on random weights with
+    non-zero heads: one ``dit_forward_teacher_forcing`` over the 21 frames
+    of ``configs/longlive_train_init.yaml`` at 60 x 104 latents ([clean |
+    noisy]: 65520 tokens; ``attn_impl="auto"``, which is K3 on the card),
+    then one ``dit_forward_full`` under ``FrameMaskSpec("sink_window", 3,
+    12, 3)`` over 21 frames (32760 tokens), then the teacher-forcing
+    forward again under ``LONGLIVE_CROSS_FLASH=1``.  Each must give a finite
+    flow of the input's shape and launch K3 once per layer, and the last K1
+    as the cross-attention once per layer, and nothing else."""
+    from longlive_torch.config import DiTConfig, LatentGeometry
+    from longlive_torch.models import dit as D
+    from longlive_torch.ops.masks import FrameMaskSpec
+    from longlive_torch.ops.rope import make_rope_tables
+
+    cfg, geom, frames = DiTConfig(), LatentGeometry(), 21
+    params = D.init_dit_params(cfg, torch.bfloat16, "cuda", seed=0, zero_head=False)
+    tables = make_rope_tables(cfg.head_dim, cfg.rope_max_pos, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    shape = (1, frames, geom.channels, geom.height, geom.width)
+    pe = torch.randn((1, cfg.text_len, cfg.text_dim), generator=gen, device="cuda")
+    noisy, clean, x = (torch.randn(shape, generator=gen, device="cuda") for _ in range(3))
+    t = torch.rand((1, frames), generator=gen, device="cuda") * 1000
+    spec = FrameMaskSpec("sink_window", cfg.num_frame_per_block, cfg.local_attn_size,
+                         cfg.sink_size)
+    tf = lambda c: D.dit_forward_teacher_forcing(params, cfg, tables, noisy, clean, t, c)  # noqa: E731
+    layers = cfg.num_layers
+    runs = [("teacher forcing, 21 frames (65520 tokens)", "0", tf,
+             expect(teacher_forcing=layers)),
+            ("full, sink_window 12/3, 21 frames (32760 tokens)", "0",
+             lambda c: D.dit_forward_full(params, cfg, tables, x, t, c, spec),
+             expect(sink_window=layers)),
+            ("teacher forcing, 21 frames, LONGLIVE_CROSS_FLASH=1", "1", tf,
+             expect(teacher_forcing=layers, cross=layers))]
+    out = {}
+    # the path's launches: every forward's, summed
+    launches = expect()
+    with torch.no_grad():
+        cross = D.prepare_cross_kv(params, cfg, pe, torch.bfloat16)
+        for label, cross_flash, run, want in runs:
+            with switched(LONGLIVE_CROSS_FLASH=cross_flash):
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                reset_counts(A, VC)
+                t0 = time.perf_counter()
+                flow = run(cross)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                got = counts(A, VC)
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            if tuple(flow.shape) != shape or not torch.isfinite(flow).all():
+                fail(f"full forwards ({label}): flow {tuple(flow.shape)} or non-finite")
+            if flow.abs().max().item() == 0:
+                fail(f"full forwards ({label}): the flow is zero")
+            check_counts(f"full forwards ({label})", got, want)
+            for name in ("flash_attention", "flash_attention_frame_masked"):
+                for mode, c in got[name].items():
+                    launches[name][mode] += c
+            out[label] = {"wall_ms": wall * 1e3, "peak_gib": peak, "launches": got}
+            log(f"full forwards ({label}): {wall * 1e3:.1f} ms wall, peak device memory "
+                f"{peak:.2f} GiB, flow RMS {flow.float().square().mean().sqrt().item():.4g}")
+            del flow
+    out["launches"] = launches
+    return out
+
+
 # ---------------------------------------------------------------------------
 # phase 3b: K4 checks at the training path's shapes
 
@@ -1894,7 +2210,8 @@ def main() -> None:
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     torch.backends.cuda.matmul.allow_tf32 = False  # plain versions in true float32
     torch.backends.cudnn.allow_tf32 = False
-    for knob in ("LONGLIVE_INT8_FUSED", "LONGLIVE_VAE_INT8") + SWITCHES:  # set per path below
+    for knob in ("LONGLIVE_INT8_FUSED", "LONGLIVE_VAE_INT8", "LONGLIVE_CROSS_FLASH",
+                 "LONGLIVE_TF_ELIDE") + SWITCHES:  # set per path below
         os.environ.pop(knob, None)
 
     t0 = time.perf_counter()
@@ -1913,6 +2230,8 @@ def main() -> None:
                check_attention_two_segment(torch, A), check_attention_switches(torch, A),
                check_conv(torch, VC), check_conv(torch, VC, int8=True),
                check_res_block_pair(torch, VC), check_int8_linear(torch, Q)]
+    check_attention_cross(torch, A, k1)
+    entries.append(check_frame_masked(torch, A))
     entries += check_train_attention(torch, A)
     log(f"kernel checks: {time.perf_counter() - t0:.1f} s")
 
@@ -1920,6 +2239,7 @@ def main() -> None:
     check_small_reference(torch)
     int8_ref = check_small_int8_reference(torch, A, VC)
     options_ref = check_small_serving_options_reference(torch, A, VC)
+    full_ref = check_small_full_forwards(torch, A, VC)
     check_small_training(torch)
     log(f"small references: {time.perf_counter() - t0:.1f} s")
 
@@ -1939,6 +2259,9 @@ def main() -> None:
     paths["serving options"] = run_serving_options_path(torch, A, VC)
     gc.collect()
     torch.cuda.empty_cache()
+    paths["full forwards"] = run_full_forwards_path(torch, A, VC)
+    gc.collect()
+    torch.cuda.empty_cache()
     training = run_training_path(torch, A, VC, card)
     gc.collect()
     torch.cuda.empty_cache()
@@ -1946,6 +2269,7 @@ def main() -> None:
     log("paths: " + json.dumps(paths))
     log("small int8 reference: " + json.dumps(int8_ref))
     log("small serving-options reference: " + json.dumps(options_ref))
+    log("small full-forward reference: " + json.dumps(full_ref))
     log("training: " + json.dumps(training))
     log("training, non-zero heads: " + json.dumps(live))
 
@@ -1961,6 +2285,8 @@ def main() -> None:
         "flash_attention_two_segment": ("serving options", "flash_attention", "two_segment"),
         "flash_attention_exp2_mxu_lsum": ("serving options", "flash_attention_switches", "exp2"),
         "fused_res_block": ("serving options", "fused_res_block", None),
+        "flash_attention_frame_masked": ("full forwards", "flash_attention_frame_masked",
+                                         "teacher_forcing"),
     }
     for entry in entries:
         name = entry["name"]
@@ -1970,6 +2296,9 @@ def main() -> None:
             entry["launches_path"] = path
             entry["launches"] = pick(paths[path]["launches"])
             entry["launches_by_path"] = {label: pick(p["launches"]) for label, p in paths.items()}
+            if name == "flash_attention":  # K1 as the cross-attention, its own count
+                entry["cross_launches_path"] = "full forwards"
+                entry["cross_launches"] = paths["full forwards"]["launches"][key]["cross"]
         else:
             key = {"flash_attention_train": "fwd", "flash_attention_train_bwd_dq": "bwd_dq",
                    "flash_attention_train_bwd_dkdv": "bwd_dkdv"}[name]

@@ -29,7 +29,11 @@ Plain functions over a parameter dict:
   the layer loop, each layer attends [cache ++ its fresh block] through the
   differentiable ``attend_train`` (cross-attention too) and returns the
   block's K/V, which are committed once after the loop; ``remat_layers``
-  checkpoints each layer.
+  checkpoints each layer;
+- the full-sequence forwards (``dit_forward_full``,
+  ``dit_forward_teacher_forcing``): no cache, the whole sequence under a
+  frame mask, dense with a materialized bias or through the frame-masked
+  attention kernel with a ``FrameMaskSpec``.
 """
 
 from __future__ import annotations
@@ -46,7 +50,8 @@ from ..ops import kv_cache as kvc
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import NEG_INF, attend_train, dense_attention, flash_attention
-from ..ops.attention import flash_attention_train, quantize_k_tokens
+from ..ops.attention import flash_attention_frame_masked, flash_attention_train, quantize_k_tokens
+from ..ops.masks import FrameMaskSpec, expand_frame_mask, teacher_forcing_frame_mask
 from ..ops.quant import slice_linear
 from ..ops.embeddings import sinusoidal_embedding_1d
 from ..ops.rope import RopeTables, apply_rotary, halfsplit_qk_perm, rope_multipliers
@@ -321,8 +326,15 @@ def _attention_layer_cached(
 def _cross_attention_layer(layer_p: dict, cfg: DiTConfig, x: torch.Tensor,
                            ck: torch.Tensor, cv: torch.Tensor,
                            train: bool = False) -> torch.Tensor:
-    """Attention of x's queries over the prompt's K/V: plain softmax when
-    serving, ``flash_attention_train`` in the training forms."""
+    """Attention of x's queries over the prompt's K/V [B, T, N, D]:
+    ``flash_attention_train`` in the training forms; when serving, plain
+    softmax, or with ``LONGLIVE_CROSS_FLASH=1`` (read here at each call, as
+    the JAX package reads it) the attention kernel's bias mode with a zero
+    bias over the prompt's tokens (q pre-scaled and rounded, the exp2 and
+    mxu_lsum switches applying).  The prompt's K/V are put in the kernel's
+    [B*N, T, D] layout per call (1.5 MB per layer at full width): the
+    ``CrossKV`` a prompt carries serves the training forms in its own
+    layout."""
     b, s, _ = x.shape
     n, hd = cfg.num_heads, cfg.head_dim
     q = nn.linear(x, layer_p["q"])
@@ -331,6 +343,14 @@ def _cross_attention_layer(layer_p: dict, cfg: DiTConfig, x: torch.Tensor,
     q = q.reshape(b, s, n, hd)
     if train:
         out = flash_attention_train(q, ck.to(q.dtype), cv.to(q.dtype))
+    elif os.environ.get("LONGLIVE_CROSS_FLASH", "0") == "1":
+        t = ck.shape[1]
+
+        def heads(a):  # [B, T, N, D] -> the kernel's [B*N, T, D]
+            return a.to(q.dtype).transpose(1, 2).contiguous().view(b * n, t, hd)
+
+        bias = torch.zeros((b, t), dtype=torch.float32, device=q.device)
+        out = flash_attention(q.contiguous(), heads(ck), heads(cv), bias, cross=True)
     else:
         out = dense_attention(q, ck.to(q.dtype), cv.to(q.dtype))
     return nn.linear(out.reshape(b, s, n * hd), layer_p["o"])
@@ -575,3 +595,130 @@ def _dit_forward_train(
     if advance_counters:
         cache = kvc.advance(cache_cfg, cache, start_frame, f)
     return flow, dataclasses.replace(cache)
+
+
+# ---------------------------------------------------------------------------
+# full-sequence forwards
+
+
+def _full_layer(cfg: DiTConfig, f: int, x: torch.Tensor, layer_p: dict, cross_k: torch.Tensor,
+                cross_v: torch.Tensor, e0: torch.Tensor, rope_cos, rope_sin,
+                self_attend) -> torch.Tensor:
+    """One block of a full-sequence forward over ``f`` frames: q and k
+    RMS-normed, then roped (no fused premul), ``self_attend(q, k, v)``, then
+    the block's tail with the serving cross-attention."""
+    b, s, _ = x.shape
+    n, hd = cfg.num_heads, cfg.head_dim
+    e = layer_p["modulation"][None, None].to(e0.dtype) + e0
+    e_ = [e[:, :, i][:, :, None] for i in range(6)]
+    h = _modulated(x, cfg, f, e_[0], e_[1])
+    sa = layer_p["self_attn"]
+    q, k, v = _projections(sa, cfg, h)
+    if cfg.qk_norm:
+        q = nn.rms_norm(q, sa["norm_q"]["scale"], cfg.eps)
+        k = nn.rms_norm(k, sa["norm_k"]["scale"], cfg.eps)
+    q = apply_rotary(q.reshape(b, s, n, hd), rope_cos, rope_sin, layout=cfg.rope_layout)
+    k = apply_rotary(k.reshape(b, s, n, hd), rope_cos, rope_sin, layout=cfg.rope_layout)
+    y = self_attend(q, k, v.reshape(b, s, n, hd))
+    y = nn.linear(y.reshape(b, s, n * hd), sa["o"])
+    return _block_tail(cfg, f, x, y, layer_p, cross_k, cross_v, e_)
+
+
+def _dense_self_attend(frame_mask: torch.Tensor, frame_seq: int):
+    bias = torch.where(expand_frame_mask(frame_mask, frame_seq), 0.0, NEG_INF)
+    bias = bias.to(torch.float32)[None, None]
+    return lambda q, k, v: dense_attention(q, k, v, bias)
+
+
+def _masked_self_attend(spec: FrameMaskSpec, frame_seq: int):
+    return lambda q, k, v: flash_attention_frame_masked(
+        q.contiguous(), k.contiguous(), v.contiguous(), mask_kind=spec.kind,
+        frame_seq=frame_seq, nfb=spec.num_frame_per_block, local=spec.local_attn_size,
+        sink=spec.sink_frames, clean_frames=spec.clean_frames)
+
+
+def _full_layers(params: dict, cfg: DiTConfig, f: int, tokens: torch.Tensor,
+                 cross_kv: CrossKV, e0: torch.Tensor, rope_cos, rope_sin, self_attend,
+                 remat_layers: bool) -> torch.Tensor:
+    """Every layer of a full-sequence forward; with ``remat_layers`` and
+    gradients enabled each layer runs under ``torch.utils.checkpoint``."""
+    remat = remat_layers and torch.is_grad_enabled()
+    for li, layer_p in enumerate(params["blocks"]):
+        args = (cfg, f, tokens, layer_p, cross_kv.k[li], cross_kv.v[li], e0, rope_cos, rope_sin,
+                self_attend)
+        tokens = (checkpoint(_full_layer, *args, use_reentrant=False) if remat
+                  else _full_layer(*args))
+    return tokens
+
+
+def dit_forward_full(
+    params: dict, cfg: DiTConfig, tables: RopeTables, x: torch.Tensor, t: torch.Tensor,
+    cross_kv: CrossKV, frame_mask, start_frame: int = 0, remat_layers: bool = False,
+) -> torch.Tensor:
+    """Uncached forward over the whole sequence x [B, F, C, H, W] with
+    per-frame timesteps t [B, F], under ``frame_mask``: a [F, F] bool tensor
+    (the dense route: a float32 token-level bias, small sizes only) or an
+    ``ops.masks.FrameMaskSpec`` (``flash_attention_frame_masked``: the
+    kernel on CUDA tensors, its plain version on CPU tensors; no [S, S]
+    tensor).  RoPE positions start at frame ``start_frame``.  The
+    cross-attention takes the serving route (``LONGLIVE_CROSS_FLASH``).
+    ``remat_layers``: per-layer checkpointing under gradients (the kernel
+    route is forward only).  Returns the flow [B, F, C, H, W] float32."""
+    b, f, c, h, w = x.shape
+    dtype = params["patch_embedding"]["weight"].dtype
+    tokens = nn.linear(patchify(x.to(dtype), cfg), params["patch_embedding"])
+    e, e0 = time_modulation(params, cfg, t, dtype)
+    hp, wp = h // cfg.patch_size[1], w // cfg.patch_size[2]
+    rope_cos, rope_sin = rope_multipliers(tables, f, hp, wp, start_frame)
+    if isinstance(frame_mask, FrameMaskSpec):
+        self_attend = _masked_self_attend(frame_mask, hp * wp)
+    else:
+        self_attend = _dense_self_attend(frame_mask.to(x.device), hp * wp)
+    tokens = _full_layers(params, cfg, f, tokens, cross_kv, e0, rope_cos, rope_sin, self_attend,
+                          remat_layers)
+    return unpatchify(_head(params, cfg, tokens, e, f).float(), cfg, f, h, w)
+
+
+def dit_forward_teacher_forcing(
+    params: dict, cfg: DiTConfig, tables: RopeTables, noisy: torch.Tensor, clean: torch.Tensor,
+    t: torch.Tensor, cross_kv: CrossKV, aug_t: Optional[torch.Tensor] = None,
+    attn_impl: str = "auto", remat_layers: bool = False,
+) -> torch.Tensor:
+    """Teacher-forcing forward: the sequence is [clean | noisy] (each
+    [B, F, C, H, W]) under the teacher-forcing mask; the clean half runs at
+    timesteps ``aug_t`` (zeros when None), the noisy half at ``t`` [B, F];
+    both halves take the same RoPE positions.  Returns the flow of the
+    noisy half [B, F, C, H, W] float32.
+
+    ``attn_impl``: ``"pallas"`` computes the mask from token indices in
+    ``flash_attention_frame_masked`` (kernel on CUDA tensors, plain version
+    on CPU tensors); ``"xla"`` is the dense route (a [2S, 2S] float32 bias:
+    ~17 GB at the 21-frame training geometry); ``"auto"`` is the kernel on
+    a CUDA device (which raises for a head dim it cannot take), the dense
+    route on the CPU."""
+    if attn_impl == "auto":
+        attn_impl = "pallas" if noisy.device.type == "cuda" else "xla"
+    if attn_impl not in ("pallas", "xla"):
+        raise ValueError(f"dit_forward_teacher_forcing: unknown attn_impl {attn_impl!r}")
+    b, f, c, h, w = noisy.shape
+    dtype = params["patch_embedding"]["weight"].dtype
+    x2 = torch.cat([clean, noisy], dim=1).to(dtype)
+    tokens = nn.linear(patchify(x2, cfg), params["patch_embedding"])
+    if aug_t is None:
+        aug_t = torch.zeros_like(t)
+    e_clean, e0_clean = time_modulation(params, cfg, aug_t, dtype)
+    e_noisy, e0_noisy = time_modulation(params, cfg, t, dtype)
+    e0 = torch.cat([e0_clean, e0_noisy], dim=1)
+    hp, wp = h // cfg.patch_size[1], w // cfg.patch_size[2]
+    rope_cos, rope_sin = rope_multipliers(tables, f, hp, wp, 0)
+    rope_cos, rope_sin = torch.cat([rope_cos, rope_cos]), torch.cat([rope_sin, rope_sin])
+    if attn_impl == "pallas":
+        spec = FrameMaskSpec("teacher_forcing", cfg.num_frame_per_block, clean_frames=f)
+        self_attend = _masked_self_attend(spec, hp * wp)
+    else:
+        self_attend = _dense_self_attend(
+            teacher_forcing_frame_mask(f, cfg.num_frame_per_block, noisy.device), hp * wp)
+    tokens = _full_layers(params, cfg, 2 * f, tokens, cross_kv, e0, rope_cos, rope_sin,
+                          self_attend, remat_layers)
+    tokens = tokens[:, tokens.shape[1] // 2:]  # the noisy half
+    return unpatchify(_head(params, cfg, tokens, e_noisy, f).float(), cfg, f, h, w)

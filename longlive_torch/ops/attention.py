@@ -14,9 +14,17 @@
   read at call time as in the JAX package, apply in every mode:
   ``LONGLIVE_EXP2=1`` folds log2(e) into the softmax scale (and the bias)
   and takes exp2; ``LONGLIVE_MXU_LSUM=1`` sums each softmax row from P
-  rounded to V's dtype (on the tensor cores in the kernel).
-- ``dense_attention``: plain softmax attention, used for cross-attention
-  (the text context is only 512 tokens).
+  rounded to V's dtype (on the tensor cores in the kernel).  The serving
+  cross-attention takes it under ``LONGLIVE_CROSS_FLASH=1`` (``cross=True``,
+  counted apart).
+- ``flash_attention_frame_masked``: full-sequence self-attention under a
+  frame-structured mask computed from token indices (block-causal, sink +
+  window, teacher forcing), with the tiles the mask leaves dead skipped
+  (``LONGLIVE_TF_ELIDE``, default on).  On a CUDA tensor it launches the
+  kernel of ``csrc/flash_attention_masked.cu``; on a CPU tensor it runs
+  ``flash_attention_frame_masked_plain``.  Forward only.
+- ``dense_attention``: plain softmax attention, the serving cross-attention
+  by default (the text context is only 512 tokens).
 - ``flash_attention_train``: differentiable attention with a [B, Skv]
   kv-valid mask for the training paths, a ``torch.autograd.Function``.  On
   CUDA tensors its forward and its backward (dQ, then dK/dV) are the
@@ -27,7 +35,7 @@
 Layout: q, the output and ``k2``/``v2`` are [B, Sq, N, D];
 ``flash_attention``'s K and V are one layer's rows of the cache,
 [B*N, S, D] (head-major, token rows contiguous); ``flash_attention_train``'s
-are [B, Skv, N, D].
+and ``flash_attention_frame_masked``'s are [B, Skv, N, D].
 """
 
 from __future__ import annotations
@@ -50,9 +58,16 @@ LIVE_WORDS = 64  # 32-tile words of the kernel's live-tile mask (up to 131072 ca
 
 launches = 0  # kernel launches of flash_attention since the last reset
 # the same launches, by mode (a two-segment launch counts as two_segment,
-# whatever its QK^T type), and those that ran with each switch on
-mode_launches = {"bias": 0, "q_rope": 0, "qk_int8": 0, "two_segment": 0}
+# whatever its QK^T type; a cross-attention launch as cross), and those that
+# ran with each switch on
+mode_launches = {"bias": 0, "q_rope": 0, "qk_int8": 0, "two_segment": 0, "cross": 0}
 flag_launches = {"exp2": 0, "mxu_lsum": 0}
+
+# kernel launches of flash_attention_frame_masked since the last reset, by mask kind
+masked_launches = {"block_causal": 0, "sink_window": 0, "teacher_forcing": 0}
+MASKED_TILE_Q, MASKED_TILE_KV = 128, 64  # its kernel's tiles: the granularity of its elision
+MASKED_MAX_KV_TILES = 4096  # its kernel's live-tile list in shared memory (262144 kv tokens)
+_MASKED_PLAIN_ROWS = 2048  # query rows per chunk of its plain version
 
 
 # kernel launches of flash_attention_train since the last reset: its forward
@@ -65,7 +80,7 @@ _PLAIN_ROWS = 8192  # query rows per chunk of the plain training versions
 def reset_launches() -> None:
     global launches
     launches = 0
-    for counter in (mode_launches, flag_launches, train_launches):
+    for counter in (mode_launches, flag_launches, train_launches, masked_launches):
         for name in counter:
             counter[name] = 0
 
@@ -270,7 +285,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     bias: torch.Tensor, q_rope=None, qk_int8: bool = False,
                     k_scales: Optional[torch.Tensor] = None,
                     k2: Optional[torch.Tensor] = None, v2: Optional[torch.Tensor] = None,
-                    skip_ranges: Optional[Sequence[Tuple[int, int]]] = None) -> torch.Tensor:
+                    skip_ranges: Optional[Sequence[Tuple[int, int]]] = None,
+                    cross: bool = False) -> torch.Tensor:
     """Attention of q [B, Sq, N, D] over one cache layer k, v [B*N, S, D]
     with bias [B, S] float32.  Returns [B, Sq, N, D] in q's dtype.
 
@@ -291,6 +307,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     ``LONGLIVE_EXP2=1`` and ``LONGLIVE_MXU_LSUM=1`` (see ``switches``)
     select the exp2 and the row-sum-on-tensor-core arithmetic in any mode.
+
+    ``cross``: the call is a cross-attention (k, v the prompt's K/V, a zero
+    bias); its launch counts under ``mode_launches["cross"]``.
 
     CPU tensors run the plain version.  CUDA tensors launch the kernel,
     which takes bf16 q/v/k2/v2 (and K unless int8), D = 128, contiguous
@@ -353,12 +372,200 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             out.data_ptr(), b, sq, n, s, s2, scale, int(qk_int8), int(exp2), int(mxu_lsum),
             torch.cuda.current_stream(q.device).cuda_stream)
     mode = ("two_segment" if k2 is not None else "qk_int8" if qk_int8
-            else "bias" if q_rope is None else "q_rope")
+            else "q_rope" if q_rope is not None else "cross" if cross else "bias")
     kernels.check(lib, rc, f"flash_attention ({mode})")
     launches += 1
     mode_launches[mode] += 1
     flag_launches["exp2"] += int(exp2)
     flag_launches["mxu_lsum"] += int(mxu_lsum)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# full-sequence self-attention under a frame-structured mask
+
+
+def _check_mask_kind(mask_kind: str) -> None:
+    if mask_kind not in masked_launches:
+        raise ValueError(f"flash_attention_frame_masked: unknown mask_kind {mask_kind!r} "
+                         f"(one of {', '.join(masked_launches)})")
+
+
+def _tf_part(lo: torch.Tensor, hi: torch.Tensor, start: int, end: int, blk: int):
+    """(exists, first block, last block) of the tokens of [lo, hi) that lie
+    in one half [start, end) of the [clean | noisy] sequence, block ids
+    counted from the half's start (``blk`` tokens per block)."""
+    a, b = torch.clamp(lo, min=start), torch.clamp(hi, max=end)
+    return b > a, (a - start) // blk, (b - 1 - start) // blk
+
+
+def frame_mask_live_tiles(kind: str, sq: int, skv: int, block_q: int, block_kv: int,
+                          frame_seq: int, nfb: int = 1, local: int = -1, sink: int = 0,
+                          clean_frames: int = 0) -> torch.Tensor:
+    """[ceil(sq / block_q), ceil(skv / block_kv)] bool on the CPU: tile (iq,
+    ikv), tokens [iq * block_q, (iq + 1) * block_q) x [ikv * block_kv, ...),
+    is live when the mask ``kind`` leaves any (q, kv) pair of it unmasked
+    or it holds a q == kv pair (the JAX package's ``_frame_mask_tile_arrays``'
+    ``live``, at any tile size).  The ranges are whole tiles: a ragged last
+    tile counts its padding as the JAX package counts its padded tokens, so
+    some live tiles hold no unmasked pair (the kernel masks kv >= skv).
+    Block-causal and sink-window work on frame ranges; teacher forcing on the
+    block ranges of each tile's clean and noisy parts, padding excluded."""
+    _check_mask_kind(kind)
+    nq, nkv = -(-sq // block_q), -(-skv // block_kv)
+    q_lo = torch.arange(nq, dtype=torch.int64)[:, None] * block_q
+    k_lo = torch.arange(nkv, dtype=torch.int64)[None, :] * block_kv
+    q_hi, k_hi = q_lo + block_q, k_lo + block_kv
+    if kind == "teacher_forcing":
+        cl, blk = clean_frames * frame_seq, frame_seq * nfb
+        qc, qc0, qc1 = _tf_part(q_lo, q_hi, 0, cl, blk)
+        qn, qn0, qn1 = _tf_part(q_lo, q_hi, cl, 2 * cl, blk)
+        kc, kc0, _ = _tf_part(k_lo, k_hi, 0, cl, blk)
+        kn, kn0, kn1 = _tf_part(k_lo, k_hi, cl, 2 * cl, blk)
+        alive = ((qc & kc & (kc0 <= qc1)) | (qn & kn & (kn0 <= qn1) & (kn1 >= qn0))
+                 | (qn & kc & (kc0 < qn1)))
+    else:
+        qf_lo, qf_hi = q_lo // frame_seq, (q_hi - 1) // frame_seq
+        kf_lo, kf_hi = k_lo // frame_seq, (k_hi - 1) // frame_seq
+        ends_lo, ends_hi = (qf_lo // nfb + 1) * nfb, (qf_hi // nfb + 1) * nfb
+        if kind == "block_causal":
+            alive = (kf_hi >= (ends_lo - local if local != -1 else 0)) & (kf_lo < ends_hi)
+        else:
+            alive = ((kf_lo < torch.clamp(ends_hi, max=sink))
+                     | ((kf_hi >= ends_lo - (local - sink)) & (kf_lo < ends_hi)))
+    return alive | ((q_lo < k_hi) & (k_lo < q_hi))
+
+
+def _frame_token_mask(kind: str, qi: torch.Tensor, ki: torch.Tensor, frame_seq: int,
+                      nfb: int, local: int, sink: int, clean_frames: int) -> torch.Tensor:
+    """[len(qi), len(ki)] bool: the kernel's per-element mask from the token
+    indices, q == kv always attended."""
+    qi, ki = qi[:, None], ki[None, :]
+    if kind == "teacher_forcing":
+        cl = clean_frames * frame_seq
+        qn, kn = qi >= cl, ki >= cl
+        qf = torch.where(qn, qi - cl, qi) // frame_seq
+        kf = torch.where(kn, ki - cl, ki) // frame_seq
+        qb, kb = qf // nfb, kf // nfb
+        # kv tokens past the [clean | noisy] halves (kf >= clean_frames)
+        # never count as the last noisy block's
+        mask = (((~qn & ~kn & (kb <= qb)) | (qn & kn & (kb == qb)) | (qn & ~kn & (kb < qb)))
+                & (kf < clean_frames))
+    else:
+        kf = ki // frame_seq
+        ends = (qi // frame_seq // nfb + 1) * nfb
+        mask = kf < ends
+        if kind == "block_causal" and local != -1:
+            mask = mask & (kf >= ends - local)
+        elif kind == "sink_window":
+            mask = mask & ((kf < sink) | (kf >= ends - (local - sink)))
+    return mask | (qi == ki)
+
+
+def flash_attention_frame_masked_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                                       mask_kind: str, frame_seq: int, nfb: int = 1,
+                                       local: int = -1, sink: int = 0,
+                                       clean_frames: int = 0) -> torch.Tensor:
+    """The kernel's arithmetic: q is scaled by 1/sqrt(D) in float32 and
+    rounded to its dtype, the logits are float32 with the masked ones set to
+    -1e30, P = exp(s - m) in float32 with the row max m, the row sum l is
+    taken over the unrounded P, P V over P rounded to V's dtype, and the
+    output is divided by max(l, 1e-30).  At most ``_MASKED_PLAIN_ROWS``
+    query rows and one head at a time, so a 65520-token call holds ~2 GB
+    of logits.
+
+    q, k, v: [B, S, N, D].  Returns [B, Sq, N, D] in q's dtype."""
+    _check_mask_kind(mask_kind)
+    b, sq, n, d = q.shape
+    skv = k.shape[1]
+    qs = _scaled_q(q, 1.0 / math.sqrt(d))
+    ki = torch.arange(skv, device=q.device)
+    out = torch.empty_like(q)
+    for r0 in range(0, sq, _MASKED_PLAIN_ROWS):
+        r1 = min(r0 + _MASKED_PLAIN_ROWS, sq)
+        mask = _frame_token_mask(mask_kind, torch.arange(r0, r1, device=q.device), ki,
+                                 frame_seq, nfb, local, sink, clean_frames)
+        for bi in range(b):
+            for h in range(n):
+                s = (qs[bi, r0:r1, h].float() @ k[bi, :, h].float().T).masked_fill(~mask, NEG_INF)
+                p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+                l = p.sum(dim=-1, keepdim=True)
+                o = (p.to(v.dtype).float() @ v[bi, :, h].float()) / l.clamp_min(1e-30)
+                out[bi, r0:r1, h] = o.to(q.dtype)
+    return out
+
+
+_MASK_KIND_IDS = {"block_causal": 0, "sink_window": 1, "teacher_forcing": 2}
+
+
+def flash_attention_frame_masked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                                 mask_kind: str = "block_causal", frame_seq: int,
+                                 nfb: int = 1, local: int = -1, sink: int = 0,
+                                 clean_frames: int = 0,
+                                 elide_dead_tiles: Optional[bool] = None) -> torch.Tensor:
+    """Self-attention of q over k, v, each [B, S, N, D], under the frame
+    mask ``mask_kind`` (``frame_seq`` tokens per frame, blocks of ``nfb``
+    frames):
+
+    - ``block_causal``: kv frame < the end of q's block, and within the last
+      ``local`` frames of it unless ``local`` is -1;
+    - ``sink_window``: kv frame < the end of q's block, and a sink frame
+      (< ``sink``) or within the last ``local - sink`` frames;
+    - ``teacher_forcing``: [clean | noisy] of ``clean_frames`` frames each;
+      clean attends clean causally by block, a noisy block its own noisy
+      frames and the clean blocks before it, kv tokens past both halves
+      never;
+
+    and every token attends itself.  ``elide_dead_tiles`` (None: the
+    ``LONGLIVE_TF_ELIDE`` switch, read here at each call as the JAX package
+    reads it, default on) makes the kernel skip the tiles no unmasked pair
+    touches (``frame_mask_live_tiles``); it changes no bit, and the plain
+    version has nothing to skip.  Returns [B, Sq, N, D] in q's dtype.
+
+    Forward only: with gradients enabled on an input that requires them it
+    raises ValueError (the JAX package's kernel has no gradient either).
+    CPU tensors run the plain version.  CUDA tensors launch the kernel,
+    which takes contiguous, 16-byte aligned bf16 operands with D = 128 and
+    at most ``MASKED_MAX_KV_TILES * MASKED_TILE_KV`` kv tokens; anything
+    else raises ValueError."""
+    _check_mask_kind(mask_kind)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        raise ValueError("flash_attention_frame_masked is forward only: call it under "
+                         "torch.no_grad() or on inputs that do not require grad")
+    if frame_seq < 1 or nfb < 1:
+        raise ValueError(f"flash_attention_frame_masked: frame_seq {frame_seq} and nfb {nfb} "
+                         "must be positive")
+    if elide_dead_tiles is None:
+        elide_dead_tiles = os.environ.get("LONGLIVE_TF_ELIDE", "1") == "1"
+    kw = dict(mask_kind=mask_kind, frame_seq=frame_seq, nfb=nfb, local=local, sink=sink,
+              clean_frames=clean_frames)
+    if q.device.type == "cpu":
+        return flash_attention_frame_masked_plain(q, k, v, **kw)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_frame_masked: unsupported device {q.device}")
+    if q.ndim != 4 or k.ndim != 4:
+        raise ValueError("flash_attention_frame_masked: q, k, v must be [B, S, N, D]")
+    b, sq, n, d = q.shape
+    skv = k.shape[1]
+    if d != 128:
+        raise ValueError(f"flash_attention_frame_masked: head dim {d} unsupported "
+                         "(the kernel takes 128)")
+    if sq < 1 or skv < 1 or -(-skv // MASKED_TILE_KV) > MASKED_MAX_KV_TILES:
+        raise ValueError(f"flash_attention_frame_masked: {sq} query and {skv} kv tokens "
+                         f"(the kernel takes 1 to {MASKED_MAX_KV_TILES * MASKED_TILE_KV} kv)")
+    for name, t, shape in (("q", q, (b, sq, n, d)), ("k", k, (b, skv, n, d)),
+                           ("v", v, (b, skv, n, d))):
+        _check_operand(name, t, torch.bfloat16, shape, q.device)
+    qs = _scaled_q(q, 1.0 / math.sqrt(d))
+    out = torch.empty_like(q)
+    lib = kernels.load("flash_attention_masked")
+    fn = lib.longlive_flash_masked
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+    rc = fn(qs.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq, skv, n,
+            _MASK_KIND_IDS[mask_kind], frame_seq, nfb, local, sink, clean_frames,
+            int(elide_dead_tiles), _stream(q))
+    kernels.check(lib, rc, f"flash_attention_frame_masked ({mask_kind})")
+    masked_launches[mask_kind] += 1
     return out
 
 

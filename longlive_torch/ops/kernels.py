@@ -18,7 +18,7 @@ from pathlib import Path
 from typing import Dict, Iterable
 
 KERNELS = ("flash_attention", "causal_conv", "flash_attention_train", "int8_linear",
-           "res_block_pair")
+           "res_block_pair", "flash_attention_masked")
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD = _CSRC.parent.parent / "build" / "kernels"

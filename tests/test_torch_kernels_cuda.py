@@ -364,3 +364,94 @@ def test_res_block_pair_kernel_matches_plain(dev, t, h, w, c):
         VC.fused_res_block(x[..., :64].contiguous(), c1[..., :64].contiguous(),
                            c2[..., :64].contiguous(), w1[:64, :64].contiguous(), b1[:64],
                            g1[:64], w2[:64, :64].contiguous(), b2[:64], g2[:64])
+
+
+def test_flash_attention_cross_kernel_matches_plain(dev):
+    """K1 at the cross-attention's form (LONGLIVE_CROSS_FLASH=1): ragged
+    query rows over a 512-token prompt with a zero bias, counted as cross."""
+    from longlive_torch.ops import attention as A
+
+    g = torch.Generator(device=dev).manual_seed(12)
+    b, n, d, sq, s = 1, 3, 128, 300, 512
+    q = torch.randn((b, sq, n, d), generator=g, device=dev).to(torch.bfloat16)
+    k, v = (torch.randn((b * n, s, d), generator=g, device=dev).to(torch.bfloat16)
+            for _ in range(2))
+    bias = torch.zeros((b, s), dtype=torch.float32, device=dev)
+    before = dict(A.mode_launches)
+    out = A.flash_attention(q, k, v, bias, cross=True)
+    ref = A.flash_attention_plain(q, k, v, bias)
+    torch.cuda.synchronize()
+    assert A.mode_launches["cross"] == before["cross"] + 1
+    assert A.mode_launches["bias"] == before["bias"]
+    _assert_agrees(out, ref)
+
+
+# (kind, frame_seq, frames, nfb, local, sink, heads): frames cut against the
+# 128 x 64 tiles, a ragged kv tail (S % 64 != 0), a partial last block
+MASKED_CASES = [
+    ("teacher_forcing", 30, 5, 3, -1, 0, 2),
+    ("teacher_forcing", 40, 6, 3, -1, 0, 1),
+    ("block_causal", 30, 7, 3, -1, 0, 2),
+    ("block_causal", 50, 9, 3, 4, 0, 1),
+    ("sink_window", 30, 9, 3, 6, 1, 2),
+    ("sink_window", 64, 6, 1, 4, 1, 1),
+]
+
+
+def _masked_inputs(dev, kind, fs, f, n, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    s = (2 if kind == "teacher_forcing" else 1) * f * fs
+    return [torch.randn((1, s, n, 128), generator=g, device=dev).to(torch.bfloat16)
+            for _ in range(3)]
+
+
+@pytest.mark.parametrize("kind,fs,f,nfb,local,sink,n", MASKED_CASES)
+def test_frame_masked_kernel_matches_plain(dev, kind, fs, f, nfb, local, sink, n):
+    """K3 against its plain version; elided bit-equal to unelided."""
+    from longlive_torch.ops import attention as A
+
+    q, k, v = _masked_inputs(dev, kind, fs, f, n, 13)
+    kw = dict(mask_kind=kind, frame_seq=fs, nfb=nfb, local=local, sink=sink,
+              clean_frames=f if kind == "teacher_forcing" else 0)
+    before = A.masked_launches[kind]
+    out = A.flash_attention_frame_masked(q, k, v, elide_dead_tiles=True, **kw)
+    full = A.flash_attention_frame_masked(q, k, v, elide_dead_tiles=False, **kw)
+    ref = A.flash_attention_frame_masked_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert A.masked_launches[kind] == before + 2
+    assert torch.isfinite(out).all()
+    _assert_agrees(out, ref)
+    assert torch.equal(out, full)
+
+
+def test_frame_masked_kernel_refuses(dev):
+    from longlive_torch.ops import attention as A
+
+    q, k, v = _masked_inputs(dev, "block_causal", 16, 4, 1, 14)
+    kw = dict(mask_kind="block_causal", frame_seq=16)
+    with pytest.raises(ValueError):
+        A.flash_attention_frame_masked(q[..., :64].contiguous(), k[..., :64].contiguous(),
+                                       v[..., :64].contiguous(), **kw)
+    with pytest.raises(ValueError):
+        A.flash_attention_frame_masked(q.float(), k.float(), v.float(), **kw)
+    with pytest.raises(ValueError, match="forward only"):
+        A.flash_attention_frame_masked(q.requires_grad_(), k, v, **kw)
+
+
+def test_teacher_forcing_auto_takes_kernel_on_cuda(dev):
+    """attn_impl="auto" on a CUDA tensor is the kernel route, never the
+    dense bias: at the tiny config's head dim 24 the kernel refuses."""
+    from longlive_torch.config import tiny_dit_config, tiny_geometry
+    from longlive_torch.models import dit as D
+    from longlive_torch.ops.rope import make_rope_tables
+
+    cfg, geom = tiny_dit_config(), tiny_geometry()
+    assert cfg.head_dim != 128
+    params = D.init_dit_params(cfg, torch.float32, dev, zero_head=False)
+    cross = D.prepare_cross_kv(params, cfg, torch.randn(1, cfg.text_len, cfg.text_dim,
+                                                        device=dev), torch.float32)
+    tables = make_rope_tables(cfg.head_dim, cfg.rope_max_pos, device=dev)
+    x = torch.randn(1, 2, geom.channels, geom.height, geom.width, device=dev)
+    t = torch.full((1, 2), 500.0, device=dev)
+    with pytest.raises(ValueError, match="head dim"):
+        D.dit_forward_teacher_forcing(params, cfg, tables, x, torch.randn_like(x), t, cross)
