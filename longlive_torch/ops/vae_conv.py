@@ -4,8 +4,11 @@
 3 x {3,1} x {3,1}, stride 1, SAME spatial) -> + bias [-> + residual]`` over
 the virtual frame sequence [2 cache frames ++ T frames], and returns the new
 2-frame cache (the last two normalised input frames) beside the output.  On
-a CUDA tensor it launches the hand-written Hopper kernel of
-``csrc/causal_conv.cu``; on a CPU tensor it runs ``fused_causal_conv_plain``.
+a CUDA tensor it launches the hand-written Hopper kernels of
+``csrc/causal_conv.cu`` (an input pass that normalises each input element
+once and writes the new cache, then a TMA-fed ``wgmma`` implicit GEMM whose
+tiles ``conv_tiles`` picks); on a CPU tensor it runs
+``fused_causal_conv_plain``.
 
 ``LONGLIVE_VAE_INT8=1`` (read at call time, as in the JAX package) selects
 the int8 variant: the weights are quantized per packed column, that is per
@@ -33,7 +36,7 @@ from __future__ import annotations
 import ctypes
 import math
 import os
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -49,6 +52,59 @@ pair_launches = 0  # launches of fused_res_block's kernel since the last reset
 # candidate output tiles (rows x columns), largest first
 SMEM_LIMIT = 232448
 PAIR_TILES = ((8, 8), (8, 4))
+
+# fused_causal_conv's bf16 kernel: the candidate boxes of 128 or 256 output
+# pixels (rows x columns, the columns a multiple of 8), widest first
+CONV_BOXES = {128: ((1, 128), (2, 64), (4, 32), (8, 16), (16, 8)),
+              256: ((2, 128), (4, 64), (8, 32), (16, 16), (32, 8))}
+
+
+class ConvTiles(NamedTuple):
+    """The bf16 conv kernel's tiling: a ``bh`` x ``bw`` box of output pixels
+    of one frame (M = 128 ``mt``), loaded with its ``kh - 1`` halo rows;
+    ``kc`` channels per K step (the inner dimension of every TMA box,
+    ``kc * 2`` bytes, swizzled over as many); ``bn`` output channels (N);
+    ``mt`` m64 tiles per consumer warpgroup; a ring of ``stages`` stages of
+    ``stage`` bytes each (the box rounded to 1024, then ``kh`` weight
+    tiles); and the CTA's dynamic shared memory ``smem`` (the ring, its
+    barriers and 1024 bytes of alignment)."""
+    bh: int
+    bw: int
+    kc: int
+    bn: int
+    mt: int
+    stages: int
+    stage: int
+    smem: int
+
+
+def conv_tiles(h: int, w: int, c: int, o: int, kh: int = 3) -> ConvTiles:
+    """The bf16 conv kernel's tiles for H x W frames, C -> O channels and kh
+    kernel rows, as measured best on an H100 at the decoder's shapes
+    (PERF.md): KC = 64 where it divides C, else 32; the time convs (kh = 1)
+    N = 192 where it divides O, else 96; the 3x3 convs N = 96, with M = 256
+    (two m64 tiles per consumer warpgroup) at KC = 32 and M = 128 at KC =
+    64.  The box is the one whose tiles move the fewest rows into shared
+    memory (its rows with the kh - 1 halo rows, and kh x N weight rows, per
+    K step), the widest on a tie; then as many stages, up to 8, as a CTA's
+    shared memory holds."""
+    kc = 64 if c % 64 == 0 else 32
+    if kh == 1:
+        bn, mt = (192 if o % 192 == 0 else 96), 1
+    else:
+        bn, mt = 96, (1 if kc == 64 else 2)
+    bh, bw = min(CONV_BOXES[128 * mt],
+                 key=lambda b: -(-h // b[0]) * -(-w // b[1]) * ((b[0] + kh - 1) * b[1] + kh * bn))
+    return conv_tiling(bh, bw, kc, bn, mt, kh)
+
+
+def conv_tiling(bh: int, bw: int, kc: int, bn: int, mt: int, kh: int) -> ConvTiles:
+    """The ConvTiles of a box, K step, N and m64 tiles for kh kernel rows,
+    with as many stages, up to 8, as a CTA's shared memory holds."""
+    row = kc * 2
+    stage = -(-(bh + kh - 1) * bw * row // 1024) * 1024 + kh * bn * row
+    stages = min(8, (SMEM_LIMIT - 1024) // (stage + 16))
+    return ConvTiles(bh, bw, kc, bn, mt, stages, stage, 1024 + stages * (stage + 16))
 
 
 def reset_launches() -> None:
@@ -299,11 +355,19 @@ def fused_causal_conv(
             raise ValueError(f"fused_causal_conv: w_packed {tuple(wp.shape)} != "
                              f"{(3, kh, kw, o, c)}")
         _check("w", wp, torch.bfloat16, x.device)
+        tl = conv_tiles(h, wd, c, o, kh)
+        xn = x if gamma is None else torch.empty_like(x)
         nx = torch.empty_like(cache)
+        fn = lib.longlive_conv_input  # norm + SiLU once per element; the new cache
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        rc = fn(x.data_ptr(), cache.data_ptr(), ptr(gf), None if gamma is None else xn.data_ptr(),
+                nx.data_ptr(), t, h, wd, c, stream)
+        kernels.check(lib, rc, "fused_causal_conv (input pass)")
         fn = lib.longlive_causal_conv
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-        rc = fn(x.data_ptr(), cache.data_ptr(), wp.data_ptr(), ptr(bf), ptr(gf),
-                ptr(residual), out.data_ptr(), nx.data_ptr(), t, h, wd, c, o, kh, kw, stream)
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
+        rc = fn(xn.data_ptr(), cache.data_ptr(), wp.data_ptr(), ptr(bf), ptr(residual),
+                out.data_ptr(), t, h, wd, c, o, kh, kw, tl.bh, tl.bw, tl.kc, tl.bn, tl.mt,
+                tl.stages, stream)
         kernels.check(lib, rc, "fused_causal_conv")
         mode = "bf16"
     launches += 1

@@ -13,9 +13,12 @@ bf16 autocast): the generator's replay of the last rollout block (exit step
 1: one pre-exit forward, the exit forward with its backward, the commit)
 after six blocks unprofiled, and the critic's denoising loss with its
 backward.  Device kernel time is grouped into the port's kernels, matrix
-products, library convolutions and the rest; the idle share is 1 - (summed
-kernel time / host wall time of the same step run again without the
-profiler).
+products, library convolutions and the rest; K2 (``fused_causal_conv``)
+counts both its kernels, the input pass (norm + SiLU, the new cache) and the
+conv, and the input pass is also reported on its own (``parts_ms``,
+``parts_share_of_wall``).  The idle
+share is 1 - (summed kernel time / host wall time of the same step run again
+without the profiler).
 Prints one JSON object and writes it to ``--out``.
 """
 
@@ -40,11 +43,15 @@ from longlive_torch.pipeline import CausalInferencePipeline  # noqa: E402
 GROUPS = (
     ("flash_attention (K1)", ("flash_attention_kernel",)),
     ("flash_attention_train (K4)", ("fwd_kernel", "bwd_dq_kernel", "bwd_dkdv_kernel")),
-    ("fused_causal_conv (K2)", ("causal_conv_kernel",)),
+    ("fused_causal_conv (K2)", ("causal_conv_wgmma_kernel", "conv_input_kernel")),
     # cuDNN's conv kernels are named *_fprop_implicit_gemm_*: test before gemm
     ("library conv (cuDNN)", ("fprop", "conv", "cudnn", "winograd")),
     ("matmul (cuBLAS)", ("gemm", "nvjet", "cutlass", "xmma", "cublas")),
 )
+
+
+# kernels reported on their own as well as in their group: (label, key)
+PARTS = (("K2's input pass", "conv_input_kernel"),)
 
 
 def _group(name: str) -> str:
@@ -64,15 +71,16 @@ def _wall_ms(fn) -> float:
 
 
 def _profile(fn):
-    """(wall ms without the profiler, {group: device ms}, top kernels) of
-    ``fn``: one profiled call, then one timed call without the profiler."""
+    """(wall ms without the profiler, {group: device ms}, top kernels,
+    {part: device ms}) of ``fn``: one profiled call, then one timed call
+    without the profiler."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=acts) as prof:
         fn()
         torch.cuda.synchronize()
     wall = _wall_ms(fn)
-    groups, kernels = {}, []
+    groups, kernels, parts = {}, [], {}
     for evt in prof.key_averages():
         dev_us = getattr(evt, "self_device_time_total", None)
         if dev_us is None:
@@ -83,16 +91,21 @@ def _profile(fn):
         ms = dev_us / 1e3
         groups[_group(evt.key)] = groups.get(_group(evt.key), 0.0) + ms
         kernels.append((ms, evt.count, evt.key[:90]))
+        for label, key in PARTS:
+            if key in evt.key.lower():
+                parts[label] = parts.get(label, 0.0) + ms
     kernels.sort(reverse=True)
-    return wall, groups, kernels[:8]
+    return wall, groups, kernels[:8], parts
 
 
-def _summary(label, wall, groups, kernels, per):
+def _summary(label, wall, groups, kernels, parts, per):
     busy = sum(groups.values())
     return {
         "step": label, "wall_ms": wall, "device_busy_ms": busy,
         "idle_share": (1 - busy / wall) if wall > 0 and busy > 0 else None,
         "per": per, "groups_ms": dict(sorted(groups.items(), key=lambda kv: -kv[1])),
+        "parts_ms": parts,
+        "parts_share_of_wall": {k: v / wall for k, v in parts.items()} if wall > 0 else {},
         "top_kernels": [{"ms": m, "count": c, "name": n} for m, c, n in kernels],
     }
 

@@ -76,12 +76,28 @@ def test_flash_attention_q_rope_kernel_matches_plain(dev, sq, s, valid):
         A.flash_attention(q, k, v, bias.contiguous(), q_rope=(rope[0][:-1], rope[1]))
 
 
-@pytest.mark.parametrize("t,h,w,c,o,k,norm,res", [
+# K2's cases (t, h, w, c, o, kernel rows/cols, norm, residual).  The edges
+# of its tiling (ops.vae_conv.conv_tiles, which tests/test_torch_vae_conv.py
+# checks on the CPU for these shapes): T = 1, where the cache frames cross
+# into x; W not a multiple of the box width (13, 20, 50, 104); H smaller
+# than a box; C = 32 and 96 (32 channels per K step) and C % 64 == 0 (64);
+# O = 768 (eight N tiles); 1x1 kernels at N = 96 and 192; the decoder's
+# 384-wide stage.
+CONV_CASES = [
     (1, 5, 13, 32, 96, 3, True, True),    # 65-pixel frame, one partial tile
     (2, 9, 30, 64, 192, 3, True, False),  # tiles span rows
     (4, 6, 50, 96, 96, 3, False, True),
     (2, 7, 20, 96, 192, 1, False, False),  # time conv
-])
+    (2, 2, 104, 96, 96, 3, True, True),    # a 2 x 128 box over 2 x 104
+    (1, 30, 104, 128, 768, 3, True, True),  # T = 1, eight N tiles, H % 16 != 0
+    (4, 40, 104, 96, 192, 3, True, False),
+    (1, 12, 40, 128, 384, 1, False, False),  # 1x1, 64 channels per K step, N = 192
+    (1, 8, 16, 32, 96, 1, False, True),    # 1x1, 32 channels per K step, N = 96
+    (1, 60, 104, 384, 384, 3, True, True),  # the decoder's 384-wide res conv2
+]
+
+
+@pytest.mark.parametrize("t,h,w,c,o,k,norm,res", CONV_CASES)
 def test_causal_conv_kernel_matches_plain(dev, t, h, w, c, o, k, norm, res):
     from longlive_torch.ops import vae_conv as VC
 

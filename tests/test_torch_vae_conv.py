@@ -45,6 +45,40 @@ def test_plain_conv_matches_pallas(t, c, o, norm, res, khw):
     assert TV.launches == 0  # CPU tensors never reach the kernel
 
 
+def _conv_tile_shapes():
+    """(H, W, C, O, kernel rows) of every fused conv of the 480x832 decoder
+    (``chip_smoke.CONV_CASES``; the first latent frame runs each at T = 1,
+    the later ones at T = 1, 2 or 4, and the tiles do not depend on T) and
+    of the CUDA tests' cases."""
+    import chip_smoke
+    from test_torch_kernels_cuda import CONV_CASES as CUDA_CASES
+
+    shapes = {(h, w, c, o, k) for _, _, h, w, c, o, k, *_ in chip_smoke.CONV_CASES}
+    shapes |= {(h, w, c, o, k) for _, h, w, c, o, k, *_ in CUDA_CASES}
+    return sorted(shapes)
+
+
+# (N, m64 tiles per consumer warpgroup, channels per K step) of each
+# instantiation of csrc/causal_conv.cu's bf16 conv
+CONV_INSTANTIATIONS = {(96, 1, 32), (96, 1, 64), (96, 2, 32), (192, 1, 32), (192, 1, 64)}
+
+
+@pytest.mark.parametrize("h,w,c,o,kh", _conv_tile_shapes())
+def test_conv_tiles_fit_the_kernel(h, w, c, o, kh):
+    """The bf16 kernel's tile choice for each shape is one it can run: KC
+    divides C and N divides O; every TMA box dimension is <= 256 and the
+    inner box fits its swizzle width; the ring fits a CTA's shared memory."""
+    tl = TV.conv_tiles(h, w, c, o, kh)
+    assert c % tl.kc == 0 and o % tl.bn == 0
+    assert (tl.bn, tl.mt, tl.kc) in CONV_INSTANTIATIONS
+    assert tl.bh * tl.bw == 128 * tl.mt and tl.bw % 8 == 0
+    for box in ((tl.kc, tl.bw, tl.bh + kh - 1, 1), (tl.kc, tl.bn, kh, 1)):  # input, weights
+        assert all(1 <= d <= 256 for d in box), box
+    assert tl.kc * 2 <= (128 if tl.kc == 64 else 64)  # 128- or 64-byte swizzle
+    assert tl.stages >= 2
+    assert tl.smem == 1024 + tl.stages * (tl.stage + 16) <= TV.SMEM_LIMIT
+
+
 def test_pack_weights_layout():
     w = torch.arange(2 * 3 * 3 * 3 * 1, dtype=torch.float32).reshape(2, 3, 3, 3, 1)
     p = TV.pack_weights(w)
