@@ -893,7 +893,7 @@ def check_conv(torch, VC, int8: bool = False):
     the int8 bound counts the convs' operations at the int8 rate."""
     name = "fused_causal_conv_int8" if int8 else "fused_causal_conv"
     with switched(LONGLIVE_VAE_INT8="1" if int8 else "0"):
-        cases, tot = _conv_cases(torch, VC, int8, name)
+        cases, tot = conv_cases(torch, VC, int8, name)
     t_bound, bound_by = (bound(0.0, tot["bytes"], int8_ops=tot["flops"]) if int8
                          else bound(tot["flops"], tot["bytes"]))
     return {
@@ -910,7 +910,7 @@ def check_conv(torch, VC, int8: bool = False):
     }
 
 
-def _conv_cases(torch, VC, int8: bool, name: str):
+def conv_cases(torch, VC, int8: bool, name: str):
     """check_conv's cases and their count-weighted sums."""
     import torch.nn.functional as F
 
@@ -1857,6 +1857,19 @@ def train_attention_cases(torch):
     ]
 
 
+def train_attention_bounds(b: int, sq: int, skv: int, n: int, d: int, nvalid: int):
+    """K4's bounds, (least ms, "operations" or "bytes") for its forward, dQ
+    and dK/dV kernels: 4, 6 and 8 units of B N Sq Skv_valid D operations;
+    bytes: the forward reads q, k, v and writes out, lse; dQ reads q, k, v,
+    out, dout, lse and writes dq, delta; dK/dV reads q, k, v, dout, lse,
+    delta and writes dk, dv."""
+    work = b * n * sq * nvalid * d
+    qe, ke, rows = b * sq * n * d, b * skv * n * d, 4 * b * n * sq
+    return (bound(4.0 * work, 2 * (2 * qe + 2 * ke) + rows),
+            bound(6.0 * work, 2 * (4 * qe + 2 * ke) + 2 * rows),
+            bound(8.0 * work, 2 * (2 * qe + 4 * ke) + 2 * rows))
+
+
 def check_train_attention(torch, A):
     """K4's forward kernel and its two backward kernels (dQ with Delta, then
     dK/dV) against their plain versions at each shape class, with times of
@@ -1865,16 +1878,25 @@ def check_train_attention(torch, A):
     ``torch.autograd.grad`` call).  The plain backward and the library's
     compute dq, dk and dv in one call: both backward entries carry that
     call's time.  Bounds count valid kv tokens only: forward 4 B N Sq Skv D
-    operations, dQ 6 (S recomputed, dP, dQ), dK/dV 8 (S, dP, dV, dK)."""
+    operations, dQ 6 (S recomputed, dP, dQ), dK/dV 8 (S, dP, dV, dK).  The
+    log line of each case also gives the share of each kernel's kv tiles
+    that the mask leaves live, computed from the mask by the kernels' rule
+    (``train_kv_tile_states`` at the tiles ``train_kv_tiles`` reads from
+    the library), not measured: the forward and dQ kernels skip the dead
+    tiles, a dK/dV CTA over a dead tile only writes zeros."""
     import torch.nn.functional as F
 
     b, n, d, bf = 1, 12, 128, torch.bfloat16
+    tiles = A.train_kv_tiles()
     g = torch.Generator(device="cuda").manual_seed(7)
     fwd_cases, dq_cases, dkdv_cases = [], [], []
     for label, sq, skv, valid in train_attention_cases(torch):
         q, k, v, dout = (torch.randn((b, s, n, d), generator=g, device="cuda").to(bf)
                          for s in (sq, skv, skv, sq))
         nvalid = skv if valid is None else int(valid.sum())
+        live = {kind: float((A.train_kv_tile_states(valid, skv, tile) != A.TILE_DEAD)
+                            .float().mean())
+                for kind, tile in tiles.items() if kind != "max_listed"}
         out, lse = A.flash_attention_train_forward(q, k, v, valid)
         dq, delta = A.flash_attention_train_backward_dq(q, k, v, out, lse, dout, valid)
         dk, dv = A.flash_attention_train_backward_dkdv(q, k, v, out, lse, dout, delta, valid)
@@ -1905,21 +1927,16 @@ def check_train_attention(torch, A):
         dot = dout.transpose(1, 2)
         lib_bwd = cuda_ms(torch, lambda: torch.autograd.grad(lo, (qt, kt, vt), dot,
                                                              retain_graph=True), 5)
-        work = b * n * sq * nvalid * d
-        # bytes: the forward reads q, k, v and writes out, lse; dQ reads q, k,
-        # v, out, dout, lse and writes dq, delta; dK/dV reads q, k, v, dout,
-        # lse, delta and writes dk, dv
-        rows = 4 * b * n * sq
-        tb_f, by_f = bound(4.0 * work, 2 * (2 * q.numel() + k.numel() + v.numel()) + rows)
-        tb_q, by_q = bound(6.0 * work, 2 * (4 * q.numel() + k.numel() + v.numel()) + 2 * rows)
-        tb_k, by_k = bound(8.0 * work, 2 * (2 * q.numel() + 2 * k.numel() + 2 * v.numel())
-                           + 2 * rows)
+        (tb_f, by_f), (tb_q, by_q), (tb_k, by_k) = train_attention_bounds(b, sq, skv, n, d,
+                                                                           nvalid)
         log(f"flash_attention_train {label}: forward max_abs_err={f_err:.3e} tol={f_tol:.3e} "
             f"rel_rms_err={f_rel:.3e} lse max_abs_err={lse_err:.3e}; backward (dq, dk, dv) "
             + ", ".join(f"{e:.3e}/{t:.3e}/{r:.3e}" for e, t, r in grads)
             + f"; ms fwd={fwd_ms:.4f} dq={dq_ms:.4f} dkdv={dkdv_ms:.4f} plain fwd={plain_fwd:.2f} "
             f"bwd={plain_bwd:.2f} library fwd={lib_fwd:.4f} bwd={lib_bwd:.4f} bound "
-            f"fwd={tb_f:.4f} ({by_f}) dq={tb_q:.4f} ({by_q}) dkdv={tb_k:.4f} ({by_k})")
+            f"fwd={tb_f:.4f} ({by_f}) dq={tb_q:.4f} ({by_q}) dkdv={tb_k:.4f} ({by_k}); the "
+            "mask's live kv tile share "
+            + ", ".join(f"{kind} {share:.3f}" for kind, share in live.items()))
         if not (f_err <= f_tol and f_rel <= REL_RMS_LIMIT and lse_err <= 1e-2):
             fail(f"flash_attention_train forward ({label}) disagrees with its plain version: "
                  f"max_abs_err {f_err} (limit {f_tol}), rel_rms_err {f_rel}, lse {lse_err}")

@@ -33,557 +33,849 @@
 // What bounds it on an H100: at the critic's self-attention (32760 tokens
 // over 32760, 12 heads of 128) the forward is ~6.6 TFLOP against ~0.3 GB of
 // operands, tens of thousands of operations per byte, so tensor-core
-// throughput bounds all three kernels; the 512-token cross-attention is far
-// smaller but still operation-bound.
+// throughput bounds all three kernels (forward 4, dQ 6, dK/dV 8 units of
+// B N Sq Skv_valid D operations: the backward recomputes S in both kernels
+// and dP in both, the price of having no atomics); the 512-token
+// cross-attention is far smaller but still operation-bound.  Only wgmma
+// reaches the tensor cores' full rate, and a masked kv tile is work that
+// the bound does not count.
 //
-// Design (FlashAttention-2 style, mma.sync m16n8k16 bf16 -> f32):
-//   forward  one CTA per (128 query rows, b*n); 8 warps of 16 rows; K/V
-//            tiles of 64 tokens double buffered with cp.async; S stays in
-//            registers and is re-packed as the A operand of P V.
-//   dQ       one CTA per (128 query rows, b*n); Q and dO staged once; loops
-//            over K/V tiles of 64 (double buffered): S and dP in registers,
-//            dS re-packed as the A operand of dS K.
-//   dK/dV    one CTA per (128 kv rows, b*n); 8 warps of 16 kv rows; K and V
-//            staged once; loops over query tiles of 32 (Q, dO, lse, Delta
-//            double buffered), computing S^T and dP^T directly so each warp
-//            owns its kv rows' dK and dV accumulators in registers.
-// Rows are padded by 16 bytes in shared memory (bank-conflict-free fragment
-// and ldmatrix reads).  Dead-tile skipping, wgmma and TMA are later work.
+// Design (FlashAttention-3's shape): every kernel is warp-specialised,
+// 384 threads: consumer warpgroups 0 and 1 compute on wgmma (m64 tiles, f32
+// accumulators in registers), warpgroup 2 hands its registers back
+// (setmaxnreg) and one of its warps is the producer, which keeps TMA loads
+// in flight through a ring of shared-memory stages with mbarriers (full:
+// the bytes arrived; empty: both consumer warpgroups' wgmma that read the
+// stage completed).  Operands are 4-D tensor maps over [B, S, N, 128]
+// (dims {128, N, S, B}): a tile of R token rows of one head is two boxes
+// of 64 columns, each [R][128 bytes] swizzled 128B, so no transpose exists
+// anywhere and TMA fills rows past S with zeros (the ragged tail needs no
+// halo code; epilogues drop rows past S).  A tile is read K-major by the
+// first products (S = Q K^T and the like) and MN-major, through wgmma's
+// transpose bit, as the B operand of the second (P V and the like), whose
+// A operand, P or dS rounded to bf16, comes from registers.
+//   forward  one CTA per (128 query rows, b*n), 64 per consumer warpgroup;
+//            Q staged once, K/V tiles of 128 tokens in a 2-stage ring;
+//            S = Q K^T (m64n128), the online softmax in registers, then
+//            O += P V (m64n128, P from registers).
+//   dQ       one CTA per (128 query rows, b*n); Q and dO staged once, lse
+//            and Delta in registers; K/V tiles of 64 tokens in a 3-stage
+//            ring: S = Q K^T and dP = dO V^T (m64n64), then dQ += dS K.
+//            Its prologue computes Delta from O and dO.
+//   dK/dV    one CTA per (64 kv rows, b*n); K and V staged once; Q, dO,
+//            lse and Delta tiles of 128 query rows in a 2-stage ring (the
+//            producer warp copies lse and Delta).  The consumer warpgroups
+//            split the products over the same 64 kv rows: warpgroup 0
+//            computes S^T = K Q^T (m64n128), P^T and dV += P^T dO;
+//            warpgroup 1 computes dP^T = V dO^T, takes P^T (float32)
+//            from warpgroup 0 through shared memory, and computes dS^T and
+//            dK += dS^T Q.  P^T and dS^T sit in registers as A operands.
+// What bounds the design is registers: ptxas compiles a 384-thread CTA's
+// consumers to at most ~180 a thread whatever setmaxnreg asks for (a
+// consumer holding both dK and dV accumulators spills with setmaxnreg at
+// 184-240 as without it), and a CTA with a producer warp beside two
+// warpgroups is given registers as if it had three (at 288 threads a
+// 217-register build is refused at launch).  So a warpgroup holds one
+// 64 x 128 accumulator beside one product tile, the tiles above are the
+// largest that fit, and Q, K or V cannot stay in registers as A operands.
+// The loops wait on each product before the next (no overlap of the
+// softmax with the tensor cores inside a warpgroup): the variants that
+// overlapped them, with or without alternating the warpgroups' turns, ran
+// slower or no faster on an H100 (PERF.md §6).
+// Dead kv tiles are skipped.  The forward and dQ CTAs classify each kv
+// tile from the mask, one warp ballot per 32 tokens (dead: no valid token;
+// full: all valid and inside Skv; partial otherwise), and list the live
+// ones in shared memory; the producer loads and the consumers compute only
+// those, and only partial tiles apply the per-token mask.  A dK/dV CTA
+// whose 64 kv rows are all masked writes zero rows and exits.  Skipping
+// changes no result: a dead tile adds exactly 0 to a row that has seen a
+// valid token, and every row of a CTA sees its first valid token in the
+// first live tile (validity is per kv token), so the -1e30 state a dead
+// tile would have left never arises.  A kv longer than the list (MAX_TILES
+// tiles: 524,288 tokens in the forward, 262,144 in dQ) is walked whole by
+// the kernels' unlisted instantiation (chosen at launch from Skv, so the
+// listed loop carries no check), every tile masked per token: a dead tile
+// then computes P = 1 under the finite -1e30, which the rescale at the
+// row's first valid tile wipes (in dQ, P = exp(-1e30 - lse) = 0), so no kv
+// length is refused.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "sm90.cuh"  // mbarriers, TMA, wgmma descriptors, the tensor-map entry
+
 namespace {
 
 constexpr int D = 128;
-constexpr int LDS = D + 8;        // padded shared-memory row, in bf16
-constexpr int NTHREADS = 256;     // 8 warps
+constexpr int ROWB = D * 2;       // bytes of one token row of one head
+constexpr int HALF = 64 * 2;      // bytes of one swizzled 64-column half row
+constexpr int THREADS = 384;      // consumer warpgroups 0-1, producer warpgroup 2
 constexpr int BM = 128;           // query rows per forward / dQ CTA
-constexpr int BN = 64;            // kv tokens per forward / dQ tile
-constexpr int BKV = 128;          // kv rows per dK/dV CTA
-constexpr int BQ = 32;            // query rows per dK/dV tile
+constexpr int FWD_BN = 128;       // kv tokens per forward tile
+constexpr int FWD_STAGES = 2;
+constexpr int DQ_BN = 64;         // kv tokens per dQ tile
+constexpr int DQ_STAGES = 3;
+constexpr int BKV = 64;           // kv rows per dK/dV CTA
+constexpr int BQ = 128;           // query rows per dK/dV tile
+constexpr int DKDV_STAGES = 2;
+constexpr int MAX_TILES = 4096;   // kv tiles a forward / dQ CTA can list
+constexpr uint16_t PARTIAL = 0x8000;  // list flag: the tile needs the per-token mask
 constexpr float NEG = -1e30f;
 constexpr float EMPTY_LSE = 1e30f;
-
-constexpr size_t FWD_SMEM = sizeof(__nv_bfloat16) * (size_t)(BM + 4 * BN) * LDS;
-constexpr size_t DQ_SMEM = sizeof(__nv_bfloat16) * (size_t)(2 * BM + 4 * BN) * LDS;
-constexpr size_t DKDV_SMEM =
-    sizeof(__nv_bfloat16) * (size_t)(2 * BKV + 4 * BQ) * LDS + sizeof(float) * 4 * BQ;
+constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
 
 typedef __nv_bfloat16 bf16;
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool pred) {
-  // src-size 0 zero-fills the 16 destination bytes
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(pred ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void mma16816(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ __forceinline__ uint32_t lds32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+template <int R>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
 }
 
-// A fragment (16 rows x 16 k) of a row-major [row][k] tile in shared memory
-__device__ __forceinline__ void load_a(uint32_t* a, const bf16* rows, int g, int t4, int k0) {
-  const bf16* p = rows + g * LDS + k0 + t4 * 2;
-  a[0] = lds32(p);
-  a[1] = lds32(p + 8 * LDS);
-  a[2] = lds32(p + 8);
-  a[3] = lds32(p + 8 * LDS + 8);
+template <int R>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
 }
 
-// Copies `nrows` rows of 128 bf16 (token stride `rs`) starting at row `r0`
-// into a padded shared tile with cp.async; rows at or past `limit` are zero.
-__device__ __forceinline__ void async_rows(bf16* dst, const bf16* src, size_t rs, int r0,
-                                           int nrows, int limit, int tid) {
-  for (int i = tid; i < nrows * (D / 8); i += NTHREADS) {
-    const int r = i / (D / 8), c = (i % (D / 8)) * 8;
-    const bool ok = r0 + r < limit;
-    cp_async16(dst + r * LDS + c, src + (size_t)(ok ? r0 + r : 0) * rs + c, ok);
+// Barrier of the 128 threads of consumer warpgroup `wg` (ids 1 and 2).
+__device__ __forceinline__ void warpgroup_sync(int wg) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(wg + 1) : "memory");
+}
+
+// TMA of R token rows [row0, row0 + R) of head n, batch b into a tile at
+// `dst`: two boxes of 64 columns, [R][128 bytes] each, the second R * 128
+// bytes after the first.  Rows past S arrive as zeros.
+template <int R>
+__device__ __forceinline__ void load_rows(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                          int row0, int n, int b) {
+  tma_load_4d(dst, map, bar, 0, n, row0, b);
+  tma_load_4d(dst + R * HALF, map, bar, 64, n, row0, b);
+}
+
+// Descriptor of rows [r0, r0 + 64 or R) of an R-row tile read K-major, at
+// K step kk (columns 16 kk .. 16 kk + 15).
+template <int R>
+__device__ __forceinline__ uint64_t desc_k(uint32_t tile, int r0, int kk) {
+  return smem_desc<64>(tile + (kk >> 2) * (R * HALF) + r0 * HALF + (kk & 3) * 32);
+}
+
+// Descriptor of an R-row tile read MN-major (rows along K, the 128 columns
+// along N), at K step kk (rows 16 kk .. 16 kk + 15).
+template <int R>
+__device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int kk) {
+  return smem_desc_mn(tile + kk * 16 * HALF, R * HALF);
+}
+
+// D (+)= A B, m64n64k16: A and B K-major in shared memory; scale_d = 0
+// overwrites D.
+__device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t da, uint64_t db, uint32_t scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D (+)= A B, m64n128k16: A and B K-major in shared memory; scale_d = 0
+// overwrites D.
+__device__ __forceinline__ void wgmma_ss_n128(float* d, uint64_t da, uint64_t db,
+                                              uint32_t scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D += A B, m64n128k16: A from registers (each warp's 16 rows as the
+// m16n8k16 A fragment), B MN-major in shared memory (the transpose bit).
+__device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// Validity bits of kv tile t's BN tokens (one ballot per 32; tokens past
+// Skv are invalid).  maskb null: all tokens below Skv are valid.
+template <int BN>
+__device__ __forceinline__ void tile_bits(uint32_t* bits, const uint8_t* __restrict__ maskb,
+                                          int t, int Skv) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int w = 0; w < BN / 32; ++w) {
+    const int col = t * BN + w * 32 + lane;
+    bits[w] = __ballot_sync(0xffffffffu,
+                            col < Skv && (maskb == nullptr || __ldg(maskb + col) != 0));
   }
 }
 
-__device__ __forceinline__ bool kv_ok(const uint8_t* maskb, int col, int Skv) {
-  return col < Skv && (maskb == nullptr || __ldg(maskb + col) != 0);
+// Is column 8 j + 2 tq + c of a tile valid, from its tile_bits.
+__device__ __forceinline__ bool col_ok(const uint32_t* bits, int j, int tq, int c) {
+  return (bits[j >> 2] >> (8 * (j & 3) + 2 * tq + c)) & 1u;
+}
+
+// Classifies the kv tiles of BN tokens (dead: no valid token; full: all
+// valid; partial otherwise) and lists the live ones in sList in order, a
+// partial one flagged PARTIAL; at most MAX_TILES tiles.  Every thread of
+// the CTA takes part; the barriers make the list (and the mbarriers
+// initialised before the call) visible to all.  Returns the count.
+template <int BN>
+__device__ int list_live_tiles(const uint8_t* __restrict__ maskb, int Skv, uint8_t* sState,
+                               uint16_t* sList, int* sCount) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int ntiles = (Skv + BN - 1) / BN;
+  for (int t = warp; t < ntiles; t += THREADS / 32) {
+    uint32_t bits[BN / 32];
+    tile_bits<BN>(bits, maskb, t, Skv);
+    bool any = false, all = true;
+#pragma unroll
+    for (int w = 0; w < BN / 32; ++w) {
+      any |= bits[w] != 0u;
+      all &= bits[w] == 0xffffffffu;
+    }
+    if (lane == 0) sState[t] = any ? (all ? 2 : 1) : 0;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    int count = 0;
+    for (int t0 = 0; t0 < ntiles; t0 += 32) {
+      const int t = t0 + lane;
+      const int st = t < ntiles ? sState[t] : 0;
+      const uint32_t live = __ballot_sync(0xffffffffu, st != 0);
+      if (st != 0)
+        sList[count + __popc(live & ((1u << lane) - 1u))] =
+            (uint16_t)(t | (st == 1 ? PARTIAL : 0));
+      count += __popc(live);
+    }
+    if (lane == 0) *sCount = count;
+  }
+  __syncthreads();
+  return *sCount;
+}
+
+// The kv tiles a forward / dQ CTA walks: LISTED, the live ones that
+// list_live_tiles lists; otherwise (a kv of more than MAX_TILES tiles)
+// every tile, each masked per token.  Returns the count; ends with a CTA
+// barrier either way.
+template <int BN, bool LISTED>
+__device__ __forceinline__ int walk_tiles(const uint8_t* __restrict__ maskb, int Skv,
+                                          uint8_t* sState, uint16_t* sList, int* sCount) {
+  if (LISTED) return list_live_tiles<BN>(maskb, Skv, sState, sList, sCount);
+  __syncthreads();
+  return (Skv + BN - 1) / BN;
 }
 
 // ---------------------------------------------------------------------------
 // forward
 
-__global__ void __launch_bounds__(NTHREADS, 1)
-fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-           const uint8_t* __restrict__ mask, bf16* __restrict__ out, float* __restrict__ lse,
-           int Sq, int Skv, int N, float scale) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);  // [BM][LDS]
-  bf16* sK = sQ + BM * LDS;                      // [2][BN][LDS]
-  bf16* sV = sK + 2 * BN * LDS;                  // [2][BN][LDS]
+constexpr int FWD_KV = FWD_BN * ROWB;  // one K or V tile
+constexpr int FWD_STAGE = 2 * FWD_KV;
+constexpr int FWD_META = 8 * (1 + 2 * FWD_STAGES) + 4 + 3 * MAX_TILES;
+constexpr size_t FWD_SMEM = 1024 + BM * ROWB + FWD_STAGES * FWD_STAGE + FWD_META;
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t4 = lane & 3;
+template <bool LISTED>
+__global__ void __launch_bounds__(THREADS, 1)
+fwd_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+           const __grid_constant__ CUtensorMap vmap, const uint8_t* __restrict__ mask,
+           bf16* __restrict__ out, float* __restrict__ lse, int Sq, int Skv, int N,
+           float scale) {
+  constexpr int BN = FWD_BN, STAGES = FWD_STAGES;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t sQ = (raw + 1023u) & ~1023u;  // swizzle atoms are 1024-aligned
+  const uint32_t ring = sQ + BM * ROWB;
+  uint8_t* meta = smem_raw + (ring - raw) + STAGES * FWD_STAGE;
+  const uint32_t qbar = smem_u32(meta), full = qbar + 8, empty = full + 8 * STAGES;
+  int* sCount = reinterpret_cast<int*>(meta + 8 * (1 + 2 * STAGES));
+  uint16_t* sList = reinterpret_cast<uint16_t*>(sCount + 1);
+  uint8_t* sState = reinterpret_cast<uint8_t*>(sList + MAX_TILES);
+
   const int bh = blockIdx.y, b = bh / N, n = bh % N;
   const int q0 = blockIdx.x * BM;
-  const size_t rs = (size_t)N * D;  // token stride
-  const bf16* qb = q + (size_t)b * Sq * rs + (size_t)n * D;
-  bf16* ob = out + (size_t)b * Sq * rs + (size_t)n * D;
-  const bf16* kb = k + (size_t)b * Skv * rs + (size_t)n * D;
-  const bf16* vb = v + (size_t)b * Skv * rs + (size_t)n * D;
   const uint8_t* maskb = mask == nullptr ? nullptr : mask + (size_t)b * Skv;
-
-  auto load_kv = [&](int tile, int buf) {
-    async_rows(sK + buf * BN * LDS, kb, rs, tile * BN, BN, Skv, tid);
-    async_rows(sV + buf * BN * LDS, vb, rs, tile * BN, BN, Skv, tid);
-    cp_async_commit();
-  };
-
-  const int ntiles = (Skv + BN - 1) / BN;
-  async_rows(sQ, qb, rs, q0, BM, Sq, tid);
-  load_kv(0, 0);  // one group with the q tile
-
-  float o[D / 8][4];
-#pragma unroll
-  for (int i = 0; i < D / 8; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
-  float m0 = NEG, m1 = NEG, l0 = 0.f, l1 = 0.f;  // rows g and g + 8
-  uint32_t qf[D / 16][4];
-  const bf16* sq = sQ + (warp * 16) * LDS;
-
-  for (int tile = 0; tile < ntiles; ++tile) {
-    const int buf = tile & 1;
-    if (tile + 1 < ntiles) {
-      load_kv(tile + 1, buf ^ 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+  if (threadIdx.x == 0) {
+    mbar_init(qbar, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 2);  // one arrival per consumer warpgroup
     }
-    __syncthreads();
-    if (tile == 0) {
-#pragma unroll
-      for (int ks = 0; ks < D / 16; ++ks) load_a(qf[ks], sq, g, t4, ks * 16);
-    }
-    const bf16* sk = sK + buf * BN * LDS;
-    const bf16* sv = sV + buf * BN * LDS;
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  const int nwalk = walk_tiles<BN, LISTED>(maskb, Skv, sState, sList, sCount);
 
-    // S = Q K^T: 16 x 64 per warp
-    float s[BN / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < BN / 8; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-      const bf16* kp = sk + (nt * 8 + g) * LDS + t4 * 2;
-#pragma unroll
-      for (int ks = 0; ks < D / 16; ++ks)
-        mma16816(s[nt], qf[ks], lds32(kp + ks * 16), lds32(kp + ks * 16 + 8));
-    }
-
-    // scale, mask, tile row max
-    const int kv0 = tile * BN;
-    float mx0 = NEG, mx1 = NEG;
-#pragma unroll
-    for (int nt = 0; nt < BN / 8; ++nt) {
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const bool ok = kv_ok(maskb, kv0 + nt * 8 + t4 * 2 + j, Skv);
-        s[nt][j] = ok ? s[nt][j] * scale : NEG;
-        s[nt][2 + j] = ok ? s[nt][2 + j] * scale : NEG;
-        mx0 = fmaxf(mx0, s[nt][j]);
-        mx1 = fmaxf(mx1, s[nt][2 + j]);
+  if (threadIdx.x >= 256) {  // producer warpgroup: one thread issues every TMA load
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (threadIdx.x == 256) {
+      mbar_expect_tx(qbar, BM * ROWB);
+      load_rows<BM>(sQ, &qmap, qbar, q0, n, b);
+      for (int i = 0; i < nwalk; ++i) {
+        const int s = i % STAGES, round = i / STAGES;
+        if (round > 0) mbar_wait(empty + 8 * s, (round - 1) & 1);
+        const int kv0 = (LISTED ? sList[i] & ~PARTIAL : i) * BN;
+        const uint32_t dst = ring + s * FWD_STAGE;
+        mbar_expect_tx(full + 8 * s, FWD_STAGE);
+        load_rows<BN>(dst, &kmap, full + 8 * s, kv0, n, b);
+        load_rows<BN>(dst + FWD_KV, &vmap, full + 8 * s, kv0, n, b);
       }
     }
+  } else {  // consumer warpgroups: 64 query rows each
+    setmaxnreg_inc<CONSUMER_REGS>();
+    const int wg = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+    const int g = lane >> 2, tq = lane & 3;
+    float o[D / 2];
 #pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
-    }
-    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-    const float a0 = __expf(m0 - mn0), a1 = __expf(m1 - mn1);
+    for (int x = 0; x < D / 2; ++x) o[x] = 0.f;
+    float m0 = NEG, m1 = NEG, l0 = 0.f, l1 = 0.f;  // rows g and g + 8; l per thread
+    mbar_wait(qbar, 0);
+    for (int i = 0; i < nwalk; ++i) {
+      const int s = i % STAGES, e = LISTED ? sList[i] : PARTIAL;
+      const uint32_t kt = ring + s * FWD_STAGE, vt = kt + FWD_KV;
+      mbar_wait(full + 8 * s, (i / STAGES) & 1);
 
-    // P = exp(S - m) as bf16 A fragments of P V
-    uint32_t pf[BN / 16][4];
-    float rs0 = 0.f, rs1 = 0.f;
+      // S = Q K^T: 64 x BN
+      float sc[BN / 2];
+      wgmma_fence();
 #pragma unroll
-    for (int nt = 0; nt < BN / 8; ++nt) {
-      const float p0 = __expf(s[nt][0] - mn0), p1 = __expf(s[nt][1] - mn0);
-      const float p2 = __expf(s[nt][2] - mn1), p3 = __expf(s[nt][3] - mn1);
-      rs0 += p0 + p1;
-      rs1 += p2 + p3;
-      pf[nt >> 1][(nt & 1) * 2 + 0] = pack_bf16(p0, p1);
-      pf[nt >> 1][(nt & 1) * 2 + 1] = pack_bf16(p2, p3);
-    }
-#pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      rs0 += __shfl_xor_sync(0xffffffffu, rs0, off);
-      rs1 += __shfl_xor_sync(0xffffffffu, rs1, off);
-    }
-    l0 = l0 * a0 + rs0;
-    l1 = l1 * a1 + rs1;
-    m0 = mn0;
-    m1 = mn1;
-#pragma unroll
-    for (int dt = 0; dt < D / 8; ++dt) {
-      o[dt][0] *= a0;
-      o[dt][1] *= a0;
-      o[dt][2] *= a1;
-      o[dt][3] *= a1;
-    }
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss_n128(sc, desc_k<BM>(sQ, wg * 64, kk), desc_k<BN>(kt, 0, kk), kk > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
 
-    // O += P V; V fragments via ldmatrix.trans (V is [token][d] in smem)
-    const int mi = lane >> 3, ri = lane & 7;
+      // scale, mask (partial tiles only), row max
+      uint32_t bits[BN / 32];
+      if (e & PARTIAL) {
+        tile_bits<BN>(bits, maskb, LISTED ? e & ~PARTIAL : i, Skv);
+      } else {
 #pragma unroll
-    for (int ks = 0; ks < BN / 16; ++ks) {
-#pragma unroll
-      for (int dp = 0; dp < D / 16; ++dp) {
-        uint32_t vf[4];
-        ldmatrix_x4_trans(vf, sv + (ks * 16 + (mi & 1) * 8 + ri) * LDS + dp * 16 + (mi >> 1) * 8);
-        mma16816(o[2 * dp], pf[ks], vf[0], vf[1]);
-        mma16816(o[2 * dp + 1], pf[ks], vf[2], vf[3]);
+        for (int w = 0; w < BN / 32; ++w) bits[w] = 0xffffffffu;
       }
-    }
-    __syncthreads();  // this buffer is refilled by the next iteration's load
-  }
-
-  // a row that saw no valid token (m still -1e30) writes zeros
-  const bool e0 = m0 == NEG, e1 = m1 == NEG;
-  const float i0 = e0 ? 0.f : 1.f / l0, i1 = e1 ? 0.f : 1.f / l1;
-  const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;
+      float mx0 = m0, mx1 = m1;
 #pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt) {
-    const int c = dt * 8 + t4 * 2;
-    if (r0 < Sq)
-      *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)r0 * rs + c) =
-          __floats2bfloat162_rn(o[dt][0] * i0, o[dt][1] * i0);
-    if (r1 < Sq)
-      *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)r1 * rs + c) =
-          __floats2bfloat162_rn(o[dt][2] * i1, o[dt][3] * i1);
-  }
-  if (t4 == 0) {
-    float* lb = lse + (size_t)bh * Sq;
-    if (r0 < Sq) lb[r0] = e0 ? EMPTY_LSE : m0 + logf(l0);
-    if (r1 < Sq) lb[r1] = e1 ? EMPTY_LSE : m1 + logf(l1);
+      for (int j = 0; j < BN / 8; ++j) {
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const bool ok = col_ok(bits, j, tq, c);
+          sc[4 * j + c] = ok ? sc[4 * j + c] * scale : NEG;
+          sc[4 * j + 2 + c] = ok ? sc[4 * j + 2 + c] * scale : NEG;
+          mx0 = fmaxf(mx0, sc[4 * j + c]);
+          mx1 = fmaxf(mx1, sc[4 * j + 2 + c]);
+        }
+      }
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+      }
+      const float a0 = __expf(m0 - mx0), a1 = __expf(m1 - mx1);
+      m0 = mx0;
+      m1 = mx1;
+
+      // P = exp(S - m) as bf16 A fragments of P V; the row sums take the
+      // unrounded P
+      uint32_t pf[BN / 16][4];
+      float rs0 = 0.f, rs1 = 0.f;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const float p0 = __expf(sc[4 * j] - m0), p1 = __expf(sc[4 * j + 1] - m0);
+        const float p2 = __expf(sc[4 * j + 2] - m1), p3 = __expf(sc[4 * j + 3] - m1);
+        rs0 += p0 + p1;
+        rs1 += p2 + p3;
+        pf[j >> 1][(j & 1) * 2 + 0] = pack_bf16(p0, p1);
+        pf[j >> 1][(j & 1) * 2 + 1] = pack_bf16(p2, p3);
+      }
+      l0 = l0 * a0 + rs0;
+      l1 = l1 * a1 + rs1;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        o[4 * j] *= a0;
+        o[4 * j + 1] *= a0;
+        o[4 * j + 2] *= a1;
+        o[4 * j + 3] *= a1;
+      }
+
+      // O += P V
+      wgmma_fence();
+#pragma unroll
+      for (int kb = 0; kb < BN / 16; ++kb) wgmma_rs_n128(o, pf[kb], desc_mn<BN>(vt, kb));
+      wgmma_commit();
+      wgmma_wait<0>();
+      if ((threadIdx.x & 127) == 0) mbar_arrive(empty + 8 * s);
+    }
+
+    // a row that saw no valid token (no live tile) writes zeros
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+    }
+    const bool e0 = m0 == NEG, e1 = m1 == NEG;
+    const float i0 = e0 ? 0.f : 1.f / l0, i1 = e1 ? 0.f : 1.f / l1;
+    const int r0 = q0 + wg * 64 + warp * 16 + g, r1 = r0 + 8;
+    const size_t rs = (size_t)N * D;
+    bf16* ob = out + (size_t)b * Sq * rs + (size_t)n * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const int c = j * 8 + tq * 2;
+      if (r0 < Sq)
+        *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)r0 * rs + c) =
+            __floats2bfloat162_rn(o[4 * j] * i0, o[4 * j + 1] * i0);
+      if (r1 < Sq)
+        *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)r1 * rs + c) =
+            __floats2bfloat162_rn(o[4 * j + 2] * i1, o[4 * j + 3] * i1);
+    }
+    if (tq == 0) {
+      float* lb = lse + (size_t)bh * Sq;
+      if (r0 < Sq) lb[r0] = e0 ? EMPTY_LSE : m0 + logf(l0);
+      if (r1 < Sq) lb[r1] = e1 ? EMPTY_LSE : m1 + logf(l1);
+    }
   }
 }
 
 // ---------------------------------------------------------------------------
 // backward, kernel 1: dQ (and Delta = rowsum(dO * O) in its prologue)
 
-__global__ void __launch_bounds__(NTHREADS, 1)
-bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+constexpr int DQ_KV = DQ_BN * ROWB;  // one K or V tile
+constexpr int DQ_STAGE = 2 * DQ_KV;
+constexpr int DQ_META = 8 * (1 + 2 * DQ_STAGES) + 4 * BM + 4 + 3 * MAX_TILES;
+constexpr size_t DQ_SMEM = 1024 + 2 * BM * ROWB + DQ_STAGES * DQ_STAGE + DQ_META;
+
+template <bool LISTED>
+__global__ void __launch_bounds__(THREADS, 1)
+bwd_dq_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+              const __grid_constant__ CUtensorMap vmap, const __grid_constant__ CUtensorMap domap,
               const uint8_t* __restrict__ mask, const bf16* __restrict__ out,
               const bf16* __restrict__ dout, const float* __restrict__ lse,
               float* __restrict__ delta, bf16* __restrict__ dq, int Sq, int Skv, int N,
               float scale) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);  // [BM][LDS]
-  bf16* sO = sQ + BM * LDS;                      // dO, [BM][LDS]
-  bf16* sK = sO + BM * LDS;                      // [2][BN][LDS]
-  bf16* sV = sK + 2 * BN * LDS;                  // [2][BN][LDS]
+  constexpr int BN = DQ_BN, STAGES = DQ_STAGES;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t sQ = (raw + 1023u) & ~1023u;
+  const uint32_t sO = sQ + BM * ROWB;  // dO
+  const uint32_t ring = sO + BM * ROWB;
+  uint8_t* meta = smem_raw + (ring - raw) + STAGES * DQ_STAGE;
+  const uint32_t qbar = smem_u32(meta), full = qbar + 8, empty = full + 8 * STAGES;
+  float* sDelta = reinterpret_cast<float*>(meta + 8 * (1 + 2 * STAGES));  // [BM]
+  int* sCount = reinterpret_cast<int*>(sDelta + BM);
+  uint16_t* sList = reinterpret_cast<uint16_t*>(sCount + 1);
+  uint8_t* sState = reinterpret_cast<uint8_t*>(sList + MAX_TILES);
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t4 = lane & 3;
   const int bh = blockIdx.y, b = bh / N, n = bh % N;
   const int q0 = blockIdx.x * BM;
-  const size_t rs = (size_t)N * D;
-  const size_t qoff = (size_t)b * Sq * rs + (size_t)n * D;
-  const bf16* kb = k + (size_t)b * Skv * rs + (size_t)n * D;
-  const bf16* vb = v + (size_t)b * Skv * rs + (size_t)n * D;
   const uint8_t* maskb = mask == nullptr ? nullptr : mask + (size_t)b * Skv;
-
-  auto load_kv = [&](int tile, int buf) {
-    async_rows(sK + buf * BN * LDS, kb, rs, tile * BN, BN, Skv, tid);
-    async_rows(sV + buf * BN * LDS, vb, rs, tile * BN, BN, Skv, tid);
-    cp_async_commit();
-  };
-
-  const int ntiles = (Skv + BN - 1) / BN;
-  async_rows(sQ, q + qoff, rs, q0, BM, Sq, tid);
-  async_rows(sO, dout + qoff, rs, q0, BM, Sq, tid);
-  load_kv(0, 0);
-
-  // Delta for this warp's 16 rows: lane l reads 4 of the 128 columns
-  const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;
-  float dl0 = 0.f, dl1 = 0.f;
-  for (int r = 0; r < 16; ++r) {
-    const int row = q0 + warp * 16 + r;
-    float acc = 0.f;
-    if (row < Sq) {
-      const size_t off = qoff + (size_t)row * rs + lane * 4;
-      const uint2 ov = *reinterpret_cast<const uint2*>(out + off);
-      const uint2 dv = *reinterpret_cast<const uint2*>(dout + off);
-      const bf16* oe = reinterpret_cast<const bf16*>(&ov);
-      const bf16* de = reinterpret_cast<const bf16*>(&dv);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc += __bfloat162float(oe[j]) * __bfloat162float(de[j]);
+  if (threadIdx.x == 0) {
+    mbar_init(qbar, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 2);
     }
-#pragma unroll
-    for (int off = 1; off < 32; off <<= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
-    if (r == g) dl0 = acc;
-    if (r == g + 8) dl1 = acc;
-    if (lane == 0 && row < Sq) delta[(size_t)bh * Sq + row] = acc;
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  const float L0 = r0 < Sq ? lse[(size_t)bh * Sq + r0] : EMPTY_LSE;
-  const float L1 = r1 < Sq ? lse[(size_t)bh * Sq + r1] : EMPTY_LSE;
+  const int nwalk = walk_tiles<BN, LISTED>(maskb, Skv, sState, sList, sCount);
 
-  float acc[D / 8][4];
-#pragma unroll
-  for (int i = 0; i < D / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-  const bf16* sq = sQ + (warp * 16) * LDS;
-  const bf16* so = sO + (warp * 16) * LDS;
-  const int mi = lane >> 3, ri = lane & 7;
-
-  for (int tile = 0; tile < ntiles; ++tile) {
-    const int buf = tile & 1;
-    if (tile + 1 < ntiles) {
-      load_kv(tile + 1, buf ^ 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const bf16* sk = sK + buf * BN * LDS;
-    const bf16* sv = sV + buf * BN * LDS;
-
-    // S = Q K^T and dP = dO V^T, 16 x 64 each per warp
-    float s[BN / 8][4], dp[BN / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < BN / 8; ++nt)
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = dp[nt][0] = dp[nt][1] = dp[nt][2] =
-          dp[nt][3] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < D / 16; ++ks) {
-      uint32_t a[4], ao[4];
-      load_a(a, sq, g, t4, ks * 16);
-      load_a(ao, so, g, t4, ks * 16);
-#pragma unroll
-      for (int nt = 0; nt < BN / 8; ++nt) {
-        const bf16* kp = sk + (nt * 8 + g) * LDS + ks * 16 + t4 * 2;
-        const bf16* vp = sv + (nt * 8 + g) * LDS + ks * 16 + t4 * 2;
-        mma16816(s[nt], a, lds32(kp), lds32(kp + 8));
-        mma16816(dp[nt], ao, lds32(vp), lds32(vp + 8));
+  if (threadIdx.x >= 256) {  // producer warpgroup
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (threadIdx.x == 256) {
+      mbar_expect_tx(qbar, 2 * BM * ROWB);
+      load_rows<BM>(sQ, &qmap, qbar, q0, n, b);
+      load_rows<BM>(sO, &domap, qbar, q0, n, b);
+      for (int i = 0; i < nwalk; ++i) {
+        const int s = i % STAGES, round = i / STAGES;
+        if (round > 0) mbar_wait(empty + 8 * s, (round - 1) & 1);
+        const int kv0 = (LISTED ? sList[i] & ~PARTIAL : i) * BN;
+        const uint32_t dst = ring + s * DQ_STAGE;
+        mbar_expect_tx(full + 8 * s, DQ_STAGE);
+        load_rows<BN>(dst, &kmap, full + 8 * s, kv0, n, b);
+        load_rows<BN>(dst + DQ_KV, &vmap, full + 8 * s, kv0, n, b);
       }
     }
+  } else {  // consumer warpgroups: 64 query rows each
+    setmaxnreg_inc<CONSUMER_REGS>();
+    const int wg = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+    const int g = lane >> 2, tq = lane & 3;
+    const size_t rs = (size_t)N * D;
+    const size_t qoff = (size_t)b * Sq * rs + (size_t)n * D;
 
-    // P = exp(S * scale - lse), dS = P (dP - Delta), packed as bf16 A fragments
-    const int kv0 = tile * BN;
-    uint32_t dsf[BN / 16][4];
+    // Delta of this warpgroup's 64 rows: two threads per row, 64 columns each
+    {
+      const int rr = (threadIdx.x & 127) >> 1, h = threadIdx.x & 1;
+      const int row = q0 + wg * 64 + rr;
+      float acc = 0.f;
+      if (row < Sq) {
+        const size_t off = qoff + (size_t)row * rs + h * 64;
 #pragma unroll
-    for (int nt = 0; nt < BN / 8; ++nt) {
-      float ds[4];
+        for (int c = 0; c < 64; c += 8) {
+          const uint4 ov = *reinterpret_cast<const uint4*>(out + off + c);
+          const uint4 dv = *reinterpret_cast<const uint4*>(dout + off + c);
+          const bf16* oe = reinterpret_cast<const bf16*>(&ov);
+          const bf16* de = reinterpret_cast<const bf16*>(&dv);
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const bool ok = kv_ok(maskb, kv0 + nt * 8 + t4 * 2 + j, Skv);
-        const float p0 = ok ? __expf(s[nt][j] * scale - L0) : 0.f;
-        const float p1 = ok ? __expf(s[nt][2 + j] * scale - L1) : 0.f;
-        ds[j] = p0 * (dp[nt][j] - dl0);
-        ds[2 + j] = p1 * (dp[nt][2 + j] - dl1);
+          for (int x = 0; x < 8; ++x) acc += __bfloat162float(oe[x]) * __bfloat162float(de[x]);
+        }
       }
-      dsf[nt >> 1][(nt & 1) * 2 + 0] = pack_bf16(ds[0], ds[1]);
-      dsf[nt >> 1][(nt & 1) * 2 + 1] = pack_bf16(ds[2], ds[3]);
+      acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+      if (h == 0) {
+        sDelta[wg * 64 + rr] = acc;
+        if (row < Sq) delta[(size_t)bh * Sq + row] = acc;
+      }
+    }
+    warpgroup_sync(wg);
+    const int r0 = q0 + wg * 64 + warp * 16 + g, r1 = r0 + 8;
+    const float dl0 = sDelta[r0 - q0], dl1 = sDelta[r1 - q0];
+    const float L0 = r0 < Sq ? lse[(size_t)bh * Sq + r0] : EMPTY_LSE;
+    const float L1 = r1 < Sq ? lse[(size_t)bh * Sq + r1] : EMPTY_LSE;
+
+    float acc[D / 2];
+#pragma unroll
+    for (int x = 0; x < D / 2; ++x) acc[x] = 0.f;
+    mbar_wait(qbar, 0);
+    for (int i = 0; i < nwalk; ++i) {
+      const int s = i % STAGES, e = LISTED ? sList[i] : PARTIAL;
+      const uint32_t kt = ring + s * DQ_STAGE, vt = kt + DQ_KV;
+      mbar_wait(full + 8 * s, (i / STAGES) & 1);
+
+      // S = Q K^T and dP = dO V^T: 64 x BN each
+      float sc[BN / 2], dp[BN / 2];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss_n64(sc, desc_k<BM>(sQ, wg * 64, kk), desc_k<BN>(kt, 0, kk), kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss_n64(dp, desc_k<BM>(sO, wg * 64, kk), desc_k<BN>(vt, 0, kk), kk > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+
+      // P = exp(S * scale - lse) (0 where masked), dS = P (dP - Delta), as
+      // bf16 A fragments of dS K
+      uint32_t bits[BN / 32];
+      if (e & PARTIAL) {
+        tile_bits<BN>(bits, maskb, LISTED ? e & ~PARTIAL : i, Skv);
+      } else {
+#pragma unroll
+        for (int w = 0; w < BN / 32; ++w) bits[w] = 0xffffffffu;
+      }
+      uint32_t dsf[BN / 16][4];
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        float ds[4];
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const bool ok = col_ok(bits, j, tq, c);
+          const float p0 = ok ? __expf(sc[4 * j + c] * scale - L0) : 0.f;
+          const float p1 = ok ? __expf(sc[4 * j + 2 + c] * scale - L1) : 0.f;
+          ds[c] = p0 * (dp[4 * j + c] - dl0);
+          ds[2 + c] = p1 * (dp[4 * j + 2 + c] - dl1);
+        }
+        dsf[j >> 1][(j & 1) * 2 + 0] = pack_bf16(ds[0], ds[1]);
+        dsf[j >> 1][(j & 1) * 2 + 1] = pack_bf16(ds[2], ds[3]);
+      }
+
+      // dQ += dS K
+      wgmma_fence();
+#pragma unroll
+      for (int kb = 0; kb < BN / 16; ++kb) wgmma_rs_n128(acc, dsf[kb], desc_mn<BN>(kt, kb));
+      wgmma_commit();
+      wgmma_wait<0>();
+      if ((threadIdx.x & 127) == 0) mbar_arrive(empty + 8 * s);
     }
 
-    // dQ += dS K; K fragments via ldmatrix.trans (K is [token][d] in smem)
+    bf16* dqb = dq + qoff;
 #pragma unroll
-    for (int ks = 0; ks < BN / 16; ++ks) {
-#pragma unroll
-      for (int dpi = 0; dpi < D / 16; ++dpi) {
-        uint32_t kf[4];
-        ldmatrix_x4_trans(kf, sk + (ks * 16 + (mi & 1) * 8 + ri) * LDS + dpi * 16 + (mi >> 1) * 8);
-        mma16816(acc[2 * dpi], dsf[ks], kf[0], kf[1]);
-        mma16816(acc[2 * dpi + 1], dsf[ks], kf[2], kf[3]);
-      }
+    for (int j = 0; j < D / 8; ++j) {
+      const int c = j * 8 + tq * 2;
+      if (r0 < Sq)
+        *reinterpret_cast<__nv_bfloat162*>(dqb + (size_t)r0 * rs + c) =
+            __floats2bfloat162_rn(acc[4 * j] * scale, acc[4 * j + 1] * scale);
+      if (r1 < Sq)
+        *reinterpret_cast<__nv_bfloat162*>(dqb + (size_t)r1 * rs + c) =
+            __floats2bfloat162_rn(acc[4 * j + 2] * scale, acc[4 * j + 3] * scale);
     }
-    __syncthreads();
-  }
-
-  bf16* dqb = dq + qoff;
-#pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt) {
-    const int c = dt * 8 + t4 * 2;
-    if (r0 < Sq)
-      *reinterpret_cast<__nv_bfloat162*>(dqb + (size_t)r0 * rs + c) =
-          __floats2bfloat162_rn(acc[dt][0] * scale, acc[dt][1] * scale);
-    if (r1 < Sq)
-      *reinterpret_cast<__nv_bfloat162*>(dqb + (size_t)r1 * rs + c) =
-          __floats2bfloat162_rn(acc[dt][2] * scale, acc[dt][3] * scale);
   }
 }
 
 // ---------------------------------------------------------------------------
 // backward, kernel 2: dK and dV
+//
+// The two consumer warpgroups share the CTA's BKV = 64 kv rows and split
+// the products: warpgroup 0 computes S^T = K Q^T, P^T and dV += P^T dO,
+// and hands P^T (float32) to warpgroup 1 through shared memory; warpgroup
+// 1 computes dP^T = V dO^T, dS^T = P^T (dP^T - Delta) and dK += dS^T Q.
+// Each thread so holds one 64 x 128 accumulator (dV or dK) beside one
+// 64 x BQ product, which fits the 168 registers a 384-thread CTA gives;
+// both accumulators in one warpgroup spill.
 
-__global__ void __launch_bounds__(NTHREADS, 1)
-bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                const bf16* __restrict__ v, const uint8_t* __restrict__ mask,
-                const bf16* __restrict__ dout, const float* __restrict__ lse,
-                const float* __restrict__ delta, bf16* __restrict__ dk, bf16* __restrict__ dv,
-                int Sq, int Skv, int N, float scale) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sK = reinterpret_cast<bf16*>(smem_raw);  // [BKV][LDS]
-  bf16* sV = sK + BKV * LDS;                     // [BKV][LDS]
-  bf16* sQ = sV + BKV * LDS;                     // [2][BQ][LDS]
-  bf16* sO = sQ + 2 * BQ * LDS;                  // dO, [2][BQ][LDS]
-  float* sL = reinterpret_cast<float*>(sO + 2 * BQ * LDS);  // [2][BQ]
-  float* sD = sL + 2 * BQ;                                  // [2][BQ]
+constexpr int DKDV_KV = BKV * ROWB;  // the K or V rows of the CTA
+constexpr int DKDV_Q = BQ * ROWB;    // one Q or dO tile
+constexpr int DKDV_STAGE = 2 * DKDV_Q;
+constexpr int P_SLOT = 64 * BQ * 4;  // one P^T tile, float32
+constexpr int DKDV_META = 8 * (1 + 2 * DKDV_STAGES + 2) + 2 * 4 * DKDV_STAGES * BQ;
+constexpr size_t DKDV_SMEM = 1024 + 2 * DKDV_KV + DKDV_STAGES * DKDV_STAGE + P_SLOT + DKDV_META;
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t4 = lane & 3;
+__global__ void __launch_bounds__(THREADS, 1)
+bwd_dkdv_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+                const __grid_constant__ CUtensorMap vmap,
+                const __grid_constant__ CUtensorMap domap, const uint8_t* __restrict__ mask,
+                const float* __restrict__ lse, const float* __restrict__ delta,
+                bf16* __restrict__ dk, bf16* __restrict__ dv, int Sq, int Skv, int N,
+                float scale) {
+  constexpr int STAGES = DKDV_STAGES;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t sK = (raw + 1023u) & ~1023u;
+  const uint32_t sV = sK + DKDV_KV;
+  const uint32_t ring = sV + DKDV_KV;  // stages of (Q tile, dO tile)
+  float4* sP = reinterpret_cast<float4*>(smem_raw + (ring - raw) + STAGES * DKDV_STAGE);
+  uint8_t* meta = reinterpret_cast<uint8_t*>(sP) + P_SLOT;
+  const uint32_t kvbar = smem_u32(meta), full = kvbar + 8, empty = full + 8 * STAGES;
+  const uint32_t pfull = empty + 8 * STAGES, pempty = pfull + 8;  // the P^T slot
+  float* sL = reinterpret_cast<float*>(meta + 8 * (1 + 2 * STAGES + 2));  // [STAGES][BQ] lse
+  float* sD = sL + STAGES * BQ;                                            // [STAGES][BQ] Delta
+
   const int bh = blockIdx.y, b = bh / N, n = bh % N;
   const int kv0 = blockIdx.x * BKV;
   const size_t rs = (size_t)N * D;
-  const size_t qoff = (size_t)b * Sq * rs + (size_t)n * D;
   const size_t koff = (size_t)b * Skv * rs + (size_t)n * D;
-  const float* lb = lse + (size_t)bh * Sq;
-  const float* db = delta + (size_t)bh * Sq;
   const uint8_t* maskb = mask == nullptr ? nullptr : mask + (size_t)b * Skv;
 
-  // this thread's two kv rows, fixed for the whole kernel
-  const int r0 = kv0 + warp * 16 + g, r1 = r0 + 8;
-  const bool ok0 = kv_ok(maskb, r0, Skv), ok1 = kv_ok(maskb, r1, Skv);
-
-  auto load_q = [&](int tile, int buf) {
-    const int qs = tile * BQ;
-    async_rows(sQ + buf * BQ * LDS, q + qoff, rs, qs, BQ, Sq, tid);
-    async_rows(sO + buf * BQ * LDS, dout + qoff, rs, qs, BQ, Sq, tid);
-    cp_async_commit();
-    if (tid < BQ) {  // ragged rows: lse +1e30 makes P = 0 there
-      const int row = qs + tid;
-      sL[buf * BQ + tid] = row < Sq ? lb[row] : EMPTY_LSE;
-      sD[buf * BQ + tid] = row < Sq ? db[row] : 0.f;
+  // a CTA whose kv rows are all masked writes zero rows and exits
+  const int own = kv0 + threadIdx.x;
+  const bool live_row = threadIdx.x < BKV && own < Skv &&
+                        (maskb == nullptr || __ldg(maskb + own) != 0);
+  if (!__syncthreads_or(live_row)) {
+    const int rows = min(BKV, Skv - kv0);
+    for (int x = threadIdx.x; x < rows * (D / 8); x += THREADS) {
+      const size_t off = koff + (size_t)(kv0 + x / (D / 8)) * rs + (x % (D / 8)) * 8;
+      *reinterpret_cast<uint4*>(dk + off) = make_uint4(0u, 0u, 0u, 0u);
+      *reinterpret_cast<uint4*>(dv + off) = make_uint4(0u, 0u, 0u, 0u);
     }
-  };
+    return;
+  }
+  if (threadIdx.x == 0) {
+    mbar_init(kvbar, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 2);
+    }
+    mbar_init(pfull, 4);   // every warp of warpgroup 0 wrote its P^T
+    mbar_init(pempty, 4);  // every warp of warpgroup 1 read it
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int nq = (Sq + BQ - 1) / BQ;
 
-  async_rows(sK, k + koff, rs, kv0, BKV, Skv, tid);
-  async_rows(sV, v + koff, rs, kv0, BKV, Skv, tid);
-  cp_async_commit();
-  const int ntiles = (Sq + BQ - 1) / BQ;
-  load_q(0, 0);
-
-  float dka[D / 8][4], dva[D / 8][4];
+  if (threadIdx.x >= 256) {  // producer warpgroup: warp 8 copies lse / Delta and issues TMA
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (threadIdx.x < 288) {
+      const int lane = threadIdx.x & 31;
+      if (lane == 0) {
+        mbar_expect_tx(kvbar, 2 * DKDV_KV);
+        load_rows<BKV>(sK, &kmap, kvbar, kv0, n, b);
+        load_rows<BKV>(sV, &vmap, kvbar, kv0, n, b);
+      }
+      const float* lb = lse + (size_t)bh * Sq;
+      const float* db = delta + (size_t)bh * Sq;
+      for (int i = 0; i < nq; ++i) {
+        const int s = i % STAGES, round = i / STAGES;
+        // the tile's lse and Delta, read before the stage is free (ragged
+        // rows: lse +1e30 makes P = 0 there)
+        float lr[BQ / 32], dr[BQ / 32];
 #pragma unroll
-  for (int i = 0; i < D / 8; ++i)
-    dka[i][0] = dka[i][1] = dka[i][2] = dka[i][3] = dva[i][0] = dva[i][1] = dva[i][2] =
-        dva[i][3] = 0.f;
-  const bf16* skw = sK + (warp * 16) * LDS;
-  const bf16* svw = sV + (warp * 16) * LDS;
-  const int mi = lane >> 3, ri = lane & 7;
+        for (int x = 0; x < BQ / 32; ++x) {
+          const int row = i * BQ + x * 32 + lane;
+          lr[x] = row < Sq ? lb[row] : EMPTY_LSE;
+          dr[x] = row < Sq ? db[row] : 0.f;
+        }
+        if (round > 0) mbar_wait(empty + 8 * s, (round - 1) & 1);
+#pragma unroll
+        for (int x = 0; x < BQ / 32; ++x) {
+          sL[s * BQ + x * 32 + lane] = lr[x];
+          sD[s * BQ + x * 32 + lane] = dr[x];
+        }
+        __syncwarp();  // the lanes' copies precede lane 0's arrival on full
+        if (lane == 0) {
+          const uint32_t dst = ring + s * DKDV_STAGE;
+          mbar_expect_tx(full + 8 * s, DKDV_STAGE);
+          load_rows<BQ>(dst, &qmap, full + 8 * s, i * BQ, n, b);
+          load_rows<BQ>(dst + DKDV_Q, &domap, full + 8 * s, i * BQ, n, b);
+        }
+        __syncwarp();
+      }
+    }
+  } else {  // consumer warpgroups: the same 64 kv rows, dV (0) or dK (1)
+    setmaxnreg_inc<CONSUMER_REGS>();
+    const int wg = threadIdx.x >> 7, tid = threadIdx.x & 127;
+    const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, tq = lane & 3;
+    const int r0 = kv0 + warp * 16 + g, r1 = r0 + 8;  // this thread's two kv rows
+    float acc[D / 2];  // dV (warpgroup 0) or dK (warpgroup 1)
+#pragma unroll
+    for (int x = 0; x < D / 2; ++x) acc[x] = 0.f;
+    mbar_wait(kvbar, 0);
+    if (wg == 0) {
+      const bool ok0 = r0 < Skv && (maskb == nullptr || __ldg(maskb + r0) != 0);
+      const bool ok1 = r1 < Skv && (maskb == nullptr || __ldg(maskb + r1) != 0);
+      for (int i = 0; i < nq; ++i) {
+        const int s = i % STAGES;
+        const uint32_t qt = ring + s * DKDV_STAGE, ot = qt + DKDV_Q;
+        const float* sl = sL + s * BQ;
+        mbar_wait(full + 8 * s, (i / STAGES) & 1);
 
-  for (int tile = 0; tile < ntiles; ++tile) {
-    const int buf = tile & 1;
-    if (tile + 1 < ntiles) {
-      load_q(tile + 1, buf ^ 1);
-      cp_async_wait<1>();
+        // S^T = K Q^T: 64 kv rows x BQ query columns
+        float st[BQ / 2];
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          wgmma_ss_n128(st, desc_k<BKV>(sK, 0, kk), desc_k<BQ>(qt, 0, kk), kk > 0);
+        wgmma_commit();
+        wgmma_wait<0>();
+
+        // P^T = exp(S^T * scale - lse[col]) (0 for a masked kv row), to
+        // warpgroup 1 in float32 and as the bf16 A fragments of P^T dO
+        if (i > 0) mbar_wait(pempty, (i - 1) & 1);
+        uint32_t pf[BQ / 16][4];
+#pragma unroll
+        for (int j = 0; j < BQ / 8; ++j) {
+          const float2 L = *reinterpret_cast<const float2*>(sl + j * 8 + tq * 2);
+          const float p0 = ok0 ? __expf(st[4 * j] * scale - L.x) : 0.f;
+          const float p1 = ok0 ? __expf(st[4 * j + 1] * scale - L.y) : 0.f;
+          const float p2 = ok1 ? __expf(st[4 * j + 2] * scale - L.x) : 0.f;
+          const float p3 = ok1 ? __expf(st[4 * j + 3] * scale - L.y) : 0.f;
+          sP[j * 128 + tid] = make_float4(p0, p1, p2, p3);
+          pf[j >> 1][(j & 1) * 2 + 0] = pack_bf16(p0, p1);
+          pf[j >> 1][(j & 1) * 2 + 1] = pack_bf16(p2, p3);
+        }
+        __syncwarp();  // the lanes' stores precede lane 0's arrival
+        if (lane == 0) mbar_arrive(pfull);
+
+        // dV += P^T dO
+        wgmma_fence();
+#pragma unroll
+        for (int kb = 0; kb < BQ / 16; ++kb) wgmma_rs_n128(acc, pf[kb], desc_mn<BQ>(ot, kb));
+        wgmma_commit();
+        wgmma_wait<0>();
+        if (tid == 0) mbar_arrive(empty + 8 * s);
+      }
     } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const bf16* sq = sQ + buf * BQ * LDS;
-    const bf16* so = sO + buf * BQ * LDS;
-    const float* sl = sL + buf * BQ;
-    const float* sd = sD + buf * BQ;
+      for (int i = 0; i < nq; ++i) {
+        const int s = i % STAGES;
+        const uint32_t qt = ring + s * DKDV_STAGE, ot = qt + DKDV_Q;
+        const float* sd = sD + s * BQ;
+        mbar_wait(full + 8 * s, (i / STAGES) & 1);
 
-    // S^T = K Q^T and dP^T = V dO^T: 16 kv rows x 32 query columns per warp
-    float st[BQ / 8][4], dpt[BQ / 8][4];
+        // dP^T = V dO^T: 64 kv rows x BQ query columns
+        float dpt[BQ / 2];
+        wgmma_fence();
 #pragma unroll
-    for (int nt = 0; nt < BQ / 8; ++nt)
-      st[nt][0] = st[nt][1] = st[nt][2] = st[nt][3] = dpt[nt][0] = dpt[nt][1] = dpt[nt][2] =
-          dpt[nt][3] = 0.f;
+        for (int kk = 0; kk < D / 16; ++kk)
+          wgmma_ss_n128(dpt, desc_k<BKV>(sV, 0, kk), desc_k<BQ>(ot, 0, kk), kk > 0);
+        wgmma_commit();
+        wgmma_wait<0>();
+
+        // dS^T = P^T (dP^T - Delta[col]), as the bf16 A fragments of dS^T Q
+        mbar_wait(pfull, i & 1);
+        uint32_t dsf[BQ / 16][4];
 #pragma unroll
-    for (int ks = 0; ks < D / 16; ++ks) {
-      uint32_t ak[4], av[4];
-      load_a(ak, skw, g, t4, ks * 16);
-      load_a(av, svw, g, t4, ks * 16);
+        for (int j = 0; j < BQ / 8; ++j) {
+          const float2 dl = *reinterpret_cast<const float2*>(sd + j * 8 + tq * 2);
+          const float4 p = sP[j * 128 + tid];
+          dsf[j >> 1][(j & 1) * 2 + 0] =
+              pack_bf16(p.x * (dpt[4 * j] - dl.x), p.y * (dpt[4 * j + 1] - dl.y));
+          dsf[j >> 1][(j & 1) * 2 + 1] =
+              pack_bf16(p.z * (dpt[4 * j + 2] - dl.x), p.w * (dpt[4 * j + 3] - dl.y));
+        }
+        __syncwarp();
+        if (lane == 0) mbar_arrive(pempty);
+
+        // dK += dS^T Q
+        wgmma_fence();
 #pragma unroll
-      for (int nt = 0; nt < BQ / 8; ++nt) {
-        const bf16* qp = sq + (nt * 8 + g) * LDS + ks * 16 + t4 * 2;
-        const bf16* op = so + (nt * 8 + g) * LDS + ks * 16 + t4 * 2;
-        mma16816(st[nt], ak, lds32(qp), lds32(qp + 8));
-        mma16816(dpt[nt], av, lds32(op), lds32(op + 8));
+        for (int kb = 0; kb < BQ / 16; ++kb) wgmma_rs_n128(acc, dsf[kb], desc_mn<BQ>(qt, kb));
+        wgmma_commit();
+        wgmma_wait<0>();
+        if (tid == 0) mbar_arrive(empty + 8 * s);
       }
     }
 
-    // P^T = exp(S^T * scale - lse[col]); dS^T = P^T (dP^T - Delta[col])
-    uint32_t pf[BQ / 16][4], dsf[BQ / 16][4];
+    // warpgroup 0 writes dV, warpgroup 1 dK = scale dS^T Q
+    bf16* ob = (wg == 0 ? dv : dk) + koff;
+    const float f = wg == 0 ? 1.f : scale;
 #pragma unroll
-    for (int nt = 0; nt < BQ / 8; ++nt) {
-      float p[4], ds[4];
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int col = nt * 8 + t4 * 2 + j;
-        const float L = sl[col], dl = sd[col];
-        p[j] = ok0 ? __expf(st[nt][j] * scale - L) : 0.f;
-        p[2 + j] = ok1 ? __expf(st[nt][2 + j] * scale - L) : 0.f;
-        ds[j] = p[j] * (dpt[nt][j] - dl);
-        ds[2 + j] = p[2 + j] * (dpt[nt][2 + j] - dl);
-      }
-      pf[nt >> 1][(nt & 1) * 2 + 0] = pack_bf16(p[0], p[1]);
-      pf[nt >> 1][(nt & 1) * 2 + 1] = pack_bf16(p[2], p[3]);
-      dsf[nt >> 1][(nt & 1) * 2 + 0] = pack_bf16(ds[0], ds[1]);
-      dsf[nt >> 1][(nt & 1) * 2 + 1] = pack_bf16(ds[2], ds[3]);
-    }
-
-    // dV += P^T dO and dK += dS^T Q; B fragments via ldmatrix.trans
-#pragma unroll
-    for (int ks = 0; ks < BQ / 16; ++ks) {
-#pragma unroll
-      for (int dpi = 0; dpi < D / 16; ++dpi) {
-        const int off = (ks * 16 + (mi & 1) * 8 + ri) * LDS + dpi * 16 + (mi >> 1) * 8;
-        uint32_t of[4], qf[4];
-        ldmatrix_x4_trans(of, so + off);
-        ldmatrix_x4_trans(qf, sq + off);
-        mma16816(dva[2 * dpi], pf[ks], of[0], of[1]);
-        mma16816(dva[2 * dpi + 1], pf[ks], of[2], of[3]);
-        mma16816(dka[2 * dpi], dsf[ks], qf[0], qf[1]);
-        mma16816(dka[2 * dpi + 1], dsf[ks], qf[2], qf[3]);
-      }
-    }
-    __syncthreads();
-  }
-
-  bf16* dkb = dk + koff;
-  bf16* dvb = dv + koff;
-#pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt) {
-    const int c = dt * 8 + t4 * 2;
-    if (r0 < Skv) {
-      *reinterpret_cast<__nv_bfloat162*>(dkb + (size_t)r0 * rs + c) =
-          __floats2bfloat162_rn(dka[dt][0] * scale, dka[dt][1] * scale);
-      *reinterpret_cast<__nv_bfloat162*>(dvb + (size_t)r0 * rs + c) =
-          __floats2bfloat162_rn(dva[dt][0], dva[dt][1]);
-    }
-    if (r1 < Skv) {
-      *reinterpret_cast<__nv_bfloat162*>(dkb + (size_t)r1 * rs + c) =
-          __floats2bfloat162_rn(dka[dt][2] * scale, dka[dt][3] * scale);
-      *reinterpret_cast<__nv_bfloat162*>(dvb + (size_t)r1 * rs + c) =
-          __floats2bfloat162_rn(dva[dt][2], dva[dt][3]);
+    for (int j = 0; j < D / 8; ++j) {
+      const int c = j * 8 + tq * 2;
+      if (r0 < Skv)
+        *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)r0 * rs + c) =
+            __floats2bfloat162_rn(acc[4 * j] * f, acc[4 * j + 1] * f);
+      if (r1 < Skv)
+        *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)r1 * rs + c) =
+            __floats2bfloat162_rn(acc[4 * j + 2] * f, acc[4 * j + 3] * f);
     }
   }
+}
+
+// A tensor map over a contiguous [B, S, N, 128] bf16 tensor: dims {128, N,
+// S, B}, a box of `rows` token rows of one head by 64 columns (two boxes
+// per tile), swizzled 128B.
+bool rows_map(CUtensorMap* map, const void* p, int B, int S, int N, int rows) {
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)N, (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)ROWB, (cuuint64_t)ROWB * N,
+                                 (cuuint64_t)ROWB * N * S};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  return encode_map(map, p, dims, strides, box);
 }
 
 template <typename K>
@@ -600,13 +892,20 @@ extern "C" {
 int longlive_flash_train_fwd(const void* q, const void* k, const void* v, const void* mask,
                              void* out, void* lse, int B, int Sq, int Skv, int N, float scale,
                              void* stream) {
-  cudaError_t err = set_smem(fwd_kernel, FWD_SMEM);
+  const auto kernel = (Skv + FWD_BN - 1) / FWD_BN <= MAX_TILES ? fwd_kernel<true>
+                                                                : fwd_kernel<false>;
+  // a runtime call first: it makes the device's context current on this
+  // thread, which the driver's tensor-map encoder needs
+  const cudaError_t err = set_smem(kernel, FWD_SMEM);
   if (err != cudaSuccess) return (int)err;
+  CUtensorMap qm, km, vm;
+  if (!rows_map(&qm, q, B, Sq, N, BM) || !rows_map(&km, k, B, Skv, N, FWD_BN) ||
+      !rows_map(&vm, v, B, Skv, N, FWD_BN))
+    return (int)cudaErrorInvalidValue;
   dim3 grid((Sq + BM - 1) / BM, B * N);
-  fwd_kernel<<<grid, NTHREADS, FWD_SMEM, (cudaStream_t)stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const uint8_t*>(mask), static_cast<bf16*>(out), static_cast<float*>(lse), Sq,
-      Skv, N, scale);
+  kernel<<<grid, THREADS, FWD_SMEM, (cudaStream_t)stream>>>(
+      qm, km, vm, static_cast<const uint8_t*>(mask), static_cast<bf16*>(out),
+      static_cast<float*>(lse), Sq, Skv, N, scale);
   return (int)cudaGetLastError();
 }
 
@@ -615,12 +914,17 @@ int longlive_flash_train_bwd_dq(const void* q, const void* k, const void* v, con
                                 const void* out, const void* dout, const void* lse, void* delta,
                                 void* dq, int B, int Sq, int Skv, int N, float scale,
                                 void* stream) {
-  cudaError_t err = set_smem(bwd_dq_kernel, DQ_SMEM);
+  const auto kernel = (Skv + DQ_BN - 1) / DQ_BN <= MAX_TILES ? bwd_dq_kernel<true>
+                                                              : bwd_dq_kernel<false>;
+  const cudaError_t err = set_smem(kernel, DQ_SMEM);
   if (err != cudaSuccess) return (int)err;
+  CUtensorMap qm, km, vm, om;
+  if (!rows_map(&qm, q, B, Sq, N, BM) || !rows_map(&om, dout, B, Sq, N, BM) ||
+      !rows_map(&km, k, B, Skv, N, DQ_BN) || !rows_map(&vm, v, B, Skv, N, DQ_BN))
+    return (int)cudaErrorInvalidValue;
   dim3 grid((Sq + BM - 1) / BM, B * N);
-  bwd_dq_kernel<<<grid, NTHREADS, DQ_SMEM, (cudaStream_t)stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const uint8_t*>(mask), static_cast<const bf16*>(out),
+  kernel<<<grid, THREADS, DQ_SMEM, (cudaStream_t)stream>>>(
+      qm, km, vm, om, static_cast<const uint8_t*>(mask), static_cast<const bf16*>(out),
       static_cast<const bf16*>(dout), static_cast<const float*>(lse), static_cast<float*>(delta),
       static_cast<bf16*>(dq), Sq, Skv, N, scale);
   return (int)cudaGetLastError();
@@ -631,15 +935,28 @@ int longlive_flash_train_bwd_dkdv(const void* q, const void* k, const void* v, c
                                   const void* dout, const void* lse, const void* delta, void* dk,
                                   void* dv, int B, int Sq, int Skv, int N, float scale,
                                   void* stream) {
-  cudaError_t err = set_smem(bwd_dkdv_kernel, DKDV_SMEM);
+  const cudaError_t err = set_smem(bwd_dkdv_kernel, DKDV_SMEM);
   if (err != cudaSuccess) return (int)err;
+  CUtensorMap qm, km, vm, om;
+  if (!rows_map(&qm, q, B, Sq, N, BQ) || !rows_map(&om, dout, B, Sq, N, BQ) ||
+      !rows_map(&km, k, B, Skv, N, BKV) || !rows_map(&vm, v, B, Skv, N, BKV))
+    return (int)cudaErrorInvalidValue;
   dim3 grid((Skv + BKV - 1) / BKV, B * N);
-  bwd_dkdv_kernel<<<grid, NTHREADS, DKDV_SMEM, (cudaStream_t)stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const uint8_t*>(mask), static_cast<const bf16*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta), static_cast<bf16*>(dk),
-      static_cast<bf16*>(dv), Sq, Skv, N, scale);
+  bwd_dkdv_kernel<<<grid, THREADS, DKDV_SMEM, (cudaStream_t)stream>>>(
+      qm, km, vm, om, static_cast<const uint8_t*>(mask), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<bf16*>(dk), static_cast<bf16*>(dv), Sq, Skv,
+      N, scale);
   return (int)cudaGetLastError();
+}
+
+// The kernels' kv tiles: out[0] tokens per forward tile, out[1] per dQ
+// tile, out[2] kv rows per dK/dV CTA, out[3] the most tiles a forward or
+// dQ CTA lists (past it, it walks every tile).
+void longlive_flash_train_kv_tiles(int* out) {
+  out[0] = FWD_BN;
+  out[1] = DQ_BN;
+  out[2] = BKV;
+  out[3] = MAX_TILES;
 }
 
 const char* longlive_cuda_error_string(int err) {

@@ -75,6 +75,7 @@ _MASKED_PLAIN_ROWS = 2048  # query rows per chunk of its plain version
 train_launches = {"fwd": 0, "bwd_dq": 0, "bwd_dkdv": 0}
 EMPTY_LSE = 1e30  # logsumexp of a row with no valid kv token (its P is 0)
 _PLAIN_ROWS = 8192  # query rows per chunk of the plain training versions
+TILE_DEAD, TILE_PARTIAL, TILE_FULL = 0, 1, 2  # train_kv_tile_states' classes
 
 
 def reset_launches() -> None:
@@ -658,6 +659,35 @@ def flash_attention_train_backward_plain(q, k, v, out, lse, dout,
             dk[bi, :, h] = (dk_acc * scale).to(k.dtype)
             dv[bi, :, h] = dv_acc.to(v.dtype)
     return dq, dk, dv
+
+
+def train_kv_tile_states(kv_valid: Optional[torch.Tensor], skv: int,
+                         tile: int) -> torch.Tensor:
+    """The training kernels' rule for kv tiles of ``tile`` tokens: TILE_DEAD
+    (no valid token: skipped), TILE_FULL (``tile`` valid tokens, all below
+    Skv: no per-token mask) or TILE_PARTIAL.  kv_valid: bool [Skv] or
+    [B, Skv] (None = all valid).  Returns int8 [B, ceil(Skv / tile)], B = 1
+    unless kv_valid is [B, Skv]."""
+    if kv_valid is None:
+        valid = torch.ones((1, skv), dtype=torch.bool)
+    else:
+        valid = kv_valid.to(torch.bool).reshape(-1, skv)
+    ntiles = -(-skv // tile)
+    padded = torch.zeros((valid.shape[0], ntiles * tile), dtype=torch.bool, device=valid.device)
+    padded[:, :skv] = valid
+    count = padded.view(-1, ntiles, tile).sum(dim=-1)
+    return torch.where(count == 0, TILE_DEAD,
+                       torch.where(count == tile, TILE_FULL, TILE_PARTIAL)).to(torch.int8)
+
+
+def train_kv_tiles() -> dict:
+    """The training kernels' kv tiles, read from their library (so it
+    needs the CUDA toolkit): tokens per forward tile ("fwd"), per dQ tile
+    ("bwd_dq"), kv rows per dK/dV CTA ("bwd_dkdv"), and the most tiles a
+    forward or dQ CTA lists ("max_listed"; past it, it walks every tile)."""
+    out = (ctypes.c_int * 4)()
+    kernels.load("flash_attention_train").longlive_flash_train_kv_tiles(out)
+    return dict(zip(("fwd", "bwd_dq", "bwd_dkdv", "max_listed"), out))
 
 
 def _check_train_operand(name: str, t: torch.Tensor, shape, device) -> None:

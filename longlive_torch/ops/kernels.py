@@ -2,9 +2,9 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled at first use
 by ``nvcc`` for ``sm_90a`` into a shared library under ``build/kernels``
-beside the package, named by a hash of its source so an edited source
-rebuilds.  The library is loaded with ctypes.  Nothing here runs at import
-time.
+beside the package, named by a hash of its source and the ``csrc/*.cuh``
+headers it includes, so an edited source or header rebuilds.  The library
+is loaded with ctypes.  Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -12,6 +12,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -33,10 +34,18 @@ def _nvcc() -> str:
                        "with the CUDA toolkit (PATH or /usr/local/cuda/bin)")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+\.cuh)"', re.MULTILINE)
+
+
 def _lib_path(name: str) -> Path:
+    """The library of ``csrc/<name>.cu``, named by a hash of the source and
+    of the ``csrc`` headers it includes (``#include "x.cuh"``), so an edited
+    header rebuilds every library that includes it."""
     src = (_CSRC / f"{name}.cu").read_bytes()
-    tag = hashlib.sha256(src).hexdigest()[:12]
-    return _BUILD / f"lib{name}-{tag}.so"
+    digest = hashlib.sha256(src)
+    for header in sorted(set(_INCLUDE.findall(src))):
+        digest.update(header + b"\0" + (_CSRC / header.decode()).read_bytes())
+    return _BUILD / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
 def _nvcc_cmd(name: str, out: Path) -> list:

@@ -203,24 +203,12 @@ def test_causal_conv_int8_kernel_matches_plain(dev, monkeypatch, t, h, w, c, o, 
     assert torch.equal(out2, out)
 
 
-# K4 at ragged shapes: (B, Sq, Skv, N, mask): no mask, a kv-valid mask with
-# a fully masked tile, a per-batch mask, the 512-token cross shape cut short
-@pytest.mark.parametrize("b,sq,skv,n,masked", [
-    (1, 40, 100, 3, False), (1, 130, 200, 2, True), (2, 77, 257, 2, True),
-    (1, 300, 77, 3, False)])
-def test_flash_attention_train_kernels_match_plain(dev, b, sq, skv, n, masked):
+def _check_train_kernels(q, k, v, dout, valid):
+    """K4's forward and backward through autograd against the plain
+    versions: one launch of each kernel, agreement, and a second backward
+    bit-identical to the first (no atomics)."""
     from longlive_torch.ops import attention as A
 
-    g = torch.Generator(device=dev).manual_seed(5)
-    d, bf = 128, torch.bfloat16
-    q = torch.randn((b, sq, n, d), generator=g, device=dev).to(bf)
-    k = torch.randn((b, skv, n, d), generator=g, device=dev).to(bf)
-    v = torch.randn((b, skv, n, d), generator=g, device=dev).to(bf)
-    dout = torch.randn((b, sq, n, d), generator=g, device=dev).to(bf)
-    valid = None
-    if masked:
-        valid = torch.rand((b, skv), generator=g, device=dev) > 0.5
-        valid[:, 64:128] = False  # one whole kv tile masked
     before = dict(A.train_launches)
     qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
     out = A.flash_attention_train(qg, kg, vg, valid)
@@ -238,6 +226,66 @@ def test_flash_attention_train_kernels_match_plain(dev, b, sq, skv, n, masked):
     A.flash_attention_train(qg2, kg2, vg2, valid).backward(dout)
     assert torch.equal(qg2.grad, qg.grad) and torch.equal(kg2.grad, kg.grad)
     assert torch.equal(vg2.grad, vg.grad)
+
+
+def _train_inputs(dev, b, sq, skv, n, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    shapes = ((b, sq, n, 128), (b, skv, n, 128), (b, skv, n, 128), (b, sq, n, 128))
+    return g, [torch.randn(s, generator=g, device=dev).to(torch.bfloat16) for s in shapes]
+
+
+# K4 at ragged shapes: (B, Sq, Skv, N, mask): no mask, a kv-valid mask with
+# a fully masked tile, a per-batch mask, the 512-token cross shape cut short
+@pytest.mark.parametrize("b,sq,skv,n,masked", [
+    (1, 40, 100, 3, False), (1, 130, 200, 2, True), (2, 77, 257, 2, True),
+    (1, 300, 77, 3, False)])
+def test_flash_attention_train_kernels_match_plain(dev, b, sq, skv, n, masked):
+    g, (q, k, v, dout) = _train_inputs(dev, b, sq, skv, n, 5)
+    valid = None
+    if masked:
+        valid = torch.rand((b, skv), generator=g, device=dev) > 0.5
+        # one whole kv tile of the forward kernel (two of the dQ and dK/dV kernels)
+        valid[:, 128:256] = False
+    _check_train_kernels(q, k, v, dout, valid)
+
+
+def _train_mask(kind, b, skv, dev):
+    """kv-valid masks whose dead, partial and full tiles the kernels skip or
+    mask (forward tiles of 128 tokens, dQ and dK/dV tiles of 64)."""
+    valid = torch.zeros((b, skv), dtype=torch.bool, device=dev)
+    if kind == "rollout":  # sink run, recent-window run, block run; dead tiles between
+        valid[:, :150] = True
+        valid[:, 600:900] = True
+        valid[:, skv - 300:] = True
+    elif kind == "per_batch":  # the batch rows' live tiles differ
+        valid[0, :200] = True
+        valid[1, 450:] = True
+    elif kind == "last_ragged":  # only the last, ragged tile is live
+        valid[:, skv - 5:] = True
+    elif kind == "past_list":  # a run after a dead prefix; batch row 1 fully masked
+        valid[0, 300000:300200] = True
+        valid[0, skv - 100:] = True
+    else:  # random tokens everywhere: every tile partial
+        valid = torch.arange(skv, device=dev) % 3 != 1
+        valid = valid[None].expand(b, skv).contiguous()
+    return valid
+
+
+# (mask, B, Sq, Skv, N): no Sq or Skv a multiple of any tile; Skv below one
+# tile; Sq = 1; N = 12 at a mid size; a kv past the forward and dQ kernels'
+# tile lists (4096 x 128 + 300 tokens), which they walk whole, every tile
+# masked per token
+@pytest.mark.parametrize("kind,b,sq,skv,n", [
+    ("rollout", 1, 300, 1337, 2), ("per_batch", 2, 130, 700, 2), ("last_ragged", 1, 65, 389, 2),
+    (None, 1, 100, 50, 2), ("last_ragged", 1, 70, 50, 2), (None, 1, 1, 300, 2),
+    ("rollout", 1, 1, 1337, 3), ("dense", 1, 1000, 1500, 12), ("past_list", 2, 70, 524588, 1)])
+def test_flash_attention_train_kernels_skip_dead_tiles(dev, kind, b, sq, skv, n):
+    from longlive_torch.ops import attention as A
+
+    # the masks are laid out for these tiles
+    assert A.train_kv_tiles() == {"fwd": 128, "bwd_dq": 64, "bwd_dkdv": 64, "max_listed": 4096}
+    _, (q, k, v, dout) = _train_inputs(dev, b, sq, skv, n, 9)
+    _check_train_kernels(q, k, v, dout, None if kind is None else _train_mask(kind, b, skv, dev))
 
 
 def test_flash_attention_train_two_segment_and_empty_rows(dev):

@@ -105,3 +105,86 @@ def test_cpu_only_operands_reach_the_plain_version():
     assert TA.train_launches == before
     with pytest.raises(ValueError):
         TA.flash_attention_train(q.to("meta"), q.to("meta"), q.to("meta"))
+
+
+def _dead_tile_mask(kind, b, skv):
+    """kv-valid masks with whole dead runs between live ones, [B, Skv]."""
+    valid = np.zeros((b, skv), dtype=bool)
+    if kind == "rollout":  # sink run, recent-window run, block run
+        valid[:, :9] = True
+        valid[:, 40:63] = True
+        valid[:, skv - 17:] = True
+    elif kind == "per_batch":  # the rows' live runs differ
+        valid[0, :20] = True
+        valid[1, 50:70] = True
+        valid[1, skv - 3:] = True
+    else:  # only the ragged tail is live
+        valid[:, skv - 5:] = True
+    return valid
+
+
+# Skipping a dead kv tile in the kernels rests on this: attention over a
+# mask equals attention over the valid tokens alone.  float64 on both sides
+# (no bf16 rounding of P), so the two agree to float64 rounding: the masked
+# entries add exact zeros and only the order of the sums differs.
+@pytest.mark.parametrize("kind,b", [("rollout", 1), ("per_batch", 2), ("tail", 1)])
+def test_plain_masked_equals_plain_over_valid_tokens(kind, b):
+    skv = 101
+    rng = np.random.default_rng(17)
+    q, k, v, dout = (torch.from_numpy(a).double() for a in _arrays(rng, b, 23, skv, 2, 16))
+    valid = torch.from_numpy(_dead_tile_mask(kind, b, skv))
+    out, lse = TA.flash_attention_train_plain(q, k, v, valid)
+    dq, dk, dv = TA.flash_attention_train_backward_plain(q, k, v, out, lse, dout, valid)
+    for bi in range(b):
+        idx = valid[bi].nonzero()[:, 0]
+        kc, vc = k[bi:bi + 1, idx], v[bi:bi + 1, idx]
+        oc, lc = TA.flash_attention_train_plain(q[bi:bi + 1], kc, vc)
+        dqc, dkc, dvc = TA.flash_attention_train_backward_plain(q[bi:bi + 1], kc, vc, oc, lc,
+                                                                dout[bi:bi + 1])
+        for got, want in ((out[bi], oc[0]), (lse[bi], lc[0]), (dq[bi], dqc[0]),
+                          (dk[bi, idx], dkc[0]), (dv[bi, idx], dvc[0])):
+            np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-12, atol=1e-12)
+        assert torch.all(dk[bi, ~valid[bi]] == 0) and torch.all(dv[bi, ~valid[bi]] == 0)
+
+
+def _layout_tile_states(valid_frames, fs, frames, tile):
+    """Tile states from the frame layout alone: tile t covers tokens
+    [t tile, t tile + tile), a token is valid when its frame is, and tokens
+    past the sequence count as invalid."""
+    skv = frames * fs
+    states = []
+    for t0 in range(0, skv, tile):
+        n = sum(max(0, min(t0 + tile, (f + 1) * fs) - max(t0, f * fs)) for f in valid_frames)
+        states.append(TA.TILE_DEAD if n == 0 else TA.TILE_FULL if n == tile else TA.TILE_PARTIAL)
+    return states
+
+
+# The training rollout's self-attention mask (configs/longlive_train_init.yaml:
+# 3-frame blocks, sink 3, window 12, a 21-frame cache beside the block) at a
+# reduced frame size of 40 tokens, block by block over a 7-block rollout,
+# against the frames the layout says are valid: sink frames [0, min(3,
+# start)), ring frames [max(3, end - 9), start) at slot 3 + (f - 3) % 18,
+# and the block itself after the 21 cache slots.
+@pytest.mark.parametrize("tile", [64, 128])  # the kernels' (ops.attention.train_kv_tiles)
+def test_rollout_mask_tile_states(tile):
+    from longlive_torch.config import CacheConfig
+    from longlive_torch.ops import kv_cache as kvc
+
+    fs, sink, ring, window, nfb = 40, 3, 18, 12, 3
+    cc = CacheConfig(sink_frames=sink, ring_frames=ring, frame_seq=fs)
+    live_frames = []
+    for blk in range(7):
+        start, end = blk * nfb, blk * nfb + nfb
+        state = kvc.KVCache(k=torch.empty(0), v=torch.empty(0), ring_base=sink,
+                            sink_filled=min(start, sink),
+                            ring_filled=min(max(start - sink, 0), ring))
+        cache_valid = kvc.validity_mask(cc, state, start, nfb, window_frames=window,
+                                        exclude_block=True)
+        valid = torch.cat([cache_valid, torch.ones(nfb * fs, dtype=torch.bool)])
+        frames = list(range(min(sink, start)))
+        frames += [sink + (f - sink) % ring for f in range(max(sink, end - (window - sink)), start)]
+        frames += [sink + ring + i for i in range(nfb)]
+        live_frames.append(len(frames))
+        want = _layout_tile_states(frames, fs, sink + ring + nfb, tile)
+        assert TA.train_kv_tile_states(valid, valid.numel(), tile)[0].tolist() == want
+    assert live_frames == [3, 6, 9, 12, 12, 12, 12]
