@@ -10,8 +10,9 @@ Phases, each of which exits non-zero when it fails:
 1. card identity (``nvidia-smi`` name and power limit);
 2. build of every CUDA kernel of the paths below from ``longlive_torch/csrc``;
 3. kernel checks at the paths' shapes: each kernel (K1 in its bias, q_rope,
-   qk_int8 and two-segment modes, under the exp2 + mxu_lsum switches and as
-   the cross-attention, K2 bf16 and int8, K6, K5, K3 under its three mask
+   qk_int8 and two-segment modes, under the exp2 + mxu_lsum switches, as
+   the cross-attention and at B = 2, its int8 q quantize bit-equal to the
+   plain pass, K2 bf16 and int8, K6, K5, K3 under its three mask
    kinds at the full forwards' shapes, elided bit-equal to unelided, K4's
    forward and its two backward kernels at the four training shapes)
    against its plain PyTorch version on the same
@@ -462,12 +463,14 @@ def check_attention_int8(torch, A):
 # queries, 12 heads of 128) over one layer of the 12-frame cache (sink 3 +
 # ring 9) in which the block's own 3 slots are masked and elided, ++ the
 # block's fresh K/V as segment 2.  (label, the block's cache slots, valid
-# cache frames): the steady state after the ring wrapped, and a block's
-# first forward, where no cache token is valid and the softmax state must
-# come out of segment 2 alone.
+# cache frames): the steady state after the ring wrapped, a block's first
+# forward, where no cache token is valid and the softmax state must come out
+# of segment 2 alone, and slots whose last 128-token kernel tile is half
+# dead (its live 64-token half computed, the bias masking the rest).
 TWO_SEG_CASES = [
     ("two-segment decode: block at ring slots 3-5, 9 cache frames valid", (3, 4, 5), 9),
     ("two-segment first block: block at the sink slots, no cache token valid", (0, 1, 2), 0),
+    ("two-segment decode: block at ring slots 5-7, a 128-token tile half dead", (5, 6, 7), 9),
 ]
 
 
@@ -632,6 +635,67 @@ def check_attention_switches(torch, A):
         torch.cuda.empty_cache()
     return _attention_entry("flash_attention_exp2_mxu_lsum", "exp2 + mxu_lsum", cases, cases[0],
                             "one call at the serving-options decode with both switches")
+
+
+def check_attention_edges(torch, A, entry):
+    """K1's edges at full width: B = 2 at the decode shape (the tensor
+    maps' batch offsets; each batch with its own bias), joined to K1's bias
+    entry with its times; and the qk_int8 mode's q quantize, which the
+    kernel runs in its prologue, bit for bit against the plain pass at the
+    int8 decode shape, with and without the exp2 scale."""
+    import torch.nn.functional as F
+
+    b, n, d, fs = 2, 12, 128, 1560
+    sq, s = 3 * fs, 12 * fs
+    g = torch.Generator(device="cuda").manual_seed(19)
+    q = torch.randn((b, sq, n, d), generator=g, device="cuda").to(torch.bfloat16)
+    k, v = (torch.randn((b * n, s, d), generator=g, device="cuda").to(torch.bfloat16)
+            for _ in range(2))
+    tok = torch.arange(s, device="cuda")
+    bias = torch.stack([torch.where(tok < 12 * fs, 0.0, A.NEG_INF),
+                        torch.where(tok < 6 * fs, 0.0, A.NEG_INF)]).float().contiguous()
+    label = "bias decode, B = 2 (full window; sink + block valid)"
+    out = A.flash_attention(q, k, v, bias)
+    ref = A.flash_attention_plain(q, k, v, bias)
+    torch.cuda.synchronize()
+    if not torch.isfinite(out).all():
+        fail(f"flash_attention ({label}): non-finite output")
+    err, tol, rel = agreement(out, ref)
+    del ref
+    ms = cuda_ms(torch, lambda: A.flash_attention(q, k, v, bias), 10)
+    plain_ms = cuda_ms(torch, lambda: A.flash_attention_plain(q, k, v, bias), 2)
+    qt, kt, vt = q.transpose(1, 2), k.view(b, n, s, d), v.view(b, n, s, d)
+    mask4 = bias.to(torch.bfloat16)[:, None, None, :]
+    lib_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask4),
+                     10)
+    t_bound, bound_by = bound(4.0 * n * sq * 18 * fs * d,
+                              2 * 2 * q.numel() + 2 * 2 * k.numel() + 4 * b * s)
+    log(f"flash_attention {label}: max_abs_err={err:.3e} tol={tol:.3e} "
+        f"rel_rms_err={rel:.3e} (limit {REL_RMS_LIMIT:.0e}) ms={ms:.4f} "
+        f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} bound_ms={t_bound:.4f} "
+        f"({bound_by}; {t_bound / ms:.1%} of bound)")
+    if not (err <= tol and rel <= REL_RMS_LIMIT):
+        fail(f"flash_attention ({label}) disagrees with its plain version: "
+             f"max_abs_err {err} (limit {tol}), rel_rms_err {rel} (limit {REL_RMS_LIMIT})")
+    entry["cases"].append({"case": label, "mode": "bias", "q": [b, sq, n, d], "kv": [b * n, s, d],
+                           "valid_tokens": 18 * fs, "max_abs_err": err, "tolerance": tol,
+                           "rel_rms_err": rel, "ms": ms, "plain_ms": plain_ms,
+                           "library_ms": lib_ms, "bound_ms": t_bound, "bound_by": bound_by})
+    entry["max_abs_err"] = max(entry["max_abs_err"], err)
+    entry["tolerance"] = min(entry["tolerance"], tol)
+    entry["rel_rms_err"] = max(entry["rel_rms_err"], rel)
+    del out, qt, kt, vt, k, v
+    for exp2 in (False, True):
+        q8, qs = A.kernel_quantized_q(q[:1], exp2=exp2)
+        ref8, refs, _, _ = A._qk_int8_operands(q[:1], q[:1], None, A.softmax_scale(d, exp2))
+        if not (torch.equal(q8, ref8) and torch.equal(qs, refs)):
+            fail(f"flash_attention: the kernel's q quantize (exp2={exp2}) differs from the "
+                 f"plain pass in {int((q8 != ref8).sum())} values, "
+                 f"{int((qs != refs).sum())} scales")
+    log("flash_attention qk_int8: the prologue's q quantize is bit-equal to the plain pass "
+        f"at {list(q[:1].shape)} (exp2 off and on)")
+    del q, q8, qs, ref8, refs
+    torch.cuda.empty_cache()
 
 
 # K1 at the cross-attention's shapes under LONGLIVE_CROSS_FLASH=1: (label,
@@ -2249,6 +2313,7 @@ def main() -> None:
                check_conv(torch, VC), check_conv(torch, VC, int8=True),
                check_res_block_pair(torch, VC), check_int8_linear(torch, Q)]
     check_attention_cross(torch, A, k1)
+    check_attention_edges(torch, A, k1)
     entries.append(check_frame_masked(torch, A))
     entries += check_train_attention(torch, A)
     log(f"kernel checks: {time.perf_counter() - t0:.1f} s")

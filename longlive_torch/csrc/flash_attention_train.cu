@@ -104,13 +104,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "sm90.cuh"  // mbarriers, TMA, wgmma descriptors, the tensor-map entry
+#include "sm90.cuh"  // mbarriers, TMA, tensor maps, wgmma and its descriptors
 
 namespace {
 
 constexpr int D = 128;
 constexpr int ROWB = D * 2;       // bytes of one token row of one head
-constexpr int HALF = 64 * 2;      // bytes of one swizzled 64-column half row
 constexpr int THREADS = 384;      // consumer warpgroups 0-1, producer warpgroup 2
 constexpr int BM = 128;           // query rows per forward / dQ CTA
 constexpr int FWD_BN = 128;       // kv tokens per forward tile
@@ -127,50 +126,6 @@ constexpr float EMPTY_LSE = 1e30f;
 constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
 
 typedef __nv_bfloat16 bf16;
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-template <int R>
-__device__ __forceinline__ void setmaxnreg_dec() {
-  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
-}
-
-template <int R>
-__device__ __forceinline__ void setmaxnreg_inc() {
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
-}
-
-// Barrier of the 128 threads of consumer warpgroup `wg` (ids 1 and 2).
-__device__ __forceinline__ void warpgroup_sync(int wg) {
-  asm volatile("bar.sync %0, 128;\n" ::"r"(wg + 1) : "memory");
-}
-
-// TMA of R token rows [row0, row0 + R) of head n, batch b into a tile at
-// `dst`: two boxes of 64 columns, [R][128 bytes] each, the second R * 128
-// bytes after the first.  Rows past S arrive as zeros.
-template <int R>
-__device__ __forceinline__ void load_rows(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                          int row0, int n, int b) {
-  tma_load_4d(dst, map, bar, 0, n, row0, b);
-  tma_load_4d(dst + R * HALF, map, bar, 64, n, row0, b);
-}
-
-// Descriptor of rows [r0, r0 + 64 or R) of an R-row tile read K-major, at
-// K step kk (columns 16 kk .. 16 kk + 15).
-template <int R>
-__device__ __forceinline__ uint64_t desc_k(uint32_t tile, int r0, int kk) {
-  return smem_desc<64>(tile + (kk >> 2) * (R * HALF) + r0 * HALF + (kk & 3) * 32);
-}
-
-// Descriptor of an R-row tile read MN-major (rows along K, the 128 columns
-// along N), at K step kk (rows 16 kk .. 16 kk + 15).
-template <int R>
-__device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int kk) {
-  return smem_desc_mn(tile + kk * 16 * HALF, R * HALF);
-}
 
 // D (+)= A B, m64n64k16: A and B K-major in shared memory; scale_d = 0
 // overwrites D.
@@ -191,63 +146,6 @@ __device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t da, uint64_t db,
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
       : "l"(da), "l"(db), "r"(scale_d));
-}
-
-// D (+)= A B, m64n128k16: A and B K-major in shared memory; scale_d = 0
-// overwrites D.
-__device__ __forceinline__ void wgmma_ss_n128(float* d, uint64_t da, uint64_t db,
-                                              uint32_t scale_d) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-// D += A B, m64n128k16: A from registers (each warp's 16 rows as the
-// m16n8k16 A fragment), B MN-major in shared memory (the transpose bit).
-__device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a, uint64_t db) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
 // Validity bits of kv tile t's BN tokens (one ballot per 32; tokens past
@@ -865,17 +763,6 @@ bwd_dkdv_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant_
             __floats2bfloat162_rn(acc[4 * j + 2] * f, acc[4 * j + 3] * f);
     }
   }
-}
-
-// A tensor map over a contiguous [B, S, N, 128] bf16 tensor: dims {128, N,
-// S, B}, a box of `rows` token rows of one head by 64 columns (two boxes
-// per tile), swizzled 128B.
-bool rows_map(CUtensorMap* map, const void* p, int B, int S, int N, int rows) {
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)N, (cuuint64_t)S, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)ROWB, (cuuint64_t)ROWB * N,
-                                 (cuuint64_t)ROWB * N * S};
-  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
-  return encode_map(map, p, dims, strides, box);
 }
 
 template <typename K>

@@ -1,12 +1,15 @@
 // Hopper (sm_90a) helpers shared by the TMA + wgmma kernels of this
-// directory (causal_conv.cu, flash_attention_train.cu): mbarriers, TMA
-// tensor loads and the driver entry that encodes their tensor maps, wgmma
-// shared-memory descriptors and its fence / commit / wait.  Each kernel
-// library includes this header once (everything is internal to it).
+// directory (causal_conv.cu, flash_attention.cu, flash_attention_train.cu):
+// mbarriers, TMA tensor loads and the driver entry that encodes their tensor
+// maps, wgmma shared-memory descriptors, the bf16 and s8 products of the
+// attention kernels and wgmma's fence / commit / wait, and the register and
+// warpgroup controls of a warp-specialised CTA.  Each kernel library
+// includes this header once (everything is internal to it).
 
 #pragma once
 
 #include <cuda.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -116,19 +119,150 @@ EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// A 4-D bf16 tensor map (dims innermost first, strides of dims 1-3 in
-// bytes) with zero fill outside the tensor and rows of box[0] = 32 or 64
-// elements swizzled for wgmma (64B or 128B).
+// A 4-D bf16 or 8-bit tensor map (dims innermost first, strides of dims
+// 1-3 in bytes) with zero fill outside the tensor and rows of box[0]
+// elements, 64 or 128 bytes, swizzled for wgmma (64B or 128B).
 bool encode_map(CUtensorMap* map, const void* ptr, const cuuint64_t* dims,
-                const cuuint64_t* strides, const cuuint32_t* box) {
+                const cuuint64_t* strides, const cuuint32_t* box,
+                CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   const EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return false;
   const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box,
-            unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            box[0] == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+  const cuuint32_t row_bytes = box[0] * (type == CU_TENSOR_MAP_DATA_TYPE_UINT8 ? 1 : 2);
+  return fn(map, type, 4, const_cast<void*>(ptr), dims, strides, box, unit,
+            CU_TENSOR_MAP_INTERLEAVE_NONE,
+            row_bytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
          CUDA_SUCCESS;
 }
+
+// A tensor map over a contiguous [B, S, N, 128] tensor of bf16 (int8 =
+// false) or int8: dims {128, N, S, B}, a box of `rows` token rows of one
+// head by 128 bytes (64 bf16 columns, so two boxes per bf16 tile; all 128
+// int8 columns), swizzled 128B.  A head-major [B*N, S, 128] tensor is the
+// same map with B*N for B and 1 for N.
+bool rows_map(CUtensorMap* map, const void* p, int B, int S, int N, int rows,
+              bool int8 = false) {
+  const cuuint64_t rb = int8 ? 128 : 256;  // bytes of one token row of one head
+  const cuuint64_t dims[4] = {128, (cuuint64_t)N, (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {rb, rb * N, rb * N * S};
+  const cuuint32_t box[4] = {int8 ? 128u : 64u, 1, (cuuint32_t)rows, 1};
+  return encode_map(map, p, dims, strides, box,
+                    int8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16);
+}
+
+// TMA of R token rows [row0, row0 + R) of head n, batch b (a rows_map)
+// into a bf16 tile at `dst`: two boxes of 64 columns, [R][128 bytes] each,
+// the second R * 128 bytes after the first.  Rows past S arrive as zeros.
+template <int R>
+__device__ __forceinline__ void load_rows(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                          int row0, int n, int b) {
+  tma_load_4d(dst, map, bar, 0, n, row0, b);
+  tma_load_4d(dst + R * 128, map, bar, 64, n, row0, b);
+}
+
+// Descriptor of rows [r0, r0 + 64 or R) of an R-row tile read K-major, at
+// K step kk (columns 16 kk .. 16 kk + 15).
+template <int R>
+__device__ __forceinline__ uint64_t desc_k(uint32_t tile, int r0, int kk) {
+  return smem_desc<64>(tile + (kk >> 2) * (R * 128) + r0 * 128 + (kk & 3) * 32);
+}
+
+// Descriptor of an R-row tile read MN-major (rows along K, the 128 columns
+// along N), at K step kk (rows 16 kk .. 16 kk + 15).
+template <int R>
+__device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int kk) {
+  return smem_desc_mn(tile + kk * 16 * 128, R * 128);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+template <int R>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
+template <int R>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
+// Barrier of the 128 threads of consumer warpgroup `wg` (ids 1 and 2).
+__device__ __forceinline__ void warpgroup_sync(int wg) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(wg + 1) : "memory");
+}
+
+// Orders this thread's generic-proxy shared-memory writes before later
+// async-proxy reads (wgmma operands, TMA stores) of the same bytes.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// The 64 accumulator operands of an m64n128 wgmma, constraint C.
+#define WGMMA_D64(C) \
+  C(d[0]), C(d[1]), C(d[2]), C(d[3]), C(d[4]), C(d[5]), C(d[6]), C(d[7]), C(d[8]), \
+      C(d[9]), C(d[10]), C(d[11]), C(d[12]), C(d[13]), C(d[14]), C(d[15]), C(d[16]), \
+      C(d[17]), C(d[18]), C(d[19]), C(d[20]), C(d[21]), C(d[22]), C(d[23]), C(d[24]), \
+      C(d[25]), C(d[26]), C(d[27]), C(d[28]), C(d[29]), C(d[30]), C(d[31]), C(d[32]), \
+      C(d[33]), C(d[34]), C(d[35]), C(d[36]), C(d[37]), C(d[38]), C(d[39]), C(d[40]), \
+      C(d[41]), C(d[42]), C(d[43]), C(d[44]), C(d[45]), C(d[46]), C(d[47]), C(d[48]), \
+      C(d[49]), C(d[50]), C(d[51]), C(d[52]), C(d[53]), C(d[54]), C(d[55]), C(d[56]), \
+      C(d[57]), C(d[58]), C(d[59]), C(d[60]), C(d[61]), C(d[62]), C(d[63])
+#define WGMMA_R64                                                                          \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "                  \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "        \
+  "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "        \
+  "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+
+// D (+)= A B, m64n128k16 bf16: A and B K-major in shared memory; scale_d =
+// 0 overwrites D.
+__device__ __forceinline__ void wgmma_ss_n128(float* d, uint64_t da, uint64_t db,
+                                              uint32_t scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {" WGMMA_R64
+      "}, %64, %65, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : WGMMA_D64("+f")
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D (+)= A B, m64n128k32 s8 x s8 -> s32: A and B K-major in shared memory
+// (one 128-byte int8 row per token); scale_d = 0 overwrites D.  The s32
+// accumulator has the f32 one's layout.
+__device__ __forceinline__ void wgmma_ss_s8_n128(int* d, uint64_t da, uint64_t db,
+                                                 uint32_t scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {" WGMMA_R64
+      "}, %64, %65, p;\n"
+      "}\n"
+      : WGMMA_D64("+r")
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D += A B, m64n128k16 bf16: A from registers (each warp's 16 rows as the
+// m16n8k16 A fragment), B MN-major in shared memory (the transpose bit).
+__device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {" WGMMA_R64
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"
+      "}\n"
+      : WGMMA_D64("+f")
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+#undef WGMMA_D64
+#undef WGMMA_R64
 
 }  // namespace

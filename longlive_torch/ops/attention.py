@@ -53,8 +53,12 @@ from .quant import _rdiv
 NEG_INF = -1e30  # finite: -inf - -inf would poison the running max with NaN
 
 LOG2E = math.log2(math.e)
-KV_TILE = 64  # KV tokens per tile of the kernel: the granularity of dead-tile elision
+KV_TILE = 64  # KV tokens per tile of the live-tile mask the kernel is given
 LIVE_WORDS = 64  # 32-tile words of the kernel's live-tile mask (up to 131072 cache tokens)
+KERNEL_KV_TILE = 128  # KV tokens per tile of the kernel: the granularity of dead-tile elision
+KERNEL_Q_TILE = 128  # query rows per item (CTA) of the kernel
+KERNEL_MAX_SPLIT = 4  # CTAs an item of the kernel's last wave may be split into
+KERNEL_MIN_SHARE = 4  # KV tiles each CTA of a split item walks at the least
 
 launches = 0  # kernel launches of flash_attention since the last reset
 # the same launches, by mode (a two-segment launch counts as two_segment,
@@ -183,6 +187,33 @@ def live_kv_tiles(skip_ranges: Sequence[Tuple[int, int]], s: int,
     return live
 
 
+def kernel_live_tiles(live: Sequence[bool]) -> List[bool]:
+    """The kernel's ``KERNEL_KV_TILE``-token cache tiles that it computes,
+    from the ``KV_TILE``-token mask of ``live_kv_tiles``: a tile is dead
+    only when both of its halves are (so it equals ``live_kv_tiles`` at
+    ``tile=KERNEL_KV_TILE``)."""
+    step = KERNEL_KV_TILE // KV_TILE
+    return [any(live[i:i + step]) for i in range(0, len(live), step)]
+
+
+def split_plan(items: int, sms: int, tiles: int) -> Tuple[int, int]:
+    """How the kernel's grid covers ``items`` (query tile, head) items, each
+    walking ``tiles`` KV tiles, on ``sms`` SMs (one CTA per SM at a time):
+    (nfull, k), the first ``nfull`` items one CTA each and the last
+    ``items - nfull`` (the last wave's remainder) split into ``k`` CTAs
+    that each walk a k-th of the tiles.  k in 1..KERNEL_MAX_SPLIT makes
+    the remainder's rounds, ceil(k * rem / sms) / k of an item's time, the
+    fewest (the smallest k on a tie), with at least KERNEL_MIN_SHARE tiles
+    a CTA; k = 1 splits nothing (nfull = items).  Python ints in and out."""
+    rem = items % sms
+    best, k_best = 1.0, 1
+    for k in range(2, KERNEL_MAX_SPLIT + 1):
+        rounds = -(-k * rem // sms) / k
+        if rem and tiles >= k * KERNEL_MIN_SHARE and rounds < best:
+            best, k_best = rounds, k
+    return (items, 1) if k_best == 1 else (items - rem, k_best)
+
+
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           bias: torch.Tensor, q_rope=None, qk_int8: bool = False,
                           k_scales: Optional[torch.Tensor] = None,
@@ -270,9 +301,8 @@ class _LiveTiles(ctypes.Structure):
     _fields_ = [("bits", ctypes.c_uint32 * LIVE_WORDS)]
 
 
-def _live_mask(skip_ranges, s: int) -> _LiveTiles:
+def _live_mask(tiles: List[bool], s: int) -> _LiveTiles:
     mask = _LiveTiles()
-    tiles = live_kv_tiles(skip_ranges, s)
     if len(tiles) > 32 * LIVE_WORDS:
         raise ValueError(f"flash_attention: skip_ranges over {s} tokens: the kernel's "
                          f"live-tile mask covers {32 * LIVE_WORDS * KV_TILE}")
@@ -295,10 +325,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     premul already applied) and is rotated in the kernel (halfsplit
     layout; see ``rope_scaled_q``).
 
-    ``qk_int8``: QK^T runs on int8 q and K (``quantize_k_tokens`` of the
-    scaled q here, a plain pass as in the JAX package).  K is either the
-    int8 cache layer with its scales ``k_scales`` [B*N, S] float32, read in
-    place, or bf16, quantized here per call.
+    ``qk_int8``: QK^T runs on int8 q and K.  The kernel quantizes the
+    scaled q in its prologue, bit for bit as the plain pass
+    ``quantize_k_tokens(_scaled_q(q, scale))`` (``kernel_quantized_q``
+    shows it).  K is either the int8 cache layer with its scales
+    ``k_scales`` [B*N, S] float32, read in place, or bf16, quantized here
+    per call.
 
     ``k2``/``v2`` [B, S2, N, D] (bf16): a second, fully valid KV segment
     attended after the cache (its ragged tail masked); ``bias`` covers the
@@ -311,6 +343,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     ``cross``: the call is a cross-attention (k, v the prompt's K/V, a zero
     bias); its launch counts under ``mode_launches["cross"]``.
+
+    The kernel's (query tile, head) items that would fill only part of its
+    last wave are each split over several CTAs along the KV tiles
+    (``split_plan``); the last CTA of such an item merges the parts.
 
     CPU tensors run the plain version.  CUDA tensors launch the kernel,
     which takes bf16 q/v/k2/v2 (and K unless int8), D = 128, contiguous
@@ -354,32 +390,89 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                  f"16-byte aligned float32 [{sq}, {d // 2}] on {q.device}, got "
                                  f"{t.dtype} {tuple(t.shape)} on {t.device}")
         cos_ptr, sin_ptr = q_rope[0].data_ptr(), q_rope[1].data_ptr()
-    live = _live_mask(skip_ranges, s) if skip_ranges is not None else _LiveTiles()
-    scale = softmax_scale(d, exp2)
-    qsc = ksc = k2sc = None
-    if qk_int8:
-        q, qsc, k, ksc = _qk_int8_operands(q, k, k_scales, scale)
+    live, live_tiles = _LiveTiles(), -(-s // KERNEL_KV_TILE)
+    if skip_ranges is not None:
+        tiles = live_kv_tiles(skip_ranges, s)
+        live, live_tiles = _live_mask(tiles, s), sum(kernel_live_tiles(tiles))
+    ksc = k2sc = None
+    if qk_int8:  # q is quantized in the kernel's prologue
+        k, ksc = (k, k_scales) if k_scales is not None else quantize_k_tokens(k)
         if k2 is not None:
             k2, k2sc = quantize_k_tokens(k2)
-    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     out = torch.empty((b, sq, n, d), dtype=torch.bfloat16, device=q.device)
-    lib = kernels.load("flash_attention")
-    fn = lib.longlive_flash_attention
-    fn.argtypes = ([ctypes.c_void_p] * 11 + [_LiveTiles, ctypes.c_int, ctypes.c_void_p]
-                   + [ctypes.c_int] * 5 + [ctypes.c_float] + [ctypes.c_int] * 3
-                   + [ctypes.c_void_p])
-    rc = fn(q.data_ptr(), ptr(qsc), k.data_ptr(), ptr(ksc), v.data_ptr(), bias.data_ptr(),
-            cos_ptr, sin_ptr, ptr(k2), ptr(k2sc), ptr(v2), live, int(skip_ranges is not None),
-            out.data_ptr(), b, sq, n, s, s2, scale, int(qk_int8), int(exp2), int(mxu_lsum),
-            torch.cuda.current_stream(q.device).cuda_stream)
     mode = ("two_segment" if k2 is not None else "qk_int8" if qk_int8
             else "q_rope" if q_rope is not None else "cross" if cross else "bias")
-    kernels.check(lib, rc, f"flash_attention ({mode})")
+    items = -(-sq // KERNEL_Q_TILE) * b * n
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    nfull, ksplit = split_plan(items, sms, live_tiles + -(-s2 // KERNEL_KV_TILE))
+    part = counters = None
+    if nfull < items:
+        part = torch.empty(((items - nfull) * ksplit * KERNEL_Q_TILE * (d + 2),),
+                           dtype=torch.float32, device=q.device)
+        counters = _split_counters(q.device, items - nfull)
+    _launch(q, k, ksc, v, bias, cos_ptr, sin_ptr, k2, k2sc, v2, live,
+            skip_ranges is not None, out, None, None, (nfull, ksplit, part, counters), s, s2,
+            softmax_scale(d, exp2), qk_int8, exp2, mxu_lsum, mode)
     launches += 1
     mode_launches[mode] += 1
     flag_launches["exp2"] += int(exp2)
     flag_launches["mxu_lsum"] += int(mxu_lsum)
     return out
+
+
+_COUNTERS = {}  # (device, stream) -> the kernel's split counters, zero between calls
+
+
+def _split_counters(device, n: int) -> torch.Tensor:
+    """n int32 zeros for the kernel's split items on the current stream.
+    The kernel leaves them zero (the CTA that merges an item resets its
+    count), so one buffer serves every later call on that stream and a
+    call launches nothing but the kernel."""
+    key = (device, torch.cuda.current_stream(device).cuda_stream)
+    buf = _COUNTERS.get(key)
+    if buf is None or buf.numel() < n:
+        buf = _COUNTERS[key] = torch.zeros((max(n, 1024),), dtype=torch.int32, device=device)
+    return buf
+
+
+def _launch(q, k, ksc, v, bias, cos_ptr, sin_ptr, k2, k2sc, v2, live, use_skip, out, q8_out,
+            qs_out, split, s, s2, scale, qk_int8, exp2, mxu_lsum, what) -> None:
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    b, sq, n, _ = q.shape
+    nfull, ksplit, part, counters = split
+    lib = kernels.load("flash_attention")
+    fn = lib.longlive_flash_attention
+    fn.argtypes = ([ctypes.c_void_p] * 10 + [_LiveTiles, ctypes.c_int] + [ctypes.c_void_p] * 3
+                   + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5
+                   + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    rc = fn(q.data_ptr(), k.data_ptr(), ptr(ksc), v.data_ptr(), bias.data_ptr(), cos_ptr,
+            sin_ptr, ptr(k2), ptr(k2sc), ptr(v2), live, int(use_skip), out.data_ptr(),
+            ptr(q8_out), ptr(qs_out), nfull, ksplit, ptr(part), ptr(counters), b, sq, n, s, s2,
+            scale, int(qk_int8), int(exp2), int(mxu_lsum),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    kernels.check(lib, rc, f"flash_attention ({what})")
+
+
+def kernel_quantized_q(q: torch.Tensor, exp2: bool = False):
+    """The qk_int8 mode's q as the kernel's prologue quantizes it: (q8
+    [B, Sq, N, D] int8, scales [B, Sq, N] float32), which must equal the
+    plain pass ``quantize_k_tokens(_scaled_q(q, scale))`` bit for bit.
+    Launches the kernel once over a one-token cache (not counted in
+    ``launches``).  q: bf16 [B, Sq, N, 128] on a CUDA device."""
+    b, sq, n, d = q.shape
+    _check_operand("q", q, torch.bfloat16, (b, sq, n, 128), q.device)
+    k = torch.zeros((b * n, 1, d), dtype=torch.int8, device=q.device)
+    ksc = torch.ones((b * n, 1), dtype=torch.float32, device=q.device)
+    v = torch.zeros((b * n, 1, d), dtype=torch.bfloat16, device=q.device)
+    bias = torch.zeros((b, 1), dtype=torch.float32, device=q.device)
+    q8 = torch.empty((b, sq, n, d), dtype=torch.int8, device=q.device)
+    qs = torch.empty((b, sq, n), dtype=torch.float32, device=q.device)
+    out = torch.empty_like(q)
+    items = -(-sq // KERNEL_Q_TILE) * b * n
+    _launch(q, k, ksc, v, bias, None, None, None, None, None, _LiveTiles(), False, out, q8, qs,
+            (items, 1, None, None), 1, 0, softmax_scale(d, exp2), True, exp2, False,
+            "q quantize")
+    return q8, qs
 
 
 # ---------------------------------------------------------------------------

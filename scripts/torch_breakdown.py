@@ -6,14 +6,21 @@ Usage (from the repository root, on a host with an NVIDIA GPU):
 
 Full Wan2.1-1.3B width at 480x832 with random weights.  Runs blocks 0-3 of
 generation unprofiled, then profiles block 4 (frames 12-14: full window,
-ring wrapped) with ``torch.profiler``, then decodes latent frames 0-1 and
+ring wrapped) with ``torch.profiler``: the bf16 main config, then the
+int8 serving mode (``configs/longlive_inference_tuned.yaml`` with
+``kv_int8``, the block linears quantized by ``quantize_dit_params`` and
+``LONGLIVE_INT8_FUSED=1``), then the serving options
+(``configs/longlive_inference.yaml`` with ``kernel_cache: false`` under
+``LONGLIVE_TWO_SEGMENT=1``, ``LONGLIVE_EXP2=1`` and
+``LONGLIVE_MXU_LSUM=1``).  Then it decodes latent frames 0-1 and
 profiles the decode of frame 2.  Then the training step of
 ``configs/longlive_train_init.yaml`` (21 frames, float32 parameters under
 bf16 autocast): the generator's replay of the last rollout block (exit step
 1: one pre-exit forward, the exit forward with its backward, the commit)
 after six blocks unprofiled, and the critic's denoising loss with its
 backward.  Device kernel time is grouped into the port's kernels, matrix
-products, library convolutions and the rest; K2 (``fused_causal_conv``)
+products, library convolutions and the rest ("other", whose largest
+kernels are also listed on their own: ``other_top_kernels``); K2 (``fused_causal_conv``)
 counts both its kernels, the input pass (norm + SiLU, the new cache) and the
 conv, and the input pass is also reported on its own (``parts_ms``,
 ``parts_share_of_wall``).  The idle
@@ -25,6 +32,8 @@ Prints one JSON object and writes it to ``--out``.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import dataclasses
 import json
 import os
 import subprocess
@@ -35,15 +44,20 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from longlive_torch.config import LatentGeometry, PipelineConfig  # noqa: E402
+from longlive_torch.config import (LatentGeometry, PipelineConfig,  # noqa: E402
+                                   load_pipeline_config)
 from longlive_torch.models import dit as D  # noqa: E402
 from longlive_torch.models import vae as V  # noqa: E402
 from longlive_torch.pipeline import CausalInferencePipeline  # noqa: E402
 
 GROUPS = (
-    ("flash_attention (K1)", ("flash_attention_kernel",)),
+    ("flash_attention (K1)", ("serving_attention_kernel",)),
     ("flash_attention_train (K4)", ("fwd_kernel", "bwd_dq_kernel", "bwd_dkdv_kernel")),
-    ("fused_causal_conv (K2)", ("causal_conv_wgmma_kernel", "conv_input_kernel")),
+    ("fused_causal_conv (K2)", ("causal_conv_wgmma_kernel", "conv_input_kernel",
+                                "causal_conv_int8_kernel", "conv_int8_rowmax_kernel")),
+    ("flash_attention_frame_masked (K3)", ("::masked_kernel",)),
+    ("linear_int8_fused (K5)", ("int8_linear_kernel",)),
+    ("fused_res_block (K6)", ("res_block_pair_kernel",)),
     # cuDNN's conv kernels are named *_fprop_implicit_gemm_*: test before gemm
     ("library conv (cuDNN)", ("fprop", "conv", "cudnn", "winograd")),
     ("matmul (cuBLAS)", ("gemm", "nvjet", "cutlass", "xmma", "cublas")),
@@ -54,12 +68,16 @@ GROUPS = (
 PARTS = (("K2's input pass", "conv_input_kernel"),)
 
 
+OTHER = "other (elementwise, copies, reductions)"
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
 def _group(name: str) -> str:
     low = name.lower()
     for label, keys in GROUPS:
         if any(k in low for k in keys):
             return label
-    return "other (elementwise, copies, reductions)"
+    return OTHER
 
 
 def _wall_ms(fn) -> float:
@@ -72,8 +90,8 @@ def _wall_ms(fn) -> float:
 
 def _profile(fn):
     """(wall ms without the profiler, {group: device ms}, top kernels,
-    {part: device ms}) of ``fn``: one profiled call, then one timed call
-    without the profiler."""
+    {part: device ms}, top kernels of the "other" group) of ``fn``: one
+    profiled call, then one timed call without the profiler."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=acts) as prof:
@@ -88,17 +106,18 @@ def _profile(fn):
         kind = getattr(evt, "device_type", None)
         if not dev_us or (kind is not None and kind != torch.autograd.DeviceType.CUDA):
             continue  # host-side ops; their kernels are counted as device events
-        ms = dev_us / 1e3
-        groups[_group(evt.key)] = groups.get(_group(evt.key), 0.0) + ms
-        kernels.append((ms, evt.count, evt.key[:90]))
+        ms, group = dev_us / 1e3, _group(evt.key)
+        groups[group] = groups.get(group, 0.0) + ms
+        kernels.append((ms, evt.count, evt.key[:90], group))
         for label, key in PARTS:
             if key in evt.key.lower():
                 parts[label] = parts.get(label, 0.0) + ms
     kernels.sort(reverse=True)
-    return wall, groups, kernels[:8], parts
+    other = [k for k in kernels if k[3] == OTHER]
+    return wall, groups, kernels[:8], parts, other[:12]
 
 
-def _summary(label, wall, groups, kernels, parts, per):
+def _summary(label, wall, groups, kernels, parts, other, per):
     busy = sum(groups.values())
     return {
         "step": label, "wall_ms": wall, "device_busy_ms": busy,
@@ -106,8 +125,59 @@ def _summary(label, wall, groups, kernels, parts, per):
         "per": per, "groups_ms": dict(sorted(groups.items(), key=lambda kv: -kv[1])),
         "parts_ms": parts,
         "parts_share_of_wall": {k: v / wall for k, v in parts.items()} if wall > 0 else {},
-        "top_kernels": [{"ms": m, "count": c, "name": n} for m, c, n in kernels],
+        "top_kernels": [{"ms": m, "count": c, "name": n} for m, c, n, _ in kernels],
+        "other_top_kernels": [{"ms": m, "count": c, "name": n} for m, c, n, _ in other],
     }
+
+
+@contextlib.contextmanager
+def _env(**env):
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def dit_block(dev, label: str, pc: PipelineConfig, int8: bool = False, env=None):
+    """The profile of block 4 (frames 12-14) of ``pc`` after blocks 0-3;
+    ``int8``: the block linears quantized; ``env``: switches set around
+    the whole run.  Random bf16 weights from seed 0."""
+    from longlive_torch.ops import quant as Q
+
+    with _env(**(env or {})):
+        cfg = pc.dit_config()
+        params = D.init_dit_params(cfg, torch.bfloat16, dev, seed=0)
+        if int8:
+            params = Q.quantize_dit_params(params)
+        pipe = CausalInferencePipeline(pc, params, geometry=LatentGeometry(), dit_config=cfg,
+                                       device=dev)
+        g = torch.Generator(device=dev).manual_seed(0)
+        cross = pipe.prepare_condition(torch.randn((1, cfg.text_len, cfg.text_dim),
+                                                   generator=g, device=dev))
+        noise = torch.randn((1, 15, 16, 60, 104), generator=g, device=dev)
+        cache = pipe.init_cache(1)
+        outs = []
+        for s in range(0, 12, 3):
+            x0, cache = pipe._block_step(cache, cross, noise[:, s:s + 3], s, g)
+            outs.append(x0)
+        state = {}
+
+        def block():
+            state["x0"], state["cache"] = pipe._block_step(cache, cross, noise[:, 12:15], 12, g)
+
+        row = _summary(label, *_profile(block), per="3 latent frames")
+    return row, torch.cat(outs + [state["x0"]], dim=1)
+
+
+def _config(name: str, **changes) -> PipelineConfig:
+    pc = load_pipeline_config(os.path.join(ROOT, "configs", name))
+    return dataclasses.replace(pc, num_output_frames=15, **changes)
 
 
 def training_steps(dev, cfg=None, geom=None, profile=None):
@@ -178,27 +248,20 @@ def main():
                           text=True).stdout.strip()
     pc = PipelineConfig(local_attn_size=12, sink_size=3, num_frame_per_block=3,
                         num_output_frames=15)
-    cfg = pc.dit_config()
-    params = D.init_dit_params(cfg, torch.bfloat16, dev, seed=0)
-    pipe = CausalInferencePipeline(pc, params, geometry=LatentGeometry(), dit_config=cfg,
-                                   device=dev)
-    g = torch.Generator(device=dev).manual_seed(0)
-    cross = pipe.prepare_condition(torch.randn((1, cfg.text_len, cfg.text_dim),
-                                               generator=g, device=dev))
-    noise = torch.randn((1, 15, 16, 60, 104), generator=g, device=dev)
-    cache = pipe.init_cache(1)
-    outs = []
-    for s in range(0, 12, 3):
-        x0, cache = pipe._block_step(cache, cross, noise[:, s:s + 3], s, g)
-        outs.append(x0)
-    state = {}
-
-    def block():
-        state["x0"], state["cache"] = pipe._block_step(cache, cross, noise[:, 12:15], 12, g)
-
-    dit = _summary("DiT block (frames 12-14: 4 denoise + 1 commit forward)",
-                   *_profile(block), per="3 latent frames")
-    lat = torch.cat(outs + [state["x0"]], dim=1).to(torch.bfloat16)
+    dit, lat = dit_block(dev, "DiT block (frames 12-14: 4 denoise + 1 commit forward)", pc)
+    lat = lat.to(torch.bfloat16)
+    torch.cuda.empty_cache()
+    int8, _ = dit_block(dev, "DiT block, int8 serving (tuned config, kv_int8, int8 linears, "
+                        "LONGLIVE_INT8_FUSED=1)", _config("longlive_inference_tuned.yaml",
+                                                          kv_int8=True),
+                        int8=True, env={"LONGLIVE_INT8_FUSED": "1"})
+    torch.cuda.empty_cache()
+    options, _ = dit_block(dev, "DiT block, serving options (kernel_cache off, two-segment, "
+                           "exp2, mxu_lsum)", _config("longlive_inference.yaml",
+                                                      kernel_cache=False),
+                           env={"LONGLIVE_TWO_SEGMENT": "1", "LONGLIVE_EXP2": "1",
+                                "LONGLIVE_MXU_LSUM": "1"})
+    torch.cuda.empty_cache()
 
     vp = V.init_vae_params(V.VAEConfig(), torch.bfloat16, dev, seed=0)
     vcfg = V.VAEConfig()
@@ -208,11 +271,12 @@ def main():
     vae = _summary("VAE decode of latent frame 2",
                    *_profile(lambda: V.vae_decode_chunk(vp, vcfg, lat[:, 2:3], caches, False)),
                    per="1 latent frame")
-    del params, pipe, cache, vp, caches, lat
+    del vp, caches, lat
     torch.cuda.empty_cache()
     with torch.enable_grad():
         train = training_steps(dev)
-    result = {"card": card, "torch": torch.__version__, "steps": [dit, vae] + train}
+    result = {"card": card, "torch": torch.__version__,
+              "steps": [dit, int8, options, vae] + train}
     text = json.dumps(result, indent=1)
     print(text)
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)

@@ -145,3 +145,42 @@ def test_cuda_wrapper_rejects_meta_device():
     kv = torch.empty((2, 16, 128), device="meta")
     with pytest.raises(ValueError):
         TA.flash_attention(q, kv, kv, torch.empty((1, 16), device="meta"))
+
+
+@pytest.mark.parametrize("ranges,s", [
+    ([(128, 320)], 400),                   # one kernel tile dead, the next half dead
+    ([(64, 192)], 300),                    # two mask tiles dead, no kernel tile
+    ([(0, 256)], 256),                     # every tile dead
+    ([(256, 333)], 333),                   # the ragged last tile, its half past s
+    ([(11 * 1560, 12 * 1560), (3 * 1560, 4 * 1560), (4 * 1560, 5 * 1560)], 12 * 1560),
+])
+def test_kernel_live_tiles_match_live_kv_tiles(ranges, s):
+    """The kernel's 128-token tiles, derived from the 64-token mask it is
+    given, equal the mask computed at the kernel's tile directly: a tile is
+    skipped only when the ranges cover all of it."""
+    live = TA.live_kv_tiles(ranges, s)
+    assert TA.kernel_live_tiles(live) == TA.live_kv_tiles(ranges, s, tile=TA.KERNEL_KV_TILE)
+
+
+@pytest.mark.parametrize("items,tiles,want", [
+    (444, 147, (396, 2)),   # the decode: 3.36 waves, its last 48 items in halves
+    (888, 110, (792, 4)),   # the reactive replay: 96 items left, in quarters
+    (1764, 147, (1716, 2)),  # the 12-frame recache
+    (444, 4, (444, 1)),     # the cross-attention's 4 tiles: too few to share
+    (264, 100, (264, 1)),   # whole waves
+    (48, 100, (0, 2)),      # less than a wave
+])
+def test_split_plan(items, tiles, want):
+    """The kernel's grid on 132 SMs: the last wave's remainder split so
+    that it takes the fewest rounds, each CTA keeping 4 tiles at least."""
+    assert TA.split_plan(items, 132, tiles) == want
+
+
+def test_split_plan_rules():
+    for items in range(1, 700, 7):
+        for tiles in (1, 7, 8, 16, 300):
+            nfull, k = TA.split_plan(items, 132, tiles)
+            assert 1 <= k <= TA.KERNEL_MAX_SPLIT
+            assert (nfull == items) == (k == 1)
+            assert items - nfull < 132 and (nfull % 132 == 0 or k == 1)
+            assert k == 1 or tiles >= k * TA.KERNEL_MIN_SHARE

@@ -335,6 +335,8 @@ def test_flash_attention_train_two_segment_and_empty_rows(dev):
     (40, 300, 70, (64, 192), False),   # ragged segment 2, two whole tiles elided
     (130, 256, 64, (0, 256), False),   # no cache token valid: segment 2 alone
     (17, 200, 33, (64, 128), True),    # K quantized per call, segment 2 too
+    (200, 400, 130, (128, 320), False),  # one 128-token tile elided, the next half dead
+    (70, 256, 200, (0, 256), True),    # int8, every cache tile dead
 ])
 def test_flash_attention_two_segment_kernel_matches_plain(dev, monkeypatch, exp2, lsum, sq, s,
                                                           s2, slots, int8):
@@ -428,6 +430,116 @@ def test_res_block_pair_kernel_matches_plain(dev, t, h, w, c):
         VC.fused_res_block(x[..., :64].contiguous(), c1[..., :64].contiguous(),
                            c2[..., :64].contiguous(), w1[:64, :64].contiguous(), b1[:64],
                            g1[:64], w2[:64, :64].contiguous(), b2[:64], g2[:64])
+
+
+@pytest.mark.parametrize("mode", ["bias", "q_rope", "qk_int8", "qk_int8_stored", "two_segment"])
+def test_flash_attention_kernel_batch_two(dev, mode):
+    """B = 2 (the tensor maps' batch and head offsets) at ragged Sq and S,
+    each batch with its own bias."""
+    from longlive_torch.ops import attention as A
+
+    g = torch.Generator(device=dev).manual_seed(13)
+    b, n, d, sq, s, s2 = 2, 3, 128, 150, 333, 90
+    bf = torch.bfloat16
+    q = torch.randn((b, sq, n, d), generator=g, device=dev).to(bf)
+    k, v = (torch.randn((b * n, s, d), generator=g, device=dev).to(bf) for _ in range(2))
+    tok = torch.arange(s, device=dev)
+    bias = torch.stack([torch.where(tok < 250, 0.0, A.NEG_INF),
+                        torch.where(tok >= 40, 0.0, A.NEG_INF)]).float().contiguous()
+    kw = {}
+    if mode == "q_rope":
+        ang = torch.rand((sq, d // 2), generator=g, device=dev) * 6.3
+        kw["q_rope"] = (ang.cos().contiguous(), ang.sin().contiguous())
+    if mode.startswith("qk_int8"):
+        kw["qk_int8"] = True
+        if mode == "qk_int8_stored":
+            k, kw["k_scales"] = A.quantize_k_tokens(k)
+    if mode == "two_segment":
+        kw.update(k2=torch.randn((b, s2, n, d), generator=g, device=dev).to(bf),
+                  v2=torch.randn((b, s2, n, d), generator=g, device=dev).to(bf),
+                  skip_ranges=[(256, 333)])
+        bias[:, 256:] = A.NEG_INF
+    out = A.flash_attention(q, k, v, bias, **kw)
+    ref = A.flash_attention_plain(q, k, v, bias, **kw)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    _assert_agrees(out, ref)
+
+
+@pytest.mark.parametrize("mode", ["bias", "q_rope", "qk_int8", "two_segment", "exp2_lsum"])
+def test_flash_attention_kernel_split_items(dev, monkeypatch, mode):
+    """Items split over several CTAs (the last wave's remainder, here the
+    whole grid of 9 items): each CTA walks a share of the tile list and the
+    last one merges the shares."""
+    from longlive_torch.ops import attention as A
+
+    g = torch.Generator(device=dev).manual_seed(18)
+    b, n, d, sq, s, s2 = 1, 3, 128, 300, 2000, 300
+    bf = torch.bfloat16
+    q = torch.randn((b, sq, n, d), generator=g, device=dev).to(bf)
+    k, v = (torch.randn((b * n, s, d), generator=g, device=dev).to(bf) for _ in range(2))
+    bias = torch.where(torch.arange(s, device=dev) < 1700, 0.0, A.NEG_INF).float()[None]
+    bias = bias.contiguous()
+    kw, tiles = {}, -(-s // A.KERNEL_KV_TILE)
+    if mode == "q_rope":
+        ang = torch.rand((sq, d // 2), generator=g, device=dev) * 6.3
+        kw["q_rope"] = (ang.cos().contiguous(), ang.sin().contiguous())
+    if mode == "qk_int8":
+        k, ks = A.quantize_k_tokens(k)
+        kw.update(qk_int8=True, k_scales=ks)
+    if mode == "two_segment":
+        kw.update(k2=torch.randn((b, s2, n, d), generator=g, device=dev).to(bf),
+                  v2=torch.randn((b, s2, n, d), generator=g, device=dev).to(bf),
+                  skip_ranges=[(1700, 2000)])
+        tiles = sum(A.kernel_live_tiles(A.live_kv_tiles([(1700, 2000)], s))) + 3
+    if mode == "exp2_lsum":
+        monkeypatch.setenv("LONGLIVE_EXP2", "1")
+        monkeypatch.setenv("LONGLIVE_MXU_LSUM", "1")
+    items = -(-sq // A.KERNEL_Q_TILE) * b * n
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert A.split_plan(items, sms, tiles)[0] < items
+    out = A.flash_attention(q, k, v, bias, **kw)
+    ref = A.flash_attention_plain(q, k, v, bias, exp2=mode == "exp2_lsum",
+                                  mxu_lsum=mode == "exp2_lsum", **kw)
+    again = A.flash_attention(q, k, v, bias, **kw)  # the counters are zero again
+    torch.cuda.synchronize()
+    assert all(int(c.abs().sum()) == 0 for c in A._COUNTERS.values())
+    assert torch.isfinite(out).all()
+    _assert_agrees(out, ref)
+    _assert_agrees(again, ref)
+
+
+@pytest.mark.parametrize("exp2", [False, True])
+@pytest.mark.parametrize("b,sq,n", [(1, 200, 3), (2, 130, 12)])
+def test_flash_attention_q_quantize_is_bit_equal(dev, exp2, b, sq, n):
+    """The qk_int8 mode quantizes q in the kernel's prologue: q8 and its
+    scales equal the plain pass (_qk_int8_operands) bit for bit, rows past
+    a tile's end included."""
+    from longlive_torch.ops import attention as A
+
+    g = torch.Generator(device=dev).manual_seed(16)
+    q = (torch.randn((b, sq, n, 128), generator=g, device=dev) * 3).to(torch.bfloat16)
+    q[0, 5] = 0  # an all-zero row: amax = 1e-30
+    before = A.launches
+    q8, qs = A.kernel_quantized_q(q, exp2=exp2)
+    ref8, refs, _, _ = A._qk_int8_operands(q, q, None, A.softmax_scale(128, exp2))
+    torch.cuda.synchronize()
+    assert A.launches == before
+    assert torch.equal(q8, ref8)
+    assert torch.equal(qs, refs)
+
+
+def test_flash_attention_kernel_tiles(dev):
+    """The library's tiles are the ones the Python side assumes."""
+    import ctypes
+
+    from longlive_torch.ops import attention as A
+    from longlive_torch.ops import kernels
+
+    tiles = (ctypes.c_int * 2)()
+    kernels.load("flash_attention").longlive_flash_attention_tiles(tiles)
+    assert tiles[0] == A.KERNEL_Q_TILE
+    assert tiles[1] == A.KERNEL_KV_TILE and tiles[1] % A.KV_TILE == 0
 
 
 def test_flash_attention_cross_kernel_matches_plain(dev):
