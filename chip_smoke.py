@@ -12,7 +12,8 @@ Phases, each of which exits non-zero when it fails:
 3. kernel checks at the paths' shapes: each kernel (K1 in its bias, q_rope,
    qk_int8 and two-segment modes, under the exp2 + mxu_lsum switches, as
    the cross-attention and at B = 2, its int8 q quantize bit-equal to the
-   plain pass, K2 bf16 and int8, K6, K5, K3 under its three mask
+   plain pass, K2 bf16 and int8 (the int8 pre-pass's operand bit-equal
+   to its plain version), K6, K5, K3 under its three mask
    kinds at the full forwards' shapes, elided bit-equal to unelided, K4's
    forward and its two backward kernels at the four training shapes)
    against its plain PyTorch version on the same
@@ -1007,6 +1008,14 @@ def conv_cases(torch, VC, int8: bool, name: str):
                  f"version: max_abs_err {err_nx} (limit {tol_nx}), rel_rms_err "
                  f"{rel_nx} (limit {REL_RMS_LIMIT})")
         del ref, ref_nx
+        if int8:  # the pre-pass's operand, bit-equal to its plain version
+            q, s, full_k = VC.kernel_quantized_operand(x, cache, wt, gamma, pk["w_int8"])
+            q_ref, s_ref = VC.quantized_operand_plain(full_k, pk["w_int8"][2],
+                                                      VC.row_tile(x, wt), k)
+            if not (torch.equal(q, q_ref) and torch.equal(s, s_ref)):
+                fail(f"{name} ({label}): the quantized operand {tuple(q.shape)} differs from "
+                     f"quantized_operand_plain in {int((q != q_ref).sum())} elements")
+            del q, s, full_k, q_ref, s_ref
         xin = VC.norm_silu(x, gamma) if norm else x
         full = torch.cat([cache, xin], 0).permute(3, 0, 1, 2)[None].contiguous()
         wb, bb = wt, bias.to(bf)
@@ -1044,15 +1053,26 @@ def conv_cases(torch, VC, int8: bool, name: str):
 
 # K6 at the no-shortcut res blocks of one later latent frame of the Wan2.1
 # decoder at 480x832: (label, T, H, W, C, calls per later latent frame).
-# The last case is no path's (a chunk of 4 latent frames at the 384-wide
-# stage): it takes the kernel's 8 x 4 tile.
+# The last case is no path's: a chunk of 4 latent frames at the 384-wide
+# stage (conv1 followed by a norm pass over 4 frames).
 PAIR_CASES = [
     ("res block 384@60x104 (middle, stage 0)", 1, 60, 104, 384, 5),
     ("res block 384@120x208 (stage 1)", 2, 120, 208, 384, 2),
     ("res block 192@240x416 (stage 2)", 4, 240, 416, 192, 3),
     ("res block 96@480x832 (stage 3)", 4, 480, 832, 96, 3),
-    ("res block 384@60x104 over 4 frames (8x4 tile; no path's)", 4, 60, 104, 384, 0),
+    ("res block 384@60x104 over 4 frames (no path's)", 4, 60, 104, 384, 0),
 ]
+
+
+def pair_tiling(VC, h: int, w: int, c: int) -> dict:
+    """K6's tiles at one geometry (``ops.vae_conv.pair_tiles``): each conv's
+    box, K step, N, m64 tiles per warpgroup and stages, and where norm2
+    runs (conv1's epilogue, or a pass after it)."""
+    t1, t2 = VC.pair_tiles(h, w, c)
+    keys = ("bh", "bw", "kc", "bn", "mt", "stages")
+    return {"conv1": {k: getattr(t1, k) for k in keys},
+            "conv2": {k: getattr(t2, k) for k in keys},
+            "norm2": "conv1 epilogue" if t1.bn == c else "pass"}
 
 
 def check_res_block_pair(torch, VC):
@@ -1124,7 +1144,7 @@ def check_res_block_pair(torch, VC):
             f"library_ms={lib_ms:.4f} bound_ms={t_bound:.4f} ({bound_by}; "
             f"{t_bound / ms:.1%} of bound)")
         cases.append({"case": label, "count": count, "t": t, "h": h, "w": w, "c": c,
-                      "tile": list(VC.pair_tile(c, t)), "max_abs_err": worst[0],
+                      "tile": pair_tiling(VC, h, w, c), "max_abs_err": worst[0],
                       "tolerance": worst[1], "rel_rms_err": max(e[2] for e in errs.values()),
                       "ms": ms, "chain_ms": chain_ms, "plain_ms": plain_ms,
                       "library_ms": lib_ms, "bound_ms": t_bound, "bound_by": bound_by})

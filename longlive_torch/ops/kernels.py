@@ -37,13 +37,25 @@ def _nvcc() -> str:
 _INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+\.cuh)"', re.MULTILINE)
 
 
+def _headers(src: bytes) -> list:
+    """The ``csrc`` headers ``src`` includes (``#include "x.cuh"``), those
+    the headers include too, each once, sorted."""
+    seen, todo = set(), list(_INCLUDE.findall(src))
+    while todo:
+        header = todo.pop()
+        if header not in seen:
+            seen.add(header)
+            todo += _INCLUDE.findall((_CSRC / header.decode()).read_bytes())
+    return sorted(seen)
+
+
 def _lib_path(name: str) -> Path:
     """The library of ``csrc/<name>.cu``, named by a hash of the source and
-    of the ``csrc`` headers it includes (``#include "x.cuh"``), so an edited
-    header rebuilds every library that includes it."""
+    of the ``csrc`` headers it includes, directly or through another
+    header, so an edited header rebuilds every library that includes it."""
     src = (_CSRC / f"{name}.cu").read_bytes()
     digest = hashlib.sha256(src)
-    for header in sorted(set(_INCLUDE.findall(src))):
+    for header in _headers(src):
         digest.update(header + b"\0" + (_CSRC / header.decode()).read_bytes())
     return _BUILD / f"lib{name}-{digest.hexdigest()[:12]}.so"
 

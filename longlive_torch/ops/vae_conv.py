@@ -17,15 +17,18 @@ the int8 variant: the weights are quantized per packed column, that is per
 row tile of ``row_tile`` rows) over everything that tile's product reads;
 each dx's int32 product is rescaled on its own and the dx terms are summed
 in float32.  On a CUDA tensor it launches the int8 kernels of
-``csrc/causal_conv.cu`` (a per-row amax pre-pass, then the conv).
+``csrc/causal_conv.cu``: a pre-pass that writes the quantized operand once
+(``quantized_operand_plain`` is its plain version, ``kernel_quantized_operand``
+returns the kernel's), then a TMA-fed s8 ``wgmma`` GEMM whose tiles
+``conv_int8_tiles`` picks.
 
 ``fused_res_block`` computes a whole no-shortcut residual block,
 ``conv2(silu(norm2(conv1(silu(norm1(x)))))) + x`` with both convs' 2-frame
-caches, in ONE launch of ``csrc/res_block_pair.cu`` on a CUDA tensor (the
-decoder's ``LONGLIVE_VAE_PAIR=1`` mode); conv1's normalised output stays in
-shared memory.  Its plain version, ``fused_res_block_plain``, is the chain
-of two ``fused_causal_conv_plain`` calls, which rounds where the kernel
-does.
+caches, in ONE call of ``csrc/res_block_pair.cu`` on a CUDA tensor (the
+decoder's ``LONGLIVE_VAE_PAIR=1`` mode): K2's input pass and GEMM, conv1
+with norm2 + SiLU in its epilogue where a CTA's N covers C (``pair_tiles``).
+Its plain version, ``fused_res_block_plain``, is the chain of two
+``fused_causal_conv_plain`` calls, which rounds where the kernel does.
 
 Layout: channels-last frames [T, H, W, C] (batch 1, folded out by the
 caller); weights in the torch layout [O, C, 3, kh, kw].
@@ -34,6 +37,7 @@ caller); weights in the torch layout [O, C, 3, kh, kw].
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 import os
 from typing import NamedTuple, Optional, Tuple
@@ -46,12 +50,9 @@ from .quant import _div, _rdiv, int_matmul
 
 launches = 0  # calls of fused_causal_conv that launched kernels since the last reset
 mode_launches = {"bf16": 0, "int8": 0}  # the same, by variant
-pair_launches = 0  # launches of fused_res_block's kernel since the last reset
+pair_launches = 0  # calls of fused_res_block that launched its kernels since the last reset
 
-# fused_res_block's kernel: shared memory a CTA may use on sm_90, and the
-# candidate output tiles (rows x columns), largest first
-SMEM_LIMIT = 232448
-PAIR_TILES = ((8, 8), (8, 4))
+SMEM_LIMIT = 232448  # shared memory a CTA may use on sm_90
 
 # fused_causal_conv's bf16 kernel: the candidate boxes of 128 or 256 output
 # pixels (rows x columns, the columns a multiple of 8), widest first
@@ -60,14 +61,14 @@ CONV_BOXES = {128: ((1, 128), (2, 64), (4, 32), (8, 16), (16, 8)),
 
 
 class ConvTiles(NamedTuple):
-    """The bf16 conv kernel's tiling: a ``bh`` x ``bw`` box of output pixels
-    of one frame (M = 128 ``mt``), loaded with its ``kh - 1`` halo rows;
-    ``kc`` channels per K step (the inner dimension of every TMA box,
-    ``kc * 2`` bytes, swizzled over as many); ``bn`` output channels (N);
-    ``mt`` m64 tiles per consumer warpgroup; a ring of ``stages`` stages of
-    ``stage`` bytes each (the box rounded to 1024, then ``kh`` weight
-    tiles); and the CTA's dynamic shared memory ``smem`` (the ring, its
-    barriers and 1024 bytes of alignment)."""
+    """A conv kernel's tiling: a ``bh`` x ``bw`` box of output pixels of
+    one frame (M = 128 ``mt``), loaded with its ``kh - 1`` halo rows; ``kc``
+    channels per K step (the inner dimension of every TMA box, ``kc`` times
+    the element size in bytes, swizzled over as many); ``bn`` output
+    channels (N); ``mt`` m64 tiles per consumer warpgroup; a ring of
+    ``stages`` stages of ``stage`` bytes each (the box rounded to 1024,
+    then ``kh`` weight tiles); and the CTA's dynamic shared memory ``smem``
+    (the ring, its barriers and 1024 bytes of alignment)."""
     bh: int
     bw: int
     kc: int
@@ -78,33 +79,75 @@ class ConvTiles(NamedTuple):
     smem: int
 
 
+def _box(h: int, w: int, kh: int, bn: int, boxes) -> Tuple[int, int]:
+    """The box of ``boxes`` whose tiles over h x w pixels move the fewest
+    rows into shared memory (its rows with the kh - 1 halo rows, and kh x N
+    weight rows, per K step), the widest on a tie."""
+    return min(boxes, key=lambda b: -(-h // b[0]) * -(-w // b[1]) * ((b[0] + kh - 1) * b[1]
+                                                                      + kh * bn))
+
+
+@functools.lru_cache(maxsize=None)
 def conv_tiles(h: int, w: int, c: int, o: int, kh: int = 3) -> ConvTiles:
     """The bf16 conv kernel's tiles for H x W frames, C -> O channels and kh
     kernel rows, as measured best on an H100 at the decoder's shapes
     (PERF.md): KC = 64 where it divides C, else 32; the time convs (kh = 1)
     N = 192 where it divides O, else 96; the 3x3 convs N = 96, with M = 256
     (two m64 tiles per consumer warpgroup) at KC = 32 and M = 128 at KC =
-    64.  The box is the one whose tiles move the fewest rows into shared
-    memory (its rows with the kh - 1 halo rows, and kh x N weight rows, per
-    K step), the widest on a tie; then as many stages, up to 8, as a CTA's
-    shared memory holds."""
+    64; the box by ``_box``; then as many stages, up to 8, as a CTA's shared
+    memory holds."""
     kc = 64 if c % 64 == 0 else 32
     if kh == 1:
         bn, mt = (192 if o % 192 == 0 else 96), 1
     else:
         bn, mt = 96, (1 if kc == 64 else 2)
-    bh, bw = min(CONV_BOXES[128 * mt],
-                 key=lambda b: -(-h // b[0]) * -(-w // b[1]) * ((b[0] + kh - 1) * b[1] + kh * bn))
+    bh, bw = _box(h, w, kh, bn, CONV_BOXES[128 * mt])
     return conv_tiling(bh, bw, kc, bn, mt, kh)
 
 
-def conv_tiling(bh: int, bw: int, kc: int, bn: int, mt: int, kh: int) -> ConvTiles:
-    """The ConvTiles of a box, K step, N and m64 tiles for kh kernel rows,
-    with as many stages, up to 8, as a CTA's shared memory holds."""
-    row = kc * 2
+def conv_tiling(bh: int, bw: int, kc: int, bn: int, mt: int, kh: int,
+                elem: int = 2) -> ConvTiles:
+    """The ConvTiles of a box, K step, N and m64 tiles for kh kernel rows
+    and elements of ``elem`` bytes, with as many stages, up to 8, as a
+    CTA's shared memory holds."""
+    row = kc * elem
     stage = -(-(bh + kh - 1) * bw * row // 1024) * 1024 + kh * bn * row
     stages = min(8, (SMEM_LIMIT - 1024) // (stage + 16))
     return ConvTiles(bh, bw, kc, bn, mt, stages, stage, 1024 + stages * (stage + 16))
+
+
+@functools.lru_cache(maxsize=None)
+def conv_int8_tiles(h: int, w: int, c: int, o: int, kh: int, kw: int, th: int) -> ConvTiles:
+    """The int8 conv kernel's tiles for H x W frames, C -> O channels, kh x
+    kw kernel rows and columns and row tiles of ``th`` rows, as measured
+    best on an H100 at the decoder's shapes (PERF.md): K steps of 128
+    channels (bytes) for the 3x3 convs where 128 divides C or C < 128 (C =
+    96: one step, its last 32 channels zero-filled by TMA), else 64; N = 192
+    without a float accumulator for the time convs (kw = 1) where 192
+    divides O, else N = 96 with the float sum of the kernel columns; M =
+    128, the box by ``_box`` among those whose rows divide th (a box lies
+    inside one row tile, so one activation scale covers it); then as many
+    stages, up to 8, as fit."""
+    kc = 128 if kw == 3 and (c % 128 == 0 or c < 128) else 64
+    bn = 192 if kw == 1 and o % 192 == 0 else 96
+    bh, bw = _box(th, w, kh, bn, [b for b in CONV_BOXES[128] if th % b[0] == 0])
+    return conv_tiling(bh, bw, kc, bn, 1, kh, elem=1)
+
+
+@functools.lru_cache(maxsize=None)
+def pair_tiles(h: int, w: int, c: int) -> Tuple[ConvTiles, ConvTiles]:
+    """fused_res_block's tiles of conv1 and conv2 for H x W frames of C
+    channels.  conv2 takes K2's (``conv_tiles``).  conv1 takes norm2 + SiLU
+    in its epilogue where one CTA's N covers C: C = 96 (m64n96, two m64
+    tiles per warpgroup at KC = 32, K2's own tiles) and C = 192 (m64n192 at
+    KC = 32); at wider C it takes K2's tiles, and a norm pass follows it
+    (``bn != c`` says so)."""
+    t2 = conv_tiles(h, w, c, c, 3)
+    if c not in (96, 192):
+        return t2, t2
+    mt = 2 if c == 96 else 1
+    bh, bw = _box(h, w, 3, c, CONV_BOXES[128 * mt])
+    return conv_tiling(bh, bw, 32, c, mt, 3), t2
 
 
 def reset_launches() -> None:
@@ -224,6 +267,27 @@ def _conv_int8_plain(full: torch.Tensor, w_int8, th: int) -> torch.Tensor:
     return torch.stack(out)
 
 
+def quantized_operand_plain(full: torch.Tensor, ginv: torch.Tensor, th: int,
+                            kh: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The int8 kernel's quantized operand in plain PyTorch, from
+    ``activation_scales``: per (output frame t, temporal tap tau, row tile
+    R of ``th`` rows), R's th + 2 ph rows (ph = kh // 2: the halo, rows
+    outside the image zero) of virtual frame t + tau of ``full`` [T+2, H,
+    W, C], quantized q = round(a / s[t][R]) with a = full * ginv.  Returns
+    (Q [T, 3, nR, th + 2 ph, W, C] int8, s [T, nR] float32); contracted one
+    kernel column at a time with ``pack_weights_int8``'s weights it gives
+    ``_conv_int8_plain``'s product."""
+    t, h = full.shape[0] - 2, full.shape[1]
+    ph, nr = kh // 2, -(-h // th)
+    scales = activation_scales(full, ginv, th, kh)[:, ::th].contiguous()  # a tile's first row
+    a = F.pad(full.float() * ginv, (0, 0, 0, 0, ph, nr * th - h + ph))
+    rows = (torch.arange(nr, device=full.device)[:, None] * th
+            + torch.arange(th + 2 * ph, device=full.device))  # [nR, th + 2 ph]
+    frames = a[:, rows]  # [T+2, nR, th + 2 ph, W, C]
+    op = torch.stack([frames[tau:tau + t] for tau in range(3)], dim=1)
+    return torch.round(op / scales[:, None, :, None, None, None]).to(torch.int8), scales
+
+
 def fused_causal_conv_plain(
     x: torch.Tensor, cache: torch.Tensor, w: torch.Tensor,
     b: Optional[torch.Tensor] = None, gamma: Optional[torch.Tensor] = None,
@@ -271,6 +335,61 @@ def _check(name: str, t: Optional[torch.Tensor], dtype, device) -> None:
     if not t.is_contiguous() or t.data_ptr() % 16 or t.device != device:
         raise ValueError(f"fused_causal_conv: {name} must be contiguous, "
                          f"16-byte aligned and on {device}")
+
+
+def _check_int8(w_int8, device, kh: int, kw: int, o: int, c: int):
+    wq, sc, ginv = w_int8
+    if wq.shape != (3, kh, kw, o, c) or sc.shape != (kw, o) or ginv.shape != (c,):
+        raise ValueError(f"fused_causal_conv: w_int8 shapes {tuple(wq.shape)}, "
+                         f"{tuple(sc.shape)}, {tuple(ginv.shape)} do not match w")
+    _check("w_int8", wq, torch.int8, device)
+    _check("w_int8 scales", sc, torch.float32, device)
+    _check("w_int8 ginv", ginv, torch.float32, device)
+    return wq, sc, ginv
+
+
+def _int8_operand(lib, x, cache, gf, ginv, th: int, kh: int, stream):
+    """The int8 pre-pass on the card: the normalised frames xn (x itself
+    without a norm), the new cache, Q and its scales
+    (``quantized_operand_plain``'s layout)."""
+    t, h, wd, c = x.shape
+    xn = torch.empty_like(x) if gf is not None else x
+    nx = torch.empty_like(cache)
+    rowmax = torch.empty((t + 2, h), dtype=torch.float32, device=x.device)
+    nr = -(-h // th)
+    q = torch.empty((t, 3, nr, th + 2 * (kh // 2), wd, c), dtype=torch.int8, device=x.device)
+    scales = torch.empty((t, nr), dtype=torch.float32, device=x.device)
+    fn = lib.longlive_causal_conv_int8_operand
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    rc = fn(x.data_ptr(), cache.data_ptr(), None if gf is None else gf.data_ptr(),
+            ginv.data_ptr(), None if gf is None else xn.data_ptr(), nx.data_ptr(),
+            rowmax.data_ptr(), q.data_ptr(), scales.data_ptr(), t, h, wd, c, kh, th, stream)
+    kernels.check(lib, rc, "fused_causal_conv (int8 operand)")
+    return xn, nx, q, scales
+
+
+def kernel_quantized_operand(x: torch.Tensor, cache: torch.Tensor, w: torch.Tensor,
+                             gamma: Optional[torch.Tensor] = None,
+                             w_int8=None) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The int8 kernel's pre-pass alone on CUDA tensors (no conv, not
+    counted as a launch): (Q, s, full) with Q and s laid out as
+    ``quantized_operand_plain(full, ginv, row_tile(x, w), kh)`` lays them
+    out, and full = [cache ++ the frames it quantized] (x normalised by the
+    kernel with a gamma), for the tests' bit-equality."""
+    if x.device.type != "cuda":
+        raise ValueError(f"kernel_quantized_operand: needs a CUDA tensor, got {x.device}")
+    o, c, kh, kw = int(w.shape[0]), int(w.shape[1]), int(w.shape[3]), int(w.shape[4])
+    if c % 32 or x.shape[-1] != c or cache.shape != (2,) + tuple(x.shape[1:]):
+        raise ValueError("kernel_quantized_operand: shapes do not match, or C % 32 != 0")
+    _check("x", x, torch.bfloat16, x.device)
+    _check("cache", cache, torch.bfloat16, x.device)
+    ginv = _check_int8(pack_weights_int8(w, gamma) if w_int8 is None else w_int8, x.device,
+                       kh, kw, o, c)[2]
+    gf = None if gamma is None else gamma.float().contiguous()
+    xn, _, q, scales = _int8_operand(kernels.load("causal_conv"), x, cache, gf, ginv,
+                                     row_tile(x, w), kh,
+                                     torch.cuda.current_stream(x.device).cuda_stream)
+    return q, scales, torch.cat([cache, xn])
 
 
 def fused_causal_conv(
@@ -326,28 +445,16 @@ def fused_causal_conv(
     lib = kernels.load("causal_conv")
     out = torch.empty((t, h, wd, o), dtype=x.dtype, device=x.device)
     if int8:
-        wq, sc, ginv = w_int8
-        if wq.shape != (3, kh, kw, o, c) or sc.shape != (kw, o) or ginv.shape != (c,):
-            raise ValueError(f"fused_causal_conv: w_int8 shapes {tuple(wq.shape)}, "
-                             f"{tuple(sc.shape)}, {tuple(ginv.shape)} do not match w")
-        _check("w_int8", wq, torch.int8, x.device)
-        _check("w_int8 scales", sc, torch.float32, x.device)
-        _check("w_int8 ginv", ginv, torch.float32, x.device)
-        xn = torch.empty_like(x) if gamma is not None else x
-        rowmax = torch.empty((t + 2, h), dtype=torch.float32, device=x.device)
-        fn = lib.longlive_causal_conv_int8_rowmax
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-        rc = fn(x.data_ptr(), cache.data_ptr(), ptr(gf), ginv.data_ptr(),
-                xn.data_ptr() if gamma is not None else None, rowmax.data_ptr(), t, h, wd, c,
-                stream)
-        kernels.check(lib, rc, "fused_causal_conv (int8 row amax)")
+        wq, sc, ginv = _check_int8(w_int8, x.device, kh, kw, o, c)
+        th = row_tile(x, w)
+        _, nx, q, scales = _int8_operand(lib, x, cache, gf, ginv, th, kh, stream)
+        tl = conv_int8_tiles(h, wd, c, o, kh, kw, th)
         fn = lib.longlive_causal_conv_int8
-        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
-        rc = fn(xn.data_ptr(), cache.data_ptr(), wq.data_ptr(), sc.data_ptr(), ginv.data_ptr(),
-                ptr(bf), ptr(residual), rowmax.data_ptr(), out.data_ptr(), t, h, wd, c, o, kh,
-                kw, row_tile(x, w), stream)
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 14 + [ctypes.c_void_p]
+        rc = fn(q.data_ptr(), scales.data_ptr(), wq.data_ptr(), sc.data_ptr(), ptr(bf),
+                ptr(residual), out.data_ptr(), t, h, wd, c, o, kh, kw, th, tl.bh, tl.bw, tl.kc,
+                tl.bn, int(tl.bn == 96), tl.stages, stream)
         kernels.check(lib, rc, "fused_causal_conv (int8)")
-        nx = torch.cat([cache[1:], xn[-2:]])[-2:].contiguous()
         mode = "int8"
     else:
         wp = pack_weights(w) if w_packed is None else w_packed
@@ -394,25 +501,12 @@ def fused_res_block_plain(
     return out, nc1, nc2
 
 
-def pair_smem_bytes(c: int, t: int, tile: Tuple[int, int]) -> int:
-    """Shared memory of fused_res_block's kernel for C channels, T frames
-    and an output tile (rows, cols): the ring of min(T, 3) normalised conv1
-    frames over the tile with its 1-pixel halo (rows padded to C + 8), the
-    staged input chunk (tile + 2-pixel halo, 32 channels), the weight chunk
-    (3 kernel columns x 96 outputs x 32 channels) and conv1's input norms
-    (3 frames)."""
-    th, tw = tile
-    halo1, halo2 = (th + 2) * (tw + 2), (th + 4) * (tw + 4)
-    return (2 * min(t, 3) * halo1 * (c + 8) + 2 * halo2 * 40 + 2 * 3 * 96 * 40
-            + 4 * 3 * halo2)
-
-
-def pair_tile(c: int, t: int) -> Optional[Tuple[int, int]]:
-    """The largest of PAIR_TILES whose shared memory fits a CTA, or None."""
-    for tile in PAIR_TILES:
-        if pair_smem_bytes(c, t, tile) <= SMEM_LIMIT:
-            return tile
-    return None
+@functools.lru_cache(maxsize=None)
+def _pair_tile_args(h: int, w: int, c: int):
+    """``pair_tiles`` as the C entry takes them: (bh, bw, kc, nt, mt,
+    stages) of conv1 and of conv2, two int[6]."""
+    return tuple((ctypes.c_int * 6)(tl.bh, tl.bw, tl.kc, tl.bn, tl.mt, tl.stages)
+                 for tl in pair_tiles(h, w, c))
 
 
 def fused_res_block(
@@ -428,9 +522,10 @@ def fused_res_block(
     with the parameters (packed here per call when omitted).  Returns (out
     [T, H, W, C], new cache1, new cache2).
 
-    CPU tensors run the plain version.  CUDA tensors launch the kernel once,
-    which takes bf16 x/caches/weights, C % 96 == 0 and a C whose tiles fit
-    shared memory (``pair_tile``); anything else raises ValueError."""
+    CPU tensors run the plain version.  CUDA tensors make one call of the
+    kernels (counted once in ``pair_launches``), which take bf16
+    x/caches/weights and C % 96 == 0 (tiles from ``pair_tiles``); anything
+    else raises ValueError."""
     c = int(w1.shape[1])
     for name, w in (("w1", w1), ("w2", w2)):
         if tuple(w.shape) != (c, c, 3, 3, 3):
@@ -446,10 +541,6 @@ def fused_res_block(
                          f"{tuple(cache2.shape)} do not match C = {c}")
     if c % 96:
         raise ValueError(f"fused_res_block: needs C % 96 == 0, got C={c}")
-    tile = pair_tile(c, t)
-    if tile is None:
-        raise ValueError(f"fused_res_block: C={c} over {t} frames fits no tile of {PAIR_TILES} "
-                         f"in {SMEM_LIMIT} bytes of shared memory")
     packed = [pack_weights(w) if wp is None else wp
               for w, wp in ((w1, w1_packed), (w2, w2_packed))]
     vecs = [None if vv is None else vv.float().contiguous() for vv in (b1, gamma1, b2, gamma2)]
@@ -461,15 +552,20 @@ def fused_res_block(
     for name, tt in zip(("b1", "gamma1", "b2", "gamma2"), vecs):
         if tt is None or tt.shape != (c,) or tt.device != x.device:
             raise ValueError(f"fused_res_block: {name} must be [{c}] on {x.device}")
-    out = torch.empty_like(x)
+    fused = pair_tiles(h, wd, c)[0].bn == c  # norm2 in conv1's epilogue
+    out, xn, z = torch.empty_like(x), torch.empty_like(x), torch.empty_like(x)
+    y = None if fused else torch.empty_like(x)  # conv1's output before a norm pass
     nc1, nc2 = torch.empty_like(cache1), torch.empty_like(cache2)
+    tiles = _pair_tile_args(h, wd, c)
     lib = kernels.load("res_block_pair")
     fn = lib.longlive_res_block_pair
-    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 4
+                   + [ctypes.POINTER(ctypes.c_int)] * 2 + [ctypes.c_void_p])
     rc = fn(x.data_ptr(), cache1.data_ptr(), cache2.data_ptr(), packed[0].data_ptr(),
             vecs[0].data_ptr(), vecs[1].data_ptr(), packed[1].data_ptr(), vecs[2].data_ptr(),
-            vecs[3].data_ptr(), out.data_ptr(), nc1.data_ptr(), nc2.data_ptr(), t, h, wd, c,
-            tile[1], torch.cuda.current_stream(x.device).cuda_stream)
+            vecs[3].data_ptr(), out.data_ptr(), nc1.data_ptr(), nc2.data_ptr(), xn.data_ptr(),
+            z.data_ptr(), None if y is None else y.data_ptr(), t, h, wd, c, tiles[0], tiles[1],
+            torch.cuda.current_stream(x.device).cuda_stream)
     kernels.check(lib, rc, "fused_res_block")
     pair_launches += 1
     return out, nc1, nc2

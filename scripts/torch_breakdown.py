@@ -13,7 +13,9 @@ int8 serving mode (``configs/longlive_inference_tuned.yaml`` with
 (``configs/longlive_inference.yaml`` with ``kernel_cache: false`` under
 ``LONGLIVE_TWO_SEGMENT=1``, ``LONGLIVE_EXP2=1`` and
 ``LONGLIVE_MXU_LSUM=1``).  Then it decodes latent frames 0-1 and
-profiles the decode of frame 2.  Then the training step of
+profiles the decode of frame 2, three times: bf16, with the int8 convs
+(``LONGLIVE_VAE_INT8=1``) and with the fused res blocks
+(``LONGLIVE_VAE_PAIR=1``).  Then the training step of
 ``configs/longlive_train_init.yaml`` (21 frames, float32 parameters under
 bf16 autocast): the generator's replay of the last rollout block (exit step
 1: one pre-exit forward, the exit forward with its backward, the commit)
@@ -21,9 +23,11 @@ after six blocks unprofiled, and the critic's denoising loss with its
 backward.  Device kernel time is grouped into the port's kernels, matrix
 products, library convolutions and the rest ("other", whose largest
 kernels are also listed on their own: ``other_top_kernels``); K2 (``fused_causal_conv``)
-counts both its kernels, the input pass (norm + SiLU, the new cache) and the
-conv, and the input pass is also reported on its own (``parts_ms``,
-``parts_share_of_wall``).  The idle
+counts all its kernels, the input pass (norm + SiLU, the new cache) and the
+conv, and for int8 the input pass, the quantize pass and the GEMM; K6
+(``fused_res_block``) its launches of the shared input pass and GEMM, which
+carry names of their own; the passes are also reported on their own
+(``parts_ms``, ``parts_share_of_wall``).  The idle
 share is 1 - (summed kernel time / host wall time of the same step run again
 without the profiler).
 Prints one JSON object and writes it to ``--out``.
@@ -53,11 +57,13 @@ from longlive_torch.pipeline import CausalInferencePipeline  # noqa: E402
 GROUPS = (
     ("flash_attention (K1)", ("serving_attention_kernel",)),
     ("flash_attention_train (K4)", ("fwd_kernel", "bwd_dq_kernel", "bwd_dkdv_kernel")),
+    # K6 runs K2's input pass and GEMM under names of its own: test it first
+    ("fused_res_block (K6)", ("conv_input_kernel<6>", "biasnormsilu", "pairresidual")),
     ("fused_causal_conv (K2)", ("causal_conv_wgmma_kernel", "conv_input_kernel",
-                                "causal_conv_int8_kernel", "conv_int8_rowmax_kernel")),
+                                "causal_conv_int8_wgmma_kernel", "conv_int8_input_kernel",
+                                "conv_int8_quantize_kernel")),
     ("flash_attention_frame_masked (K3)", ("::masked_kernel",)),
     ("linear_int8_fused (K5)", ("int8_linear_kernel",)),
-    ("fused_res_block (K6)", ("res_block_pair_kernel",)),
     # cuDNN's conv kernels are named *_fprop_implicit_gemm_*: test before gemm
     ("library conv (cuDNN)", ("fprop", "conv", "cudnn", "winograd")),
     ("matmul (cuBLAS)", ("gemm", "nvjet", "cutlass", "xmma", "cublas")),
@@ -65,7 +71,12 @@ GROUPS = (
 
 
 # kernels reported on their own as well as in their group: (label, key)
-PARTS = (("K2's input pass", "conv_input_kernel"),)
+PARTS = (("K2's input pass", "conv_input_kernel<2>"),
+         ("K2 int8's input pass", "conv_int8_input_kernel"),
+         ("K2 int8's quantize pass", "conv_int8_quantize_kernel"),
+         ("K2 int8's GEMM", "causal_conv_int8_wgmma_kernel"),
+         ("K6's input and norm passes", "conv_input_kernel<6>"),
+         ("K6's conv1 with norm2 in its epilogue", "biasnormsilu"))
 
 
 OTHER = "other (elementwise, copies, reductions)"
@@ -175,6 +186,23 @@ def dit_block(dev, label: str, pc: PipelineConfig, int8: bool = False, env=None)
     return row, torch.cat(outs + [state["x0"]], dim=1)
 
 
+def vae_frame(dev, vp, lat, label: str, env: dict):
+    """The profile of the decode of latent frame 2 of ``lat`` after frames
+    0-1, under ``env`` (the VAE switches not in it cleared)."""
+    env = {"LONGLIVE_VAE_INT8": "0", "LONGLIVE_VAE_PAIR": "0", **env}
+    vcfg = V.VAEConfig()
+    with _env(**env):
+        caches = V.init_decoder_caches(vcfg, 1, 60, 104, torch.bfloat16, dev)
+        _, caches = V.vae_decode_chunk(vp, vcfg, lat[:, :1], caches, True)
+        _, caches = V.vae_decode_chunk(vp, vcfg, lat[:, 1:2], caches, False)
+        row = _summary(label, *_profile(
+            lambda: V.vae_decode_chunk(vp, vcfg, lat[:, 2:3], caches, False)),
+            per="1 latent frame")
+    del caches
+    torch.cuda.empty_cache()
+    return row
+
+
 def _config(name: str, **changes) -> PipelineConfig:
     pc = load_pipeline_config(os.path.join(ROOT, "configs", name))
     return dataclasses.replace(pc, num_output_frames=15, **changes)
@@ -264,19 +292,17 @@ def main():
     torch.cuda.empty_cache()
 
     vp = V.init_vae_params(V.VAEConfig(), torch.bfloat16, dev, seed=0)
-    vcfg = V.VAEConfig()
-    caches = V.init_decoder_caches(vcfg, 1, 60, 104, torch.bfloat16, dev)
-    _, caches = V.vae_decode_chunk(vp, vcfg, lat[:, :1], caches, True)
-    _, caches = V.vae_decode_chunk(vp, vcfg, lat[:, 1:2], caches, False)
-    vae = _summary("VAE decode of latent frame 2",
-                   *_profile(lambda: V.vae_decode_chunk(vp, vcfg, lat[:, 2:3], caches, False)),
-                   per="1 latent frame")
-    del vp, caches, lat
+    vae = [vae_frame(dev, vp, lat, "VAE decode of latent frame 2", {}),
+           vae_frame(dev, vp, lat, "VAE decode of latent frame 2, int8 convs "
+                     "(LONGLIVE_VAE_INT8=1)", {"LONGLIVE_VAE_INT8": "1"}),
+           vae_frame(dev, vp, lat, "VAE decode of latent frame 2, fused res blocks "
+                     "(LONGLIVE_VAE_PAIR=1)", {"LONGLIVE_VAE_PAIR": "1"})]
+    del vp, lat
     torch.cuda.empty_cache()
     with torch.enable_grad():
         train = training_steps(dev)
     result = {"card": card, "torch": torch.__version__,
-              "steps": [dit, int8, options, vae] + train}
+              "steps": [dit, int8, options] + vae + train}
     text = json.dumps(result, indent=1)
     print(text)
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)

@@ -173,12 +173,27 @@ def test_int8_linear_kernel_matches_plain(dev, m, k, n):
         Q.linear_int8_fused(x.float(), p)
 
 
-@pytest.mark.parametrize("t,h,w,c,o,k,norm,res", [
+# The int8 variant's cases (tests/test_torch_vae_conv.py checks their tiles
+# on the CPU): a partial box; boxes over ragged row tiles (H % TH != 0); the
+# time conv at N = 192 (one K chunk of 96 channels, zero-filled past C) and
+# at O = 768 with 128-channel K steps; C = 96 (two K chunks, the second
+# half zero-filled) at T = 1 and 3; 128-channel K steps with the float sum.
+CONV_INT8_CASES = [
     (1, 5, 13, 32, 96, 3, True, True),
     (2, 9, 30, 64, 192, 3, True, False),   # tiles span rows and row tiles
     (2, 7, 20, 96, 192, 1, False, False),  # time conv
-])
+    (1, 7, 20, 96, 96, 3, True, True),     # C = 96, T = 1, H ragged (TH 2)
+    (3, 9, 50, 96, 192, 3, True, False),   # C = 96, T = 3, H and W ragged
+    (2, 6, 30, 384, 768, 1, False, False),  # the decoder's time conv, W ragged
+    (1, 12, 40, 128, 384, 3, True, True),  # 128-channel K steps, three N tiles
+]
+
+
+@pytest.mark.parametrize("t,h,w,c,o,k,norm,res", CONV_INT8_CASES)
 def test_causal_conv_int8_kernel_matches_plain(dev, monkeypatch, t, h, w, c, o, k, norm, res):
+    """K2's int8 variant against its plain version; its pre-pass's operand
+    (Q and the activation scales) bit-equal to ``quantized_operand_plain``
+    on the frames it quantized, which agree with the plain normalisation."""
     from longlive_torch.ops import vae_conv as VC
 
     monkeypatch.setenv("LONGLIVE_VAE_INT8", "1")
@@ -201,6 +216,12 @@ def test_causal_conv_int8_kernel_matches_plain(dev, monkeypatch, t, h, w, c, o, 
     _assert_agrees(nx, ref_nx)
     out2, _ = VC.fused_causal_conv(x, cache, wt, b, gamma, resid)  # packed per call
     assert torch.equal(out2, out)
+    q, s, full = VC.kernel_quantized_operand(x, cache, wt, gamma, pk)
+    q_ref, s_ref = VC.quantized_operand_plain(full, pk[2], VC.row_tile(x, wt), k)
+    torch.cuda.synchronize()
+    assert VC.mode_launches == dict(before, int8=before["int8"] + 2)  # the pre-pass is not one
+    assert torch.equal(q, q_ref) and torch.equal(s, s_ref)
+    _assert_agrees(full, torch.cat([cache, VC.norm_silu(x, gamma) if norm else x]))
 
 
 def _check_train_kernels(q, k, v, dout, valid):
@@ -398,9 +419,12 @@ def test_flash_attention_switches_kernel_matches_plain(dev, monkeypatch, mode):
 
 
 # the four decoder geometries of the no-shortcut res blocks, a ragged frame
-# (tiles cut at the image's edges), and the 8 x 4 tile (384 wide, 4 frames)
+# (tiles cut at the image's edges), 384 wide over 4 frames (a norm pass
+# after conv1), T = 1 at C = 96 and 192 (norm2 in conv1's epilogue, the new
+# cache2's frame 0 copied), and the 384-wide stage over 4 frames
 @pytest.mark.parametrize("t,h,w,c", [(1, 60, 104, 384), (2, 120, 208, 384), (4, 240, 416, 192),
-                                     (4, 480, 832, 96), (3, 13, 21, 96), (4, 20, 28, 384)])
+                                     (4, 480, 832, 96), (3, 13, 21, 96), (4, 20, 28, 384),
+                                     (1, 30, 50, 96), (1, 24, 40, 192), (4, 60, 104, 384)])
 def test_res_block_pair_kernel_matches_plain(dev, t, h, w, c):
     """K6 against its plain version and against two K2 launches: the
     output and both new caches."""

@@ -281,9 +281,11 @@ def test_pair_gate_rules(monkeypatch):
     monkeypatch.setenv("LONGLIVE_VAE_INT8", "0")
     _set(monkeypatch, LONGLIVE_VAE_PAIR=False)
     assert not TV._pair_fusable(x, p, th)
-    # the kernel's shared-memory rule: an 8-wide tile while it fits
-    assert TVC.pair_tile(384, 1) == TVC.pair_tile(384, 2) == (8, 8)
-    assert TVC.pair_tile(384, 4) == (8, 4) and TVC.pair_tile(96, 4) == (8, 8)
+    # the kernel's tile rule: norm2 in conv1's epilogue where one CTA's N
+    # covers C (96, 192), else a norm pass after K2's conv1; conv2 is K2's
+    assert TVC.pair_tiles(60, 104, 384)[0].bn == TVC.pair_tiles(120, 208, 384)[0].bn == 96
+    assert TVC.pair_tiles(480, 832, 96)[0].bn == 96 and TVC.pair_tiles(240, 416, 192)[0].bn == 192
+    assert TVC.pair_tiles(240, 416, 192)[1] == TVC.conv_tiles(240, 416, 192, 192, 3)
 
 
 def test_serving_options_pipeline_matches_jax(monkeypatch):

@@ -181,3 +181,76 @@ def test_plain_int8_conv_matches_pallas(monkeypatch, t, h, w, c, o, norm, res, k
     exact, _ = TV.fused_causal_conv_plain(tt(x), tt(cache), tt(wt), tt(b), tt(gamma),
                                           tt(residual))
     assert np.abs(exact.numpy() - out.numpy()).max() > 10 * INT8_ATOL
+
+
+def _conv_int8_tile_shapes():
+    """(T, H, W, C, O, kernel rows/cols) of every fused conv of the 480x832
+    decoder (``chip_smoke.CONV_CASES``) and of the int8 CUDA tests."""
+    import chip_smoke
+    from test_torch_kernels_cuda import CONV_INT8_CASES
+
+    shapes = {(t, h, w, c, o, k) for _, t, h, w, c, o, k, *_ in chip_smoke.CONV_CASES}
+    shapes |= {(t, h, w, c, o, k) for t, h, w, c, o, k, *_ in CONV_INT8_CASES}
+    return sorted(shapes)
+
+
+# (N, channels per K step, float sum of the kernel columns) of each
+# instantiation of csrc/causal_conv.cu's int8 conv
+CONV_INT8_INSTANTIATIONS = {(96, 64, True), (96, 128, True), (192, 64, False), (192, 128, False)}
+
+
+@pytest.mark.parametrize("t,h,w,c,o,k", _conv_int8_tile_shapes())
+def test_conv_int8_tiles_fit_the_kernel(t, h, w, c, o, k):
+    """The int8 kernel's tile choice for each shape is one it can run: an
+    instantiation (N = 192, without the float sum, only for kw = 1); a
+    128-pixel box inside one row tile (its rows divide the row tile, so one
+    activation scale covers it); every TMA box dimension <= 256 and the
+    inner one a 64- or 128-byte swizzle row; the ring in shared memory."""
+    th = TV.row_tile(torch.empty((t, h, w, c), dtype=torch.bfloat16),
+                     torch.empty((o, c, 3, k, k)))
+    tl = TV.conv_int8_tiles(h, w, c, o, k, k, th)
+    fold = tl.bn == 96
+    assert (tl.bn, tl.kc, fold) in CONV_INT8_INSTANTIATIONS
+    assert fold or k == 1
+    assert o % tl.bn == 0 and c % 16 == 0 and tl.mt == 1
+    assert th % tl.bh == 0 and tl.bh * tl.bw == 128 and tl.bw % 8 == 0
+    for box in ((tl.kc, tl.bw, tl.bh + k - 1, 1), (tl.kc, tl.bn, k, 1)):  # Q, weights
+        assert all(1 <= d <= 256 for d in box), box
+    assert tl.kc in (64, 128)  # int8 bytes: a 64- or 128-byte swizzle row
+    assert -(-c // tl.kc) * tl.kc - c < tl.kc  # only the last K chunk is zero-filled
+    assert tl.stages >= 2
+    assert tl.smem == 1024 + tl.stages * (tl.stage + 16) <= TV.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("t,h,w,c,o,khw,th", [
+    (1, 7, 10, 32, 96, 3, 2),   # T = 1, H not a multiple of the row tile
+    (3, 10, 9, 32, 96, 3, 4),   # T = 3, two full row tiles and a ragged one
+    (3, 6, 5, 16, 8, 1, 4),     # kh = kw = 1, ragged
+    (1, 5, 6, 16, 8, 1, 2),
+    (3, 8, 7, 16, 16, 3, 8),    # one row tile: its halo rows are outside the image
+])
+def test_quantized_operand_contracts_to_plain_int8(t, h, w, c, o, khw, th):
+    """The int8 kernel's operand in plain PyTorch (Q per output frame,
+    temporal tap and row tile, with halo rows), contracted one kernel column
+    at a time with the packed int8 weights, rescaled and summed over dx in
+    order, equals ``_conv_int8_plain`` bit for bit (which
+    ``test_plain_int8_conv_matches_pallas`` holds against the JAX kernel)."""
+    rng = np.random.default_rng(9)
+    full = torch.from_numpy(rng.standard_normal((t + 2, h, w, c)).astype(np.float32))
+    wt = torch.from_numpy((rng.standard_normal((o, c, 3, khw, khw)) * 0.05).astype(np.float32))
+    gamma = torch.from_numpy((1.0 + 0.3 * rng.standard_normal(c)).astype(np.float32))
+    wq, sc, ginv = TV.pack_weights_int8(wt, gamma)
+    q, s = TV.quantized_operand_plain(full, ginv, th, khw)
+    nr, ph, pw = -(-h // th), khw // 2, khw // 2
+    assert q.dtype == torch.int8 and q.shape == (t, 3, nr, th + 2 * ph, w, c)
+    assert s.shape == (t, nr)
+    rows = torch.arange(h)
+    tile, local = rows // th, rows % th  # a row's tile, and its row there (after ph halo rows)
+    qp = torch.nn.functional.pad(q.long(), (0, 0, pw, pw))
+    y = None
+    for dx in range(khw):
+        op = torch.stack([qp[:, :, tile, local + dy, dx:dx + w] for dy in range(khw)], dim=2)
+        prod = torch.einsum("tayhwc,ayoc->thwo", op, wq[:, :, dx].long())  # exact
+        term = prod.float() * (s[:, tile][:, :, None, None] * sc[dx])
+        y = term if y is None else y + term
+    assert torch.equal(y, TV._conv_int8_plain(full, (wq, sc, ginv), th))
