@@ -28,119 +28,65 @@
 // Per-element mask: for one query token each kind's allowed kv tokens are
 // two intervals, [0, A) and [L, H) (token thresholds computed once per row
 // from the frame arithmetic), so the mask is four integer comparisons, no
-// division.  A warp whose 16 rows all allow the whole 64-token tile skips
+// division.  A warp whose 16 rows all attend the whole 128-token tile skips
 // the per-element mask (the same values either way).
 //
 // Dead tiles: a CTA first evaluates, for each of its kv tiles, the per-tile
 // frame-range arithmetic of ops/attention.py::frame_mask_live_tiles (the JAX
-// package's _frame_mask_tile_arrays liveness, at this kernel's 128 x 64
-// tiles) and compacts the live ones into a list in shared memory; the main
-// loop loads and computes only those.  No host state, no device sync.  With
-// elision off the list holds every tile.  Elision changes no bit: a dead
-// tile's logits are all -1e30, so after a row's first unmasked entry it adds
-// exactly 0 (P = exp(-1e30 - m) = 0, alpha = 1); before it, it adds finite
-// state that the first unmasked entry's alpha = exp(-1e30 - m) = 0 wipes
-// exactly; every real row has its diagonal.
+// package's _frame_mask_tile_arrays liveness, at this kernel's 128 x 128
+// tiles) and compacts the live ones into a list in shared memory; the
+// producer loads and the consumers compute only those.  No host state, no
+// device sync.  With elision off the list holds every tile.  Elision changes
+// no bit: a dead tile's logits are all -1e30, so after a row's first
+// unmasked entry it adds exactly 0 (P = exp(-1e30 - m) = 0, alpha = 1);
+// before it, it adds finite state that the first unmasked entry's
+// alpha = exp(-1e30 - m) = 0 wipes exactly; every real row has its diagonal.
 //
 // What bounds it on an H100: the teacher-forcing call of the 21-frame
 // training geometry (65520 tokens, 12 heads of 128) has 28.6% of its frame
 // pairs unmasked, ~7.5 TFLOP against ~0.6 GB of operands: tensor-core
 // throughput bounds it (7.6 ms at 989 TFLOP/s), as it bounds the 32760-token
-// sink_window and block_causal calls.
+// sink_window and block_causal calls.  Only wgmma reaches that rate, and the
+// work is uneven: a teacher-forcing q tile has 37 to 294 live kv tiles.
 //
-// Design (FlashAttention-2 style, like csrc/flash_attention_train.cu's
-// forward; mma.sync m16n8k16 bf16 -> f32): one CTA per (128 query rows,
-// b*n); 8 warps of 16 rows; live kv tiles of 64 tokens double buffered with
-// cp.async; S stays in registers and is re-packed as the A operand of P V.
-// Rows are padded by 16 bytes in shared memory.  wgmma, TMA and warp
-// specialisation are later work.
+// Design: K4's forward pipeline (flash_fwd_sm90.cuh): 384 threads, two
+// consumer warpgroups of 64 query rows on wgmma (S = Q K^T m64n128, the
+// softmax in registers, O += P V with P from registers) and a producer warp
+// that stages Q once and streams the listed K/V tiles of 128 tokens through
+// a 2-stage mbarrier ring by TMA (rows past S arrive as zeros).  The CTAs
+// run heaviest first: the wrapper passes the q tiles in descending order of
+// their live-tile count (ops/attention.py::frame_mask_cta_order), so the
+// long CTAs start in the first wave and the short ones fill the tail.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "flash_fwd_sm90.cuh"  // K4's forward pipeline: producer, S = Q K^T, softmax and P V
+#include "sm90.cuh"
+
 namespace {
 
-constexpr int D = 128;
-constexpr int LDS = D + 8;        // padded shared-memory row, in bf16
-constexpr int NTHREADS = 256;     // 8 warps
-constexpr int BM = 128;           // query rows per CTA
-constexpr int BN = 64;            // kv tokens per tile
-constexpr int MAX_TILES = 4096;   // kv tiles a CTA can list (262144 tokens)
+constexpr int D = FWD_D;
+constexpr int BM = FWD_BM;        // query rows per CTA
+constexpr int BN = FWD_BN;        // kv tokens per tile
+constexpr int THREADS = 384;      // consumer warpgroups 0-1, producer warpgroup 2
+constexpr int STAGES = 2;
+constexpr int MAX_TILES = 2048;   // kv tiles a CTA can list (262144 tokens)
 constexpr int NWORDS = MAX_TILES / 32;
-constexpr float NEG = -1e30f;
+constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
 
 enum { BLOCK_CAUSAL = 0, SINK_WINDOW = 1, TEACHER_FORCING = 2 };
 
 typedef __nv_bfloat16 bf16;
 
-constexpr size_t TILE_SMEM = sizeof(bf16) * (size_t)(BM + 4 * BN) * LDS;
-constexpr size_t SMEM = TILE_SMEM + sizeof(uint16_t) * MAX_TILES + sizeof(uint32_t) * NWORDS +
-                        sizeof(int) * (NWORDS + 1);
+constexpr int META = 8 * (1 + 2 * STAGES) + 2 * MAX_TILES + 4 * NWORDS + 4 * (NWORDS + 1);
+constexpr size_t SMEM = 1024 + BM * FWD_ROWB + STAGES * FWD_STAGE + META;
 
 struct Mask {
   int kind, fs, nfb, local, sink, clean_frames;
 };
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool pred) {
-  // src-size 0 zero-fills the 16 destination bytes
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(pred ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void mma16816(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t lds32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// A fragment (16 rows x 16 k) of a row-major [row][k] tile in shared memory
-__device__ __forceinline__ void load_a(uint32_t* a, const bf16* rows, int g, int t4, int k0) {
-  const bf16* p = rows + g * LDS + k0 + t4 * 2;
-  a[0] = lds32(p);
-  a[1] = lds32(p + 8 * LDS);
-  a[2] = lds32(p + 8);
-  a[3] = lds32(p + 8 * LDS + 8);
-}
-
-// Copies `nrows` rows of 128 bf16 (token stride `rs`) starting at row `r0`
-// into a padded shared tile with cp.async; rows at or past `limit` are zero.
-__device__ __forceinline__ void async_rows(bf16* dst, const bf16* src, size_t rs, int r0,
-                                           int nrows, int limit, int tid) {
-  for (int i = tid; i < nrows * (D / 8); i += NTHREADS) {
-    const int r = i / (D / 8), c = (i % (D / 8)) * 8;
-    const bool ok = r0 + r < limit;
-    cp_async16(dst + r * LDS + c, src + (size_t)(ok ? r0 + r : 0) * rs + c, ok);
-  }
-}
 
 // One half [start, end) of the [clean | noisy] sequence: does [lo, hi) reach
 // into it, and the first and last block (blk tokens, counted from start) it
@@ -223,33 +169,16 @@ __device__ __forceinline__ bool covers(int A, int L, int H, int k0) {
   return k0 + BN <= A || (k0 >= L && k0 + BN <= H);
 }
 
-__global__ void __launch_bounds__(NTHREADS, 1)
-masked_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-              bf16* __restrict__ out, int Sq, int Skv, int N, Mask mk, int elide) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);  // [BM][LDS]
-  bf16* sK = sQ + BM * LDS;                      // [2][BN][LDS]
-  bf16* sV = sK + 2 * BN * LDS;                  // [2][BN][LDS]
-  uint16_t* sList = reinterpret_cast<uint16_t*>(smem_raw + TILE_SMEM);  // live tiles
-  uint32_t* sWord = reinterpret_cast<uint32_t*>(sList + MAX_TILES);    // liveness bits
-  int* sOff = reinterpret_cast<int*>(sWord + NWORDS);                  // list offset per word
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int bh = blockIdx.y, b = bh / N, n = bh % N;
-  const int q0 = blockIdx.x * BM;
-  const size_t rs = (size_t)N * D;  // token stride
-  const bf16* qb = q + (size_t)b * Sq * rs + (size_t)n * D;
-  bf16* ob = out + (size_t)b * Sq * rs + (size_t)n * D;
-  const bf16* kb = k + (size_t)b * Skv * rs + (size_t)n * D;
-  const bf16* vb = v + (size_t)b * Skv * rs + (size_t)n * D;
-
-  async_rows(sQ, qb, rs, q0, BM, Sq, tid);
-  cp_async_commit();
-
-  // the live-tile list: one ballot per 32 tiles, then offsets, then compaction
+// Lists the kv tiles of q tile [q0, q0 + BM) that the mask leaves live
+// (every tile when elide is 0) in sList, in order: one ballot per 32 tiles,
+// a prefix over the words, then compaction.  Every thread of the CTA takes
+// part; the barriers make the list (and the mbarriers initialised before the
+// call) visible to all.  Returns the count.
+__device__ int list_live_tiles(const Mask& mk, int q0, int Skv, int elide, uint16_t* sList,
+                               uint32_t* sWord, int* sOff) {
+  const int tid = threadIdx.x, lane = tid & 31;
   const int ntiles = (Skv + BN - 1) / BN, nwords = (ntiles + 31) / 32;
-  for (int t = tid; t < nwords * 32; t += NTHREADS) {
+  for (int t = tid; t < nwords * 32; t += THREADS) {
     const bool live = t < ntiles && (!elide || tile_live(mk, q0, q0 + BM, t * BN, t * BN + BN));
     const uint32_t word = __ballot_sync(0xffffffffu, live);
     if (lane == 0) sWord[t >> 5] = word;
@@ -264,143 +193,107 @@ masked_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16
     sOff[nwords] = acc;
   }
   __syncthreads();
-  for (int t = tid; t < nwords * 32; t += NTHREADS) {
+  for (int t = tid; t < nwords * 32; t += THREADS) {
     const uint32_t word = sWord[t >> 5];
     if ((word >> lane) & 1u) sList[sOff[t >> 5] + __popc(word & ((1u << lane) - 1u))] = (uint16_t)t;
   }
   __syncthreads();
-  const int nlive = sOff[nwords];
+  return sOff[nwords];
+}
 
-  auto load_kv = [&](int tile, int buf) {
-    async_rows(sK + buf * BN * LDS, kb, rs, tile * BN, BN, Skv, tid);
-    async_rows(sV + buf * BN * LDS, vb, rs, tile * BN, BN, Skv, tid);
-    cp_async_commit();
-  };
-  if (nlive > 0) load_kv(sList[0], 0);
+// grid: (B * N, q tiles); blockIdx.y walks the q tiles in the order of
+// `order` (heaviest first).
+__global__ void __launch_bounds__(THREADS, 1)
+frame_masked_kernel(const __grid_constant__ CUtensorMap qmap,
+                    const __grid_constant__ CUtensorMap kmap,
+                    const __grid_constant__ CUtensorMap vmap, const int* __restrict__ order,
+                    bf16* __restrict__ out, int Sq, int Skv, int N, Mask mk, int elide) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t sQ = (raw + 1023u) & ~1023u;  // swizzle atoms are 1024-aligned
+  const uint32_t ring = sQ + BM * FWD_ROWB;
+  uint8_t* meta = smem_raw + (ring - raw) + STAGES * FWD_STAGE;
+  const uint32_t qbar = smem_u32(meta), full = qbar + 8, empty = full + 8 * STAGES;
+  uint16_t* sList = reinterpret_cast<uint16_t*>(meta + 8 * (1 + 2 * STAGES));
+  uint32_t* sWord = reinterpret_cast<uint32_t*>(sList + MAX_TILES);
+  int* sOff = reinterpret_cast<int*>(sWord + NWORDS);
 
-  const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;  // this thread's two rows
+  const int bh = blockIdx.x, b = bh / N, n = bh % N;
+  const int q0 = __ldg(order + blockIdx.y) * BM;
+  if (threadIdx.x == 0) {
+    mbar_init(qbar, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 2);  // one arrival per consumer warpgroup
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  const int nlive = list_live_tiles(mk, q0, Skv, elide, sList, sWord, sOff);
+
+  if (threadIdx.x >= 256) {  // producer warpgroup: one thread issues every TMA load
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (threadIdx.x == 256)
+      fwd_produce<STAGES>(&qmap, &kmap, &vmap, sQ, ring, qbar, full, empty, q0, n, b, nlive,
+                          [&](int i) { return (int)sList[i]; });
+    return;
+  }
+
+  // consumer warpgroups: 64 query rows each
+  setmaxnreg_inc<CONSUMER_REGS>();
+  const int wg = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  const int r0 = q0 + wg * 64 + warp * 16 + g, r1 = r0 + 8;  // this thread's two rows
   int A0, L0, H0, A1, L1, H1;
   row_intervals(mk, r0, A0, L0, H0);
   row_intervals(mk, r1, A1, L1, H1);
-
-  float o[D / 8][4];
+  float o[D / 2];
 #pragma unroll
-  for (int i = 0; i < D / 8; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
-  float m0 = NEG, m1 = NEG, l0 = 0.f, l1 = 0.f;
-  uint32_t qf[D / 16][4];
-  const bf16* sq = sQ + (warp * 16) * LDS;
+  for (int x = 0; x < D / 2; ++x) o[x] = 0.f;
+  float m0 = NEG, m1 = NEG, l0 = 0.f, l1 = 0.f;  // l per thread, summed at the end
+  mbar_wait(qbar, 0);
+  for (int i = 0; i < nlive; ++i) {
+    const int s = i % STAGES;
+    const uint32_t kt = ring + s * FWD_STAGE, vt = kt + FWD_KV;
+    const int kv0 = sList[i] * BN;
+    mbar_wait(full + 8 * s, (i / STAGES) & 1);
 
-  for (int j = 0; j < nlive; ++j) {
-    const int buf = j & 1;
-    if (j + 1 < nlive) {
-      load_kv(sList[j + 1], buf ^ 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    if (j == 0) {
-#pragma unroll
-      for (int ks = 0; ks < D / 16; ++ks) load_a(qf[ks], sq, g, t4, ks * 16);
-    }
-    const bf16* sk = sK + buf * BN * LDS;
-    const bf16* sv = sV + buf * BN * LDS;
-    const int kv0 = sList[j] * BN;
-
-    // S = Q' K^T: 16 x 64 per warp
-    float s[BN / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < BN / 8; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-      const bf16* kp = sk + (nt * 8 + g) * LDS + t4 * 2;
-#pragma unroll
-      for (int ks = 0; ks < D / 16; ++ks)
-        mma16816(s[nt], qf[ks], lds32(kp + ks * 16), lds32(kp + ks * 16 + 8));
-    }
-
-    // mask (skipped when every row of the warp attends the whole tile), row max
+    float sc[BN / 2];
+    fwd_scores(sc, sQ, wg, kt);
+    // the per-element mask, unless every row of the warp attends the whole tile
     const bool whole = __all_sync(0xffffffffu, kv0 + BN <= Skv && covers(A0, L0, H0, kv0) &&
                                                    covers(A1, L1, H1, kv0));
     if (!whole) {
 #pragma unroll
-      for (int nt = 0; nt < BN / 8; ++nt) {
+      for (int j = 0; j < BN / 8; ++j) {
 #pragma unroll
-        for (int jj = 0; jj < 2; ++jj) {
-          const int c = kv0 + nt * 8 + t4 * 2 + jj;
-          if (!((c < Skv && attends(A0, L0, H0, c)) || c == r0)) s[nt][jj] = NEG;
-          if (!((c < Skv && attends(A1, L1, H1, c)) || c == r1)) s[nt][2 + jj] = NEG;
+        for (int c = 0; c < 2; ++c) {
+          const int col = kv0 + j * 8 + tq * 2 + c;
+          if (!((col < Skv && attends(A0, L0, H0, col)) || col == r0)) sc[4 * j + c] = NEG;
+          if (!((col < Skv && attends(A1, L1, H1, col)) || col == r1)) sc[4 * j + 2 + c] = NEG;
         }
       }
     }
-    float mx0 = NEG, mx1 = NEG;
-#pragma unroll
-    for (int nt = 0; nt < BN / 8; ++nt) {
-      mx0 = fmaxf(mx0, fmaxf(s[nt][0], s[nt][1]));
-      mx1 = fmaxf(mx1, fmaxf(s[nt][2], s[nt][3]));
-    }
-#pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
-    }
-    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-    const float a0 = __expf(m0 - mn0), a1 = __expf(m1 - mn1);
-
-    // P = exp(S - m) as bf16 A fragments of P V; l takes the unrounded P
-    uint32_t pf[BN / 16][4];
-    float rs0 = 0.f, rs1 = 0.f;
-#pragma unroll
-    for (int nt = 0; nt < BN / 8; ++nt) {
-      const float p0 = __expf(s[nt][0] - mn0), p1 = __expf(s[nt][1] - mn0);
-      const float p2 = __expf(s[nt][2] - mn1), p3 = __expf(s[nt][3] - mn1);
-      rs0 += p0 + p1;
-      rs1 += p2 + p3;
-      pf[nt >> 1][(nt & 1) * 2 + 0] = pack_bf16(p0, p1);
-      pf[nt >> 1][(nt & 1) * 2 + 1] = pack_bf16(p2, p3);
-    }
-#pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      rs0 += __shfl_xor_sync(0xffffffffu, rs0, off);
-      rs1 += __shfl_xor_sync(0xffffffffu, rs1, off);
-    }
-    l0 = l0 * a0 + rs0;
-    l1 = l1 * a1 + rs1;
-    m0 = mn0;
-    m1 = mn1;
-#pragma unroll
-    for (int dt = 0; dt < D / 8; ++dt) {
-      o[dt][0] *= a0;
-      o[dt][1] *= a0;
-      o[dt][2] *= a1;
-      o[dt][3] *= a1;
-    }
-
-    // O += P V; V fragments via ldmatrix.trans (V is [token][d] in smem)
-    const int mi = lane >> 3, ri = lane & 7;
-#pragma unroll
-    for (int ks = 0; ks < BN / 16; ++ks) {
-#pragma unroll
-      for (int dp = 0; dp < D / 16; ++dp) {
-        uint32_t vf[4];
-        ldmatrix_x4_trans(vf, sv + (ks * 16 + (mi & 1) * 8 + ri) * LDS + dp * 16 + (mi >> 1) * 8);
-        mma16816(o[2 * dp], pf[ks], vf[0], vf[1]);
-        mma16816(o[2 * dp + 1], pf[ks], vf[2], vf[3]);
-      }
-    }
-    __syncthreads();  // this buffer is refilled by the next iteration's load
+    fwd_softmax_pv(sc, o, m0, m1, l0, l1, vt);
+    if ((threadIdx.x & 127) == 0) mbar_arrive(empty + 8 * s);
   }
-  cp_async_wait<0>();  // the q tile of a CTA with no live tile
 
-  const float i0 = 1.f / fmaxf(l0, 1e-30f), i1 = 1.f / fmaxf(l1, 1e-30f);
 #pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt) {
-    const int c = dt * 8 + t4 * 2;
+  for (int off = 1; off < 4; off <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
+  const float i0 = 1.f / fmaxf(l0, 1e-30f), i1 = 1.f / fmaxf(l1, 1e-30f);
+  const size_t rs = (size_t)N * D;  // token stride
+  bf16* ob = out + (size_t)b * Sq * rs + (size_t)n * D;
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    const int c = j * 8 + tq * 2;
     if (r0 < Sq)
       *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)r0 * rs + c) =
-          __floats2bfloat162_rn(o[dt][0] * i0, o[dt][1] * i0);
+          __floats2bfloat162_rn(o[4 * j] * i0, o[4 * j + 1] * i0);
     if (r1 < Sq)
       *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)r1 * rs + c) =
-          __floats2bfloat162_rn(o[dt][2] * i1, o[dt][3] * i1);
+          __floats2bfloat162_rn(o[4 * j + 2] * i1, o[4 * j + 3] * i1);
   }
 }
 
@@ -409,20 +302,28 @@ masked_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16
 extern "C" {
 
 // q, k, v, out: [B, S, N, 128] bf16, q pre-scaled by 1/sqrt(128) and
-// rounded to bf16; kind: 0 block_causal, 1 sink_window, 2 teacher_forcing;
+// rounded to bf16; order: the ceil(Sq / 128) q tiles, int32 on the device,
+// in launch order; kind: 0 block_causal, 1 sink_window, 2 teacher_forcing;
 // elide: skip the dead tiles.
-int longlive_flash_masked(const void* q, const void* k, const void* v, void* out, int B, int Sq,
-                          int Skv, int N, int kind, int frame_seq, int nfb, int local, int sink,
-                          int clean_frames, int elide, void* stream) {
+int longlive_flash_masked(const void* q, const void* k, const void* v, void* out,
+                          const void* order, int B, int Sq, int Skv, int N, int kind,
+                          int frame_seq, int nfb, int local, int sink, int clean_frames,
+                          int elide, void* stream) {
   if ((Skv + BN - 1) / BN > MAX_TILES) return (int)cudaErrorInvalidValue;
-  cudaError_t err =
-      cudaFuncSetAttribute(masked_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM);
+  // a runtime call first: it makes the device's context current on this
+  // thread, which the driver's tensor-map encoder needs
+  const cudaError_t err = cudaFuncSetAttribute(
+      frame_masked_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM);
   if (err != cudaSuccess) return (int)err;
+  CUtensorMap qm, km, vm;
+  if (!rows_map(&qm, q, B, Sq, N, BM) || !rows_map(&km, k, B, Skv, N, BN) ||
+      !rows_map(&vm, v, B, Skv, N, BN))
+    return (int)cudaErrorInvalidValue;
   const Mask mk{kind, frame_seq, nfb, local, sink, clean_frames};
-  dim3 grid((Sq + BM - 1) / BM, B * N);
-  masked_kernel<<<grid, NTHREADS, SMEM, (cudaStream_t)stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(out), Sq, Skv, N, mk, elide);
+  dim3 grid(B * N, (Sq + BM - 1) / BM);
+  frame_masked_kernel<<<grid, THREADS, SMEM, (cudaStream_t)stream>>>(
+      qm, km, vm, static_cast<const int*>(order), static_cast<bf16*>(out), Sq, Skv, N, mk,
+      elide);
   return (int)cudaGetLastError();
 }
 

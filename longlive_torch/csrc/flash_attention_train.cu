@@ -55,7 +55,8 @@
 // transpose bit, as the B operand of the second (P V and the like), whose
 // A operand, P or dS rounded to bf16, comes from registers.
 //   forward  one CTA per (128 query rows, b*n), 64 per consumer warpgroup;
-//            Q staged once, K/V tiles of 128 tokens in a 2-stage ring;
+//            Q staged once, K/V tiles of 128 tokens in a 2-stage ring (the
+//            pipeline of flash_fwd_sm90.cuh, which K3 shares);
 //            S = Q K^T (m64n128), the online softmax in registers, then
 //            O += P V (m64n128, P from registers).
 //   dQ       one CTA per (128 query rows, b*n); Q and dO staged once, lse
@@ -104,6 +105,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "flash_fwd_sm90.cuh"  // the forward's pipeline, shared with K3
 #include "sm90.cuh"  // mbarriers, TMA, tensor maps, wgmma and its descriptors
 
 namespace {
@@ -111,9 +113,8 @@ namespace {
 constexpr int D = 128;
 constexpr int ROWB = D * 2;       // bytes of one token row of one head
 constexpr int THREADS = 384;      // consumer warpgroups 0-1, producer warpgroup 2
-constexpr int BM = 128;           // query rows per forward / dQ CTA
-constexpr int FWD_BN = 128;       // kv tokens per forward tile
-constexpr int FWD_STAGES = 2;
+constexpr int BM = FWD_BM;        // query rows per forward / dQ CTA
+constexpr int FWD_STAGES = 2;     // kv tiles of FWD_BN = 128 tokens (flash_fwd_sm90.cuh)
 constexpr int DQ_BN = 64;         // kv tokens per dQ tile
 constexpr int DQ_STAGES = 3;
 constexpr int BKV = 64;           // kv rows per dK/dV CTA
@@ -121,7 +122,6 @@ constexpr int BQ = 128;           // query rows per dK/dV tile
 constexpr int DKDV_STAGES = 2;
 constexpr int MAX_TILES = 4096;   // kv tiles a forward / dQ CTA can list
 constexpr uint16_t PARTIAL = 0x8000;  // list flag: the tile needs the per-token mask
-constexpr float NEG = -1e30f;
 constexpr float EMPTY_LSE = 1e30f;
 constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
 
@@ -221,8 +221,6 @@ __device__ __forceinline__ int walk_tiles(const uint8_t* __restrict__ maskb, int
 // ---------------------------------------------------------------------------
 // forward
 
-constexpr int FWD_KV = FWD_BN * ROWB;  // one K or V tile
-constexpr int FWD_STAGE = 2 * FWD_KV;
 constexpr int FWD_META = 8 * (1 + 2 * FWD_STAGES) + 4 + 3 * MAX_TILES;
 constexpr size_t FWD_SMEM = 1024 + BM * ROWB + FWD_STAGES * FWD_STAGE + FWD_META;
 
@@ -258,19 +256,9 @@ fwd_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUt
 
   if (threadIdx.x >= 256) {  // producer warpgroup: one thread issues every TMA load
     setmaxnreg_dec<PRODUCER_REGS>();
-    if (threadIdx.x == 256) {
-      mbar_expect_tx(qbar, BM * ROWB);
-      load_rows<BM>(sQ, &qmap, qbar, q0, n, b);
-      for (int i = 0; i < nwalk; ++i) {
-        const int s = i % STAGES, round = i / STAGES;
-        if (round > 0) mbar_wait(empty + 8 * s, (round - 1) & 1);
-        const int kv0 = (LISTED ? sList[i] & ~PARTIAL : i) * BN;
-        const uint32_t dst = ring + s * FWD_STAGE;
-        mbar_expect_tx(full + 8 * s, FWD_STAGE);
-        load_rows<BN>(dst, &kmap, full + 8 * s, kv0, n, b);
-        load_rows<BN>(dst + FWD_KV, &vmap, full + 8 * s, kv0, n, b);
-      }
-    }
+    if (threadIdx.x == 256)
+      fwd_produce<STAGES>(&qmap, &kmap, &vmap, sQ, ring, qbar, full, empty, q0, n, b, nwalk,
+                          [&](int i) { return LISTED ? sList[i] & ~PARTIAL : i; });
   } else {  // consumer warpgroups: 64 query rows each
     setmaxnreg_inc<CONSUMER_REGS>();
     const int wg = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
@@ -285,16 +273,10 @@ fwd_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUt
       const uint32_t kt = ring + s * FWD_STAGE, vt = kt + FWD_KV;
       mbar_wait(full + 8 * s, (i / STAGES) & 1);
 
-      // S = Q K^T: 64 x BN
       float sc[BN / 2];
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
-        wgmma_ss_n128(sc, desc_k<BM>(sQ, wg * 64, kk), desc_k<BN>(kt, 0, kk), kk > 0);
-      wgmma_commit();
-      wgmma_wait<0>();
+      fwd_scores(sc, sQ, wg, kt);
 
-      // scale, mask (partial tiles only), row max
+      // scale, mask (partial tiles only)
       uint32_t bits[BN / 32];
       if (e & PARTIAL) {
         tile_bits<BN>(bits, maskb, LISTED ? e & ~PARTIAL : i, Skv);
@@ -302,7 +284,6 @@ fwd_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUt
 #pragma unroll
         for (int w = 0; w < BN / 32; ++w) bits[w] = 0xffffffffu;
       }
-      float mx0 = m0, mx1 = m1;
 #pragma unroll
       for (int j = 0; j < BN / 8; ++j) {
 #pragma unroll
@@ -310,48 +291,9 @@ fwd_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUt
           const bool ok = col_ok(bits, j, tq, c);
           sc[4 * j + c] = ok ? sc[4 * j + c] * scale : NEG;
           sc[4 * j + 2 + c] = ok ? sc[4 * j + 2 + c] * scale : NEG;
-          mx0 = fmaxf(mx0, sc[4 * j + c]);
-          mx1 = fmaxf(mx1, sc[4 * j + 2 + c]);
         }
       }
-#pragma unroll
-      for (int off = 1; off < 4; off <<= 1) {
-        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
-        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
-      }
-      const float a0 = __expf(m0 - mx0), a1 = __expf(m1 - mx1);
-      m0 = mx0;
-      m1 = mx1;
-
-      // P = exp(S - m) as bf16 A fragments of P V; the row sums take the
-      // unrounded P
-      uint32_t pf[BN / 16][4];
-      float rs0 = 0.f, rs1 = 0.f;
-#pragma unroll
-      for (int j = 0; j < BN / 8; ++j) {
-        const float p0 = __expf(sc[4 * j] - m0), p1 = __expf(sc[4 * j + 1] - m0);
-        const float p2 = __expf(sc[4 * j + 2] - m1), p3 = __expf(sc[4 * j + 3] - m1);
-        rs0 += p0 + p1;
-        rs1 += p2 + p3;
-        pf[j >> 1][(j & 1) * 2 + 0] = pack_bf16(p0, p1);
-        pf[j >> 1][(j & 1) * 2 + 1] = pack_bf16(p2, p3);
-      }
-      l0 = l0 * a0 + rs0;
-      l1 = l1 * a1 + rs1;
-#pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
-        o[4 * j] *= a0;
-        o[4 * j + 1] *= a0;
-        o[4 * j + 2] *= a1;
-        o[4 * j + 3] *= a1;
-      }
-
-      // O += P V
-      wgmma_fence();
-#pragma unroll
-      for (int kb = 0; kb < BN / 16; ++kb) wgmma_rs_n128(o, pf[kb], desc_mn<BN>(vt, kb));
-      wgmma_commit();
-      wgmma_wait<0>();
+      fwd_softmax_pv(sc, o, m0, m1, l0, l1, vt);
       if ((threadIdx.x & 127) == 0) mbar_arrive(empty + 8 * s);
     }
 

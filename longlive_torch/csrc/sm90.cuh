@@ -1,5 +1,6 @@
 // Hopper (sm_90a) helpers shared by the TMA + wgmma kernels of this
-// directory (causal_conv.cu, flash_attention.cu, flash_attention_train.cu):
+// directory (causal_conv.cu, flash_attention.cu, flash_attention_train.cu,
+// flash_attention_masked.cu, int8_linear.cu, res_block_pair.cu):
 // mbarriers, TMA tensor loads and the driver entry that encodes their tensor
 // maps, wgmma shared-memory descriptors, the bf16 and s8 products of the
 // attention kernels and wgmma's fence / commit / wait, and the register and

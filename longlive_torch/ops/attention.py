@@ -41,6 +41,7 @@ and ``flash_attention_frame_masked``'s are [B, Skv, N, D].
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 import os
 from typing import List, Optional, Sequence, Tuple
@@ -69,8 +70,8 @@ flag_launches = {"exp2": 0, "mxu_lsum": 0}
 
 # kernel launches of flash_attention_frame_masked since the last reset, by mask kind
 masked_launches = {"block_causal": 0, "sink_window": 0, "teacher_forcing": 0}
-MASKED_TILE_Q, MASKED_TILE_KV = 128, 64  # its kernel's tiles: the granularity of its elision
-MASKED_MAX_KV_TILES = 4096  # its kernel's live-tile list in shared memory (262144 kv tokens)
+MASKED_TILE_Q, MASKED_TILE_KV = 128, 128  # its kernel's tiles: the granularity of its elision
+MASKED_MAX_KV_TILES = 2048  # its kernel's live-tile list in shared memory (262144 kv tokens)
 _MASKED_PLAIN_ROWS = 2048  # query rows per chunk of its plain version
 
 
@@ -592,6 +593,40 @@ def flash_attention_frame_masked_plain(q: torch.Tensor, k: torch.Tensor, v: torc
 _MASK_KIND_IDS = {"block_causal": 0, "sink_window": 1, "teacher_forcing": 2}
 
 
+def frame_mask_cta_order(kind: str, sq: int, skv: int, frame_seq: int, nfb: int = 1,
+                         local: int = -1, sink: int = 0, clean_frames: int = 0) -> torch.Tensor:
+    """The order in which the kernel's CTAs take their q tiles (int32 on
+    the CPU, a permutation of the ``ceil(sq / MASKED_TILE_Q)`` tiles):
+    descending live-tile count (``frame_mask_live_tiles`` at the kernel's
+    tiles), ties in tile order.  The heaviest CTAs then start in the first
+    wave and the light ones fill the tail.  (With elision off every CTA
+    walks every tile, and the order changes nothing.)"""
+    live = frame_mask_live_tiles(kind, sq, skv, MASKED_TILE_Q, MASKED_TILE_KV, frame_seq, nfb,
+                                 local, sink, clean_frames)
+    return torch.argsort(-live.sum(dim=1), stable=True).to(torch.int32)
+
+
+@functools.lru_cache(maxsize=64)
+def _cta_order_on(device: torch.device, *args) -> torch.Tensor:
+    """``frame_mask_cta_order(*args)`` on ``device``, made once per geometry
+    (copied from pinned memory without a host wait)."""
+    return frame_mask_cta_order(*args).pin_memory().to(device, non_blocking=True)
+
+
+def _frame_masked_launch(qs, k, v, out, order, mask_kind, frame_seq, nfb, local, sink,
+                         clean_frames, elide) -> None:
+    """One launch of the kernel on the scaled q ``qs``, its q tiles taken in
+    ``order`` (int32 on q's device)."""
+    b, sq, n, _ = qs.shape
+    lib = kernels.load("flash_attention_masked")
+    fn = lib.longlive_flash_masked
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+    rc = fn(qs.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), order.data_ptr(), b, sq,
+            k.shape[1], n, _MASK_KIND_IDS[mask_kind], frame_seq, nfb, local, sink, clean_frames,
+            int(elide), _stream(qs))
+    kernels.check(lib, rc, f"flash_attention_frame_masked ({mask_kind})")
+
+
 def flash_attention_frame_masked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                  mask_kind: str = "block_causal", frame_seq: int,
                                  nfb: int = 1, local: int = -1, sink: int = 0,
@@ -652,13 +687,10 @@ def flash_attention_frame_masked(q: torch.Tensor, k: torch.Tensor, v: torch.Tens
         _check_operand(name, t, torch.bfloat16, shape, q.device)
     qs = _scaled_q(q, 1.0 / math.sqrt(d))
     out = torch.empty_like(q)
-    lib = kernels.load("flash_attention_masked")
-    fn = lib.longlive_flash_masked
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
-    rc = fn(qs.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq, skv, n,
-            _MASK_KIND_IDS[mask_kind], frame_seq, nfb, local, sink, clean_frames,
-            int(elide_dead_tiles), _stream(q))
-    kernels.check(lib, rc, f"flash_attention_frame_masked ({mask_kind})")
+    order = _cta_order_on(q.device, mask_kind, sq, skv, frame_seq, nfb, local, sink,
+                          clean_frames)
+    _frame_masked_launch(qs, k, v, out, order, mask_kind, frame_seq, nfb, local, sink,
+                         clean_frames, elide_dead_tiles)
     masked_launches[mask_kind] += 1
     return out
 

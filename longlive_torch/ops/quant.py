@@ -14,8 +14,9 @@ on ``w_int8``.  Two routes compute them:
   multiplied by ``int_matmul`` (``torch._int_mm`` on CUDA);
 - ``linear_int8_fused`` (``LONGLIVE_INT8_FUSED`` set and not ``0``, read
   by ``models.nn.linear`` at call time as in the JAX package): K5,
-  the hand-written Hopper kernel of ``csrc/int8_linear.cu``, which
-  quantizes each row of x inside the matmul.  Its shape rule is the JAX
+  the hand-written Hopper kernels of ``csrc/int8_linear.cu`` (a pass that
+  quantizes each row of x once, then an s8 GEMM with the rescale in its
+  epilogue), one call and one count.  Its shape rule is the JAX
   package's: ``w`` 2-D, K <= 4096, K % 128 == 0 and M >= 256; other shapes
   take ``linear_int8``.  On a CPU tensor it runs
   ``linear_int8_fused_plain``, the kernel's arithmetic in PyTorch.
@@ -34,6 +35,7 @@ package's division.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import Dict
 
@@ -159,28 +161,119 @@ def slice_linear(p: dict, lo: int, hi: int) -> dict:
     return {k: v[lo:hi] for k, v in p.items() if v is not None}
 
 
-def linear_int8_fused_plain(x: torch.Tensor, p: dict) -> torch.Tensor:
-    """K5's arithmetic: per row, amax = max(max|x|, 1e-8) in float32,
-    r = 127 / amax, q = clip(round(x * r), -127, 127), s_x = amax * (1/127);
-    y = (acc * s_x) * s_W (+ bias) in float32, rounded once to x's dtype."""
-    lead = x.shape[:-1]
-    xf = x.reshape(-1, x.shape[-1]).float()
+def quantize_rows_plain(x2: torch.Tensor):
+    """K5's quantize pass on x [M, K]: per row, amax = max(max|x|, 1e-8) in
+    float32, r = 127 / amax, xq = clip(round(x * r), -127, 127) int8 and
+    s_x = amax * (1/127) float32 [M]."""
+    xf = x2.float()
     amax = torch.clamp_min(xf.abs().amax(dim=-1, keepdim=True), 1e-8)
     xq = torch.clamp(torch.round(xf * _rdiv(127.0, amax)), -127, 127).to(torch.int8)
-    sx = amax * (1.0 / 127.0)
-    y = int_matmul(xq, p["w_int8"]).float() * sx * p["w_scale"].float()
+    return xq, (amax * (1.0 / 127.0)).squeeze(-1)
+
+
+def linear_int8_fused_plain(x: torch.Tensor, p: dict) -> torch.Tensor:
+    """K5's arithmetic: ``quantize_rows_plain``, then y = (acc * s_x) * s_W
+    (+ bias) in float32, rounded once to x's dtype."""
+    lead = x.shape[:-1]
+    xq, sx = quantize_rows_plain(x.reshape(-1, x.shape[-1]))
+    y = int_matmul(xq, p["w_int8"]).float() * sx[:, None] * p["w_scale"].float()
     if p.get("bias") is not None:
         y = y + p["bias"].float()
     return y.to(x.dtype).reshape(*lead, -1)
 
 
+@functools.lru_cache(maxsize=None)
+def _sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def _lib():
+    """K5's library, its entry points' argument types set once."""
+    lib = kernels.load("int8_linear")
+    lib.longlive_int8_linear.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p]
+                                         + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    lib.longlive_int8_quantize_rows.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
+                                                + [ctypes.c_void_p])
+    return lib
+
+
+def _check_x(x2: torch.Tensor) -> None:
+    if x2.dtype != torch.bfloat16 or not x2.is_contiguous() or x2.data_ptr() % 16:
+        raise ValueError(f"linear_int8_fused: x must be contiguous, 16-byte aligned bf16, "
+                         f"got {x2.dtype}")
+
+
+def kernel_quantized_rows(x2: torch.Tensor):
+    """(xq [M, K] int8, s_x [M] float32) as K5's quantize pass writes them
+    for the GEMM, for x [M, K] bf16 on a CUDA device (K % 128 == 0, K <=
+    4096): ``quantize_rows_plain``'s values, bit for bit.  Not a launch of
+    ``linear_int8_fused`` (not counted)."""
+    if x2.device.type != "cuda" or x2.ndim != 2 or x2.shape[1] % 128 or x2.shape[1] > 4096:
+        raise ValueError("kernel_quantized_rows: x must be [M, K] on a CUDA device, "
+                         "K % 128 == 0 and K <= 4096")
+    _check_x(x2)
+    m, k = x2.shape
+    xq = torch.empty((m, k), dtype=torch.int8, device=x2.device)
+    sx = torch.empty((m,), dtype=torch.float32, device=x2.device)
+    lib = _lib()
+    rc = lib.longlive_int8_quantize_rows(x2.data_ptr(), xq.data_ptr(), sx.data_ptr(), m, k,
+                                         torch.cuda.current_stream(x2.device).cuda_stream)
+    kernels.check(lib, rc, "kernel_quantized_rows")
+    return xq, sx
+
+
+def _int8_linear_launch(x2: torch.Tensor, w, ws, bias) -> torch.Tensor:
+    """One call of the kernel library (the quantize pass, then the GEMM) on
+    checked operands; returns [M, N] in x's dtype."""
+    m, k = x2.shape
+    n = w.shape[0]
+    out = torch.empty((m, n), dtype=x2.dtype, device=x2.device)
+    scratch = torch.empty((m * k + 4 * m,), dtype=torch.int8, device=x2.device)  # xq, then s_x
+    bias_ptr, bias_bf16 = (None, 0) if bias is None else (bias.data_ptr(),
+                                                          int(bias.dtype == torch.bfloat16))
+    lib = _lib()
+    rc = lib.longlive_int8_linear(x2.data_ptr(), scratch.data_ptr(), w.data_ptr(), ws.data_ptr(),
+                                  bias_ptr, bias_bf16, out.data_ptr(), m, n, k, _sms(x2.device),
+                                  torch.cuda.current_stream(x2.device).cuda_stream)
+    kernels.check(lib, rc, "linear_int8_fused")
+    return out
+
+
+def _fused_operands(x: torch.Tensor, p: dict):
+    """(x as [M, K], w_int8, w_scale, a float32 or bf16 bias or None),
+    checked for the kernel: anything it does not take raises ValueError."""
+    w = p["w_int8"]
+    n, k = w.shape
+    x2 = x.reshape(-1, k)
+    _check_x(x2)
+    ws = p["w_scale"]
+    bias = p.get("bias")
+    if bias is not None and bias.dtype not in (torch.float32, torch.bfloat16):
+        bias = bias.float()
+    if w.dtype != torch.int8 or not w.is_contiguous() or w.data_ptr() % 16 or n % 8:
+        raise ValueError(f"linear_int8_fused: w_int8 must be contiguous, 16-byte aligned "
+                         f"int8 [N, K] with N % 8 == 0, got {w.dtype} {tuple(w.shape)}")
+    if ws.dtype != torch.float32 or ws.shape != (n,) or not ws.is_contiguous():
+        raise ValueError(f"linear_int8_fused: w_scale must be contiguous float32 [{n}]")
+    if bias is not None:
+        if bias.shape != (n,):
+            raise ValueError(f"linear_int8_fused: bias must be [{n}]")
+        bias = bias.contiguous()
+    for name, t in (("w_int8", w), ("w_scale", ws), ("bias", bias)):
+        if t is not None and t.device != x.device:
+            raise ValueError(f"linear_int8_fused: {name} is on {t.device}, x on {x.device}")
+    return x2, w, ws, bias
+
+
 def linear_int8_fused(x: torch.Tensor, p: dict) -> torch.Tensor:
-    """The int8 linear with the activation quantize inside the matmul
+    """The int8 linear with the activation quantize inside the kernel
     (K5).  Shapes outside the JAX package's rule for its kernel (w 2-D,
     K <= 4096, K % 128 == 0, M >= 256) take ``linear_int8``.  CPU tensors
-    run the plain version.  CUDA tensors launch the kernel, which
-    takes a bf16 x, contiguous int8 [N, K] weights with N % 8 == 0 and
-    float32 scales; anything else raises ValueError."""
+    run the plain version.  CUDA tensors launch the kernel (its quantize
+    pass, then its GEMM), which takes a bf16 x, contiguous int8 [N, K]
+    weights with N % 8 == 0, float32 scales and a float32 or bf16 bias
+    (read as its float32 value); anything else raises ValueError."""
     w = p["w_int8"]
     k = w.shape[-1]
     if w.ndim != 2 or k > 4096 or k % 128 or math.prod(x.shape[:-1]) < 256:
@@ -190,34 +283,7 @@ def linear_int8_fused(x: torch.Tensor, p: dict) -> torch.Tensor:
     global launches
     if x.device.type != "cuda":
         raise ValueError(f"linear_int8_fused: unsupported device {x.device}")
-    n = w.shape[0]
-    lead = x.shape[:-1]
-    m = math.prod(lead)
-    x2 = x.reshape(m, k)
-    ws = p["w_scale"]
-    bias = p.get("bias")
-    bias = None if bias is None else bias.float().contiguous()
-    if x2.dtype != torch.bfloat16 or not x2.is_contiguous() or x2.data_ptr() % 16:
-        raise ValueError(f"linear_int8_fused: x must be contiguous, 16-byte aligned bf16, "
-                         f"got {x.dtype}")
-    if w.dtype != torch.int8 or not w.is_contiguous() or w.data_ptr() % 16 or n % 8:
-        raise ValueError(f"linear_int8_fused: w_int8 must be contiguous, 16-byte aligned "
-                         f"int8 [N, K] with N % 8 == 0, got {w.dtype} {tuple(w.shape)}")
-    for name, t in (("w_scale", ws), ("bias", bias)):
-        if t is not None and (t.dtype != torch.float32 or t.shape != (n,)
-                              or not t.is_contiguous()):
-            raise ValueError(f"linear_int8_fused: {name} must be contiguous float32 [{n}]")
-    for name, t in (("w_int8", w), ("w_scale", ws), ("bias", bias)):
-        if t is not None and t.device != x.device:
-            raise ValueError(f"linear_int8_fused: {name} is on {t.device}, x on {x.device}")
-    out = torch.empty((m, n), dtype=x.dtype, device=x.device)
-    lib = kernels.load("int8_linear")
-    fn = lib.longlive_int8_linear
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    rc = fn(x2.data_ptr(), w.data_ptr(), ws.data_ptr(),
-            None if bias is None else bias.data_ptr(), out.data_ptr(), m, n, k,
-            torch.cuda.get_device_properties(x.device).multi_processor_count,
-            torch.cuda.current_stream(x.device).cuda_stream)
-    kernels.check(lib, rc, "linear_int8_fused")
+    x2, w, ws, bias = _fused_operands(x, p)
+    out = _int8_linear_launch(x2, w, ws, bias)
     launches += 1
-    return out.reshape(*lead, n)
+    return out.reshape(*x.shape[:-1], w.shape[0])

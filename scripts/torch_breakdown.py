@@ -24,7 +24,8 @@ backward.  Device kernel time is grouped into the port's kernels, matrix
 products, library convolutions and the rest ("other", whose largest
 kernels are also listed on their own: ``other_top_kernels``); K2 (``fused_causal_conv``)
 counts all its kernels, the input pass (norm + SiLU, the new cache) and the
-conv, and for int8 the input pass, the quantize pass and the GEMM; K6
+conv, and for int8 the input pass, the quantize pass and the GEMM; K5
+(``linear_int8_fused``) its quantize pass and its GEMM; K6
 (``fused_res_block``) its launches of the shared input pass and GEMM, which
 carry names of their own; the passes are also reported on their own
 (``parts_ms``, ``parts_share_of_wall``).  The idle
@@ -62,8 +63,8 @@ GROUPS = (
     ("fused_causal_conv (K2)", ("causal_conv_wgmma_kernel", "conv_input_kernel",
                                 "causal_conv_int8_wgmma_kernel", "conv_int8_input_kernel",
                                 "conv_int8_quantize_kernel")),
-    ("flash_attention_frame_masked (K3)", ("::masked_kernel",)),
-    ("linear_int8_fused (K5)", ("int8_linear_kernel",)),
+    ("flash_attention_frame_masked (K3)", ("frame_masked_kernel",)),
+    ("linear_int8_fused (K5)", ("int8_linear_quantize_kernel", "int8_linear_gemm_kernel")),
     # cuDNN's conv kernels are named *_fprop_implicit_gemm_*: test before gemm
     ("library conv (cuDNN)", ("fprop", "conv", "cudnn", "winograd")),
     ("matmul (cuBLAS)", ("gemm", "nvjet", "cutlass", "xmma", "cublas")),
@@ -76,7 +77,9 @@ PARTS = (("K2's input pass", "conv_input_kernel<2>"),
          ("K2 int8's quantize pass", "conv_int8_quantize_kernel"),
          ("K2 int8's GEMM", "causal_conv_int8_wgmma_kernel"),
          ("K6's input and norm passes", "conv_input_kernel<6>"),
-         ("K6's conv1 with norm2 in its epilogue", "biasnormsilu"))
+         ("K6's conv1 with norm2 in its epilogue", "biasnormsilu"),
+         ("K5's quantize pass", "int8_linear_quantize_kernel"),
+         ("K5's GEMM", "int8_linear_gemm_kernel"))
 
 
 OTHER = "other (elementwise, copies, reductions)"
@@ -283,6 +286,9 @@ def main():
                         "LONGLIVE_INT8_FUSED=1)", _config("longlive_inference_tuned.yaml",
                                                           kv_int8=True),
                         int8=True, env={"LONGLIVE_INT8_FUSED": "1"})
+    for part in ("K5's quantize pass", "K5's GEMM"):  # a renamed kernel would read 0
+        if not int8["parts_ms"].get(part):
+            sys.exit(f"error: no {part} in the int8 serving block's profile")
     torch.cuda.empty_cache()
     options, _ = dit_block(dev, "DiT block, serving options (kernel_cache off, two-segment, "
                            "exp2, mxu_lsum)", _config("longlive_inference.yaml",

@@ -152,11 +152,15 @@ def test_flash_attention_qk_int8_kernel_matches_plain(dev, sq, s, valid, stored)
             A.flash_attention(q, k, v, bias.contiguous(), qk_int8=True, k_scales=ks[:, :-1])
 
 
-@pytest.mark.parametrize("m,k,n", [(4680, 1536, 1536), (300, 4096, 1000), (257, 128, 8)])
+@pytest.mark.parametrize("m,k,n", [(4680, 1536, 1536), (9360, 1536, 1536), (300, 4096, 1000),
+                                   (257, 128, 8)])
 def test_int8_linear_kernel_matches_plain(dev, m, k, n):
-    """K5 (64-row M tiles; 32 rows when K > 2048; a ragged last N tile) is
-    bit-equal to its plain version: the integer product is exact and the
-    rescale runs the same float32 operations in the same order."""
+    """K5 (its quantize pass, then the s8 wgmma GEMM on 128 x 128 tiles;
+    ragged last M and N tiles, N below one tile, K = 4096 and one 128-byte
+    K chunk) is bit-equal to its plain version: the quantize pass writes
+    ``quantize_rows_plain``'s int8 rows and scales, the integer product is
+    exact and the rescale runs the same float32 operations in the same
+    order.  M 9360 is the reactive replay's."""
     from longlive_torch.ops import quant as Q
 
     g = torch.Generator(device=dev).manual_seed(8)
@@ -165,8 +169,11 @@ def test_int8_linear_kernel_matches_plain(dev, m, k, n):
     p["bias"] = torch.randn((n,), generator=g, device=dev).to(torch.bfloat16)
     before = Q.launches
     out = Q.linear_int8_fused(x, p)
+    xq, sx = Q.kernel_quantized_rows(x)
     torch.cuda.synchronize()
     assert Q.launches == before + 1
+    pq, psx = Q.quantize_rows_plain(x)
+    assert torch.equal(xq, pq) and torch.equal(sx, psx)
     assert torch.equal(out, Q.linear_int8_fused_plain(x, p))
     _assert_agrees(out, Q.linear_int8(x, p))  # the other quantizer: one-step differences
     with pytest.raises(ValueError):
@@ -587,7 +594,9 @@ def test_flash_attention_cross_kernel_matches_plain(dev):
 
 
 # (kind, frame_seq, frames, nfb, local, sink, heads): frames cut against the
-# 128 x 64 tiles, a ragged kv tail (S % 64 != 0), a partial last block
+# 128 x 128 tiles, a ragged last kv and q tile (S % 128 != 0), a partial
+# last block, and 128-token frames with a one-frame window (each CTA's live
+# list is the single tile on its diagonal)
 MASKED_CASES = [
     ("teacher_forcing", 30, 5, 3, -1, 0, 2),
     ("teacher_forcing", 40, 6, 3, -1, 0, 1),
@@ -595,6 +604,7 @@ MASKED_CASES = [
     ("block_causal", 50, 9, 3, 4, 0, 1),
     ("sink_window", 30, 9, 3, 6, 1, 2),
     ("sink_window", 64, 6, 1, 4, 1, 1),
+    ("block_causal", 128, 5, 1, 1, 0, 2),
 ]
 
 
@@ -613,6 +623,10 @@ def test_frame_masked_kernel_matches_plain(dev, kind, fs, f, nfb, local, sink, n
     q, k, v = _masked_inputs(dev, kind, fs, f, n, 13)
     kw = dict(mask_kind=kind, frame_seq=fs, nfb=nfb, local=local, sink=sink,
               clean_frames=f if kind == "teacher_forcing" else 0)
+    if (fs, local) == (128, 1):
+        s = q.shape[1]
+        assert A.frame_mask_live_tiles(kind, s, s, A.MASKED_TILE_Q, A.MASKED_TILE_KV, fs, nfb,
+                                       local, sink).sum(1).eq(1).all()
     before = A.masked_launches[kind]
     out = A.flash_attention_frame_masked(q, k, v, elide_dead_tiles=True, **kw)
     full = A.flash_attention_frame_masked(q, k, v, elide_dead_tiles=False, **kw)

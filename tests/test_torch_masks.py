@@ -55,7 +55,7 @@ def test_frame_mask_spec_rejects_unknown_kind():
 
 
 # (kind, frame_seq, frames, nfb, local, sink): tokens per frame against the
-# port kernel's 128 x 64 tiles, ragged last tiles, a partial last block
+# port kernel's 128 x 128 tiles, ragged last tiles, a partial last block
 LIVE_CASES = [
     ("teacher_forcing", 40, 6, 3, -1, 0),
     ("teacher_forcing", 30, 7, 3, -1, 0),
@@ -82,6 +82,24 @@ def test_live_tiles_match_jax(kind, fs, f, nfb, local, sink):
     assert got.shape == (sq_p // bq, skv_p // bkv)
     np.testing.assert_array_equal(got.numpy().reshape(-1), np.asarray(live).astype(bool))
     assert 0 < n_live < n_total
+
+
+@pytest.mark.parametrize("kind,fs,f,nfb,local,sink", LIVE_CASES)
+def test_cta_order_is_heaviest_first(kind, fs, f, nfb, local, sink):
+    """The kernel's CTAs take the q tiles as a permutation in descending
+    order of their live kv tiles (ties in tile order)."""
+    tf = kind == "teacher_forcing"
+    s = (2 if tf else 1) * f * fs
+    cf = f if tf else 0
+    order = TA.frame_mask_cta_order(kind, s, s, fs, nfb, local, sink, cf)
+    nq = -(-s // TA.MASKED_TILE_Q)
+    assert order.dtype == torch.int32
+    assert torch.equal(torch.sort(order).values, torch.arange(nq, dtype=torch.int32))
+    count = TA.frame_mask_live_tiles(kind, s, s, TA.MASKED_TILE_Q, TA.MASKED_TILE_KV, fs, nfb,
+                                     local, sink, cf).sum(1)[order.long()]
+    assert (count[:-1] >= count[1:]).all()
+    ties = count[:-1] == count[1:]
+    assert (order[:-1][ties] < order[1:][ties]).all()
 
 
 def _qkv(seed, s, n, scale=1.0):

@@ -111,6 +111,58 @@ def test_fused_linear_matches_jax_interpret(monkeypatch, m, k, n, route):
     assert TQ.linear_int8_calls == 1
 
 
+@pytest.mark.parametrize("m,k", [(300, 256), (257, 4096), (260, 128)])
+def test_quantize_pass_equals_jax_kernel_formula(m, k):
+    """K5's quantize pass (its plain version, which the GPU kernel equals
+    bit for bit) against the JAX kernel's formula (``_mm_q_kernel``:
+    amax, 127 / amax, clip(round(x * r)), amax * (1 / 127)), exactly."""
+    rng = np.random.default_rng(3)
+    x = _x(rng, (m, k))
+    xq, sx = TQ.quantize_rows_plain(torch.from_numpy(x))
+    xf = jnp.asarray(x)
+    amax = jnp.maximum(jnp.max(jnp.abs(xf), axis=-1, keepdims=True), 1e-8)
+    jq = jnp.clip(jnp.round(xf * (127.0 / amax)), -127, 127).astype(jnp.int8)
+    assert xq.dtype == torch.int8 and sx.dtype == torch.float32 and sx.shape == (m,)
+    np.testing.assert_array_equal(xq.numpy(), np.asarray(jq))
+    np.testing.assert_array_equal(sx.numpy(), np.asarray(amax * (1.0 / 127.0))[:, 0])
+
+
+# The int8 serving path's linear shapes (M 512: the cross k, v; 4680: a
+# 3-frame block; 9360: the reactive replay; N 1536: q, k, v, o; 8960: fc1;
+# K 8960: fc2) and the cuda tests' ragged ones
+@pytest.mark.parametrize("m,k,n,route", [
+    (512, 1536, 1536, "fused"), (512, 1536, 8960, "fused"), (4680, 1536, 1536, "fused"),
+    (4680, 1536, 8960, "fused"), (9360, 1536, 1536, "fused"), (9360, 1536, 8960, "fused"),
+    (4680, 8960, 1536, "linear_int8"), (300, 4096, 1000, "fused"), (257, 128, 8, "fused"),
+])
+def test_fused_route_at_path_shapes(monkeypatch, m, k, n, route):
+    """The port's shape rule for K5 sends every path shape where the JAX
+    package's sends it (its kernel, or the separate-quantize route), with
+    the products on both sides replaced by recorders; a CPU tensor never
+    reaches the kernel."""
+    seen = []
+
+    def record(name):
+        def fn(x, *args, **kwargs):
+            seen.append(name)
+            return torch.zeros((m, n)) if isinstance(x, torch.Tensor) else jnp.zeros((m, n))
+        return fn
+
+    monkeypatch.setenv("LONGLIVE_INT8_FUSED", "interpret")
+    monkeypatch.setattr(TQ, "linear_int8_fused_plain", record("fused"))
+    monkeypatch.setattr(TQ, "linear_int8", record("linear_int8"))
+    monkeypatch.setattr(JQ, "_mm_q_call", record("fused"))
+    monkeypatch.setattr(JQ, "linear_int8", record("linear_int8"))
+    tp = {"w_int8": torch.zeros((n, k), dtype=torch.int8),
+          "w_scale": torch.ones(n), "bias": torch.zeros(n)}
+    jp = {"w_int8": jnp.zeros((k, n), jnp.int8), "w_scale": jnp.ones(n), "bias": jnp.zeros(n)}
+    TQ.reset_launches()
+    out = TQ.linear_int8_fused(torch.zeros((m, k), dtype=torch.bfloat16), tp)
+    JQ.linear_int8_fused(jnp.zeros((m, k), jnp.bfloat16), jp)
+    assert seen == [route, route]
+    assert out.shape == (m, n) and TQ.launches == 0
+
+
 def _jax_tree(cfg):
     p = JD.init_dit_params(jax.random.PRNGKey(0), cfg, jnp.float32, zero_head=False)
     return jax.tree.map(np.asarray, p)
