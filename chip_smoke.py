@@ -12,8 +12,8 @@ Phases, each of which exits non-zero when it fails:
 3. kernel checks at the paths' shapes: each kernel (K1 in its bias, q_rope,
    qk_int8 and two-segment modes, under the exp2 + mxu_lsum switches, as
    the cross-attention and at B = 2, its int8 q quantize bit-equal to the
-   plain pass, K2 bf16 and int8 (the int8 pre-pass's operand bit-equal
-   to its plain version), K6, K5, K3 under its three mask
+   plain pass, K2 bf16 and int8 at the decoder's and the encoder's shapes
+   (the int8 pre-pass's operand bit-equal to its plain version), K6, K5, K3 under its three mask
    kinds at the full forwards' shapes, elided bit-equal to unelided, K4's
    forward and its two backward kernels at the four training shapes)
    against its plain PyTorch version on the same
@@ -26,8 +26,9 @@ Phases, each of which exits non-zero when it fails:
    serving mode (int8 linears, int8 K cache, int8 recache, int8 VAE convs),
    the serving options (two-segment decode, exp2, mxu_lsum, the fused res
    block), the full-sequence forwards (teacher forcing, and a sink-window
-   ``FrameMaskSpec``; once more under ``LONGLIVE_CROSS_FLASH=1``) and one
-   training step;
+   ``FrameMaskSpec``; once more under ``LONGLIVE_CROSS_FLASH=1``), the two
+   encoders (umT5 ``encode_prompts``, and ``vae_encode`` at widths where K2
+   takes the res-block convs) and one training step;
 5. the paths, at full Wan2.1-1.3B width with random weights, each with
    every kernel's launch count checked against the count derived from the
    model structure:
@@ -58,6 +59,17 @@ Phases, each of which exits non-zero when it fails:
       tokens), then the teacher-forcing forward again under
       ``LONGLIVE_CROSS_FLASH=1``, non-zero heads, K3 launched once per
       layer (and K1 as the cross-attention once per layer in the last);
+   u. text encoder: umT5-XXL at full width in bf16, ``encode_prompts`` on
+      1 and 2 prompts of 512 ids; ``run_inference`` with it (the prompt
+      encoded, the T5 moved to the host, 6 frames conditioned on it, with
+      decode); then the streamed encode from the pinned host weights, equal
+      to the resident one with a peak below 3 GiB;
+   v. VAE encode: the full Wan VAE encoder on one 480x832 frame, then 17
+      frames (5 latent frames), K2 launched 20 times per chunk;
+   w. checkpoint load: synthetic full-width generator, rank-256 LoRA and
+      Wan VAE files in the reference's key layout, loaded bit-equal to a
+      direct conversion, then ``run_inference`` on them (the main path's
+      launches);
    g. training: ``run_train`` on ``configs/longlive_train_init.yaml`` (21
       frames, generator, critic and teacher all 1.3B) for 2 steps, K4's
       forward and backward launches checked; then one step of the same
@@ -976,8 +988,10 @@ def check_int8_linear(torch, Q):
 
 # The 30 fused convs of one later latent frame of the Wan2.1 decoder at
 # 480x832: (label, T, H, W, C, O, kernel rows/cols, norm, residual, count).
-# The last two cases are the first latent frame's (T = 1) at the two widest
-# stages: timed and checked, but outside the 30-conv sum (count 0).
+# The next two cases are the first latent frame's (T = 1) at the two widest
+# stages, the last two the encoder's one conv shape no decoder conv has
+# (its stage-1 shortcut block's conv1, in a later chunk and in the first):
+# timed and checked, but outside the 30-conv sum (count 0).
 CONV_CASES = [
     ("res conv1 384@60x104", 1, 60, 104, 384, 384, 3, True, False, 5),
     ("res conv2 384@60x104", 1, 60, 104, 384, 384, 3, True, True, 5),
@@ -992,6 +1006,9 @@ CONV_CASES = [
     ("res conv2 96@480x832", 4, 480, 832, 96, 96, 3, True, True, 3),
     ("res conv1 96@480x832 T=1 (first latent frame)", 1, 480, 832, 96, 96, 3, True, False, 0),
     ("res conv2 192@240x416 T=1 (first latent frame)", 1, 240, 416, 192, 192, 3, True, True, 0),
+    ("encoder shortcut-block conv1 96->192@240x416", 4, 240, 416, 96, 192, 3, True, False, 0),
+    ("encoder shortcut-block conv1 96->192@240x416 T=1 (first chunk)", 1, 240, 416, 96, 192, 3,
+     True, False, 0),
 ]
 
 
@@ -1492,6 +1509,53 @@ def check_small_full_forwards(torch, A, VC):
     return errs
 
 
+def check_small_encoders(torch, VC) -> dict:
+    """The two encoders on small inputs, GPU (bf16) vs CPU (float32):
+    ``encode_prompts`` of a 3-layer umT5 at width 512 (plain PyTorch, no
+    kernel) on two prompts of 64 ids (40 and 17 valid); ``vae_encode`` of 5
+    frames at 32 x 48 at the widths where K2 takes the res-block convs (96
+    -> 192, two stages, one temporal downsample), which launches K2 8
+    times per chunk of 1, 2, 2 frames (both convs of its 4 res blocks)."""
+    from longlive_torch.models import t5 as T5
+    from longlive_torch.models import vae as V
+
+    errs = {}
+    tcfg = T5.T5Config(vocab_size=1000, dim=512, dim_attn=512, dim_ffn=1024, num_heads=8,
+                       num_layers=3, text_len=64)
+    tp32 = T5.init_t5_params(tcfg, torch.float32, "cpu", seed=21)
+    g = torch.Generator().manual_seed(22)
+    ids = torch.randint(1, tcfg.vocab_size, (2, tcfg.text_len), generator=g)
+    mask = (torch.arange(tcfg.text_len)[None] < torch.tensor([[40], [17]])).long()
+    feats = {}
+    for dev, dt in (("cpu", torch.float32), ("cuda", torch.bfloat16)):
+        feats[dev] = T5.encode_prompts(to_dev(tp32, dev, dt), tcfg, (ids * mask).to(dev),
+                                       mask.to(dev))
+    if not torch.isfinite(feats["cuda"]).all() or feats["cuda"][1, 17:].any():
+        fail("small T5 reference: non-finite GPU features, or padding rows not zero")
+    errs["T5 encode_prompts"] = rel_err(feats["cuda"], feats["cpu"])
+
+    vcfg = dataclasses.replace(V.tiny_vae_config(), dim=96, z_dim=16)  # widths 96/192: fused
+    vp32 = V.init_vae_params(vcfg, torch.float32, "cpu", seed=23)
+    px = torch.rand((1, 5, 3, 32, 48), generator=g) * 2 - 1
+    mu_cpu = V.vae_encode(vp32, vcfg, px)
+    vp_gpu = V.pack_fused_weights(to_dev(vp32, "cuda", torch.bfloat16))
+    before = VC.mode_launches["bf16"]
+    mu_gpu = V.vae_encode(vp_gpu, vcfg, px.to("cuda", torch.bfloat16))
+    torch.cuda.synchronize()
+    if VC.mode_launches["bf16"] - before != 8 * 3:
+        fail(f"small VAE encode: K2 launched {VC.mode_launches['bf16'] - before} times, "
+             "expected 24 (8 res-block convs x 3 chunks)")
+    if tuple(mu_gpu.shape) != (1, 3, 16, 16, 24) or not torch.isfinite(mu_gpu).all():
+        fail(f"small VAE encode: latents {tuple(mu_gpu.shape)} or non-finite")
+    errs["VAE encode"] = rel_err(mu_gpu, mu_cpu)
+    log("small encoder reference (GPU bf16 vs CPU float32; limit 5e-2): "
+        + ", ".join(f"{k} rel_err={v:.3e}" for k, v in errs.items()))
+    bad = {k: v for k, v in errs.items() if not v <= 5e-2}
+    if bad:
+        fail(f"small encoder reference disagrees (limit 5e-2): {bad}")
+    return errs
+
+
 # ---------------------------------------------------------------------------
 # phase 5: the paths at full width
 
@@ -1521,7 +1585,12 @@ def derived():
     n_short = sum((dims[i] // 2 if i else dims[i]) != dims[i + 1]
                   for i in range(len(vcfg.dim_mult)))
     k5_full, k5_commit = 7 * layers, 7 * (layers - 1) + 2
+    # the encoder: both convs of every res block (num_res_blocks per stage,
+    # two in the middle) per chunk of 1, 4, 4, ... pixel frames
+    n_enc = len(vcfg.dim_mult) * vcfg.num_res_blocks + 2
+    stride_t = 2 ** sum(vcfg.temperal_downsample)
     return {"block": layers * steps + layers - 1, "block_nocommit": layers * steps,
+            "enc_conv": lambda frames: 2 * n_enc * (1 + (frames - 1) // stride_t),
             "recache": layers - 1,
             "conv": lambda frames: 2 * n_res + (frames - 1) * (2 * n_res + n_time),
             "pair": lambda frames: (n_res - n_short) * frames,
@@ -1958,6 +2027,292 @@ def run_full_forwards_path(torch, A, VC) -> dict:
     return out
 
 
+class StubTokenizer:
+    """The HF tokenizer's interface without its assets (the chip machine
+    has neither ``transformers`` nor the umT5 files): each character one
+    id, then padding to ``max_length``."""
+
+    def __init__(self, vocab: int):
+        self.vocab = vocab
+
+    def __call__(self, texts, padding, truncation, max_length, return_tensors,
+                 add_special_tokens):
+        import numpy as np
+
+        ids = np.zeros((len(texts), max_length), np.int64)
+        mask = np.zeros_like(ids)
+        for i, text in enumerate(texts):
+            toks = [1 + ord(c) % (self.vocab - 1) for c in text][:max_length]
+            ids[i, :len(toks)], mask[i, :len(toks)] = toks, 1
+        return {"input_ids": ids, "attention_mask": mask}
+
+
+def run_text_encoder_path(torch, A, VC) -> dict:
+    """umT5-XXL at full width (24 layers, dim 4096, 5.68 G parameters) in
+    bf16, random weights drawn on the card: ``encode_prompts`` on 1 and 2
+    prompts of 512 ids (40 and 90 valid), resident; then ``run_inference``
+    on a copy of ``configs/longlive_inference.yaml`` with one prompt and
+    ``load_text_encoder`` giving this encoder (a stub tokenizer): it
+    encodes the prompt, moves the T5's weights to the host's pinned memory
+    and generates 6 latent frames conditioned on it, with the decode; then
+    ``t5_encode_streamed`` from the pinned host weights, held equal to the
+    resident encode (limit 1e-2 relative) with a peak below 3 GiB above the
+    memory in use when it starts."""
+    import unittest.mock
+
+    import yaml
+
+    from longlive_torch import run_inference
+    from longlive_torch.models import t5 as T5
+    from longlive_torch.utils import loading
+
+    label, frames, dv = "text encoder", 6, derived()
+    tcfg = T5.T5Config()
+    t0 = time.perf_counter()
+    enc = T5.T5TextEncoder(T5.init_t5_params(tcfg, torch.bfloat16, "cuda", seed=11), tcfg,
+                           device="cuda", tokenizer=StubTokenizer(tcfg.vocab_size))
+    torch.cuda.synchronize()
+    out = {"init_s": time.perf_counter() - t0}
+    g = torch.Generator(device="cuda").manual_seed(12)
+    ids = torch.randint(1, tcfg.vocab_size, (2, tcfg.text_len), generator=g, device="cuda")
+    mask = (torch.arange(tcfg.text_len, device="cuda")[None]
+            < torch.tensor([[40], [90]], device="cuda")).long()
+    ids = ids * mask
+    resident = {}
+    for b in (1, 2):
+        enc.encode_ids(ids[:b], mask[:b])  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        resident[b] = enc.encode_ids(ids[:b], mask[:b])
+        torch.cuda.synchronize()
+        out[f"resident_ms_batch{b}"] = (time.perf_counter() - t0) * 1e3
+        out[f"resident_peak_gib_batch{b}"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        f = resident[b]
+        if (tuple(f.shape) != (b, tcfg.text_len, tcfg.dim) or not torch.isfinite(f).all()
+                or f[0, 40:].any() or not f[0, :40].any()):
+            fail(f"{label}: resident features {tuple(f.shape)}, non-finite or padding not zero")
+
+    with open(os.path.join(ROOT, "configs", "longlive_inference.yaml")) as f:
+        raw = yaml.safe_load(f)
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    raw["data_path"] = os.path.join(ROOT, "build", "chip_smoke_prompt.txt")
+    with open(raw["data_path"], "w") as f:
+        f.write("A lighthouse on a cliff at night, waves breaking below, slow pan\n")
+    path = os.path.join(ROOT, "build", "chip_smoke_text_encoder.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(raw, f)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(A, VC)
+    t0 = time.perf_counter()
+    with unittest.mock.patch.object(loading, "load_text_encoder", lambda *a, **k: enc):
+        results, text = run_captured(lambda: run_inference.main([
+            "--config_path", path, "--num_output_frames", str(frames), "--device", "cuda"]))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = counts(A, VC)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if len(results) != 1 or not enc.low_memory:
+        fail(f"{label}: {len(results)} videos (expected 1), T5 offloaded: {enc.low_memory}")
+    check_video(torch, label, results[0], frames)
+    check_counts(label, got, expect(bias=(frames // 3) * dv["block"], conv=dv["conv"](frames)))
+    out.update(run_inference_wall_s=wall, run_inference_peak_gib=peak, launches=got,
+               decode_ms_per_latent_frame=results[0]["decode_s"] / frames * 1e3)
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    start = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    streamed = enc.encode_ids(ids, mask)
+    torch.cuda.synchronize()
+    out["streamed_ms_batch2"] = (time.perf_counter() - t0) * 1e3
+    out["streamed_peak_above_start_gib"] = (torch.cuda.max_memory_allocated() - start) / 2 ** 30
+    err = rel_err(streamed, resident[2])
+    out["streamed_rel_err"] = err
+    log(f"{label}: init {out['init_s']:.1f} s; resident encode_prompts "
+        f"{out['resident_ms_batch1']:.1f} ms (batch 1), {out['resident_ms_batch2']:.1f} ms "
+        f"(batch 2), peak {out['resident_peak_gib_batch2']:.2f} GiB; run_inference (encode, "
+        f"offload, 6 frames, decode) {wall:.1f} s wall, peak {peak:.2f} GiB; streamed "
+        f"{out['streamed_ms_batch2']:.1f} ms (batch 2), peak "
+        f"{out['streamed_peak_above_start_gib']:.3f} GiB above its start, rel_err {err:.3e}")
+    if not err <= 1e-2:
+        fail(f"{label}: streamed encode disagrees with the resident one: {err} (limit 1e-2)")
+    if not out["streamed_peak_above_start_gib"] < 3:
+        fail(f"{label}: streamed peak {out['streamed_peak_above_start_gib']:.2f} GiB >= 3")
+    return out
+
+
+def run_vae_encode_path(torch, A, VC) -> dict:
+    """The full Wan VAE encoder (random weights) on one 480x832 frame (the
+    streaming trainer's re-encode), then 17 frames (chunks 1 + 4 x 4, 5
+    latent frames): K2 launches 20 per chunk, normalised latents
+    [1, T', 16, 60, 104], finite."""
+    from longlive_torch.models import vae as V
+
+    label, dv = "vae encode", derived()
+    vcfg = V.VAEConfig()
+    params = V.init_vae_params(vcfg, torch.bfloat16, "cuda", seed=0)
+    g = torch.Generator(device="cuda").manual_seed(13)
+    out = {}
+    with torch.no_grad():
+        for frames in (1, 1, 17):  # the first call warms up
+            px = (torch.rand((1, frames, 3, 480, 832), generator=g, device="cuda") * 2
+                  - 1).to(torch.bfloat16)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts(A, VC)
+            t0 = time.perf_counter()
+            mu = V.vae_encode(params, vcfg, px)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            got = counts(A, VC)
+            latent = 1 + (frames - 1) // 4
+            if tuple(mu.shape) != (1, latent, 16, 60, 104) or not torch.isfinite(mu).all():
+                fail(f"{label} ({frames} frames): latents {tuple(mu.shape)} or non-finite")
+            check_counts(f"{label} ({frames} frames)", got, expect(conv=dv["enc_conv"](frames)))
+            out[f"{frames}_frames"] = {"ms_per_latent_frame": wall * 1e3 / latent,
+                                       "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                                       "launches": got}
+            log(f"{label} ({frames} frames, {latent} latent): {wall * 1e3:.1f} ms, "
+                f"{wall * 1e3 / latent:.2f} ms/latent-frame, peak "
+                f"{out[f'{frames}_frames']['peak_gib']:.2f} GiB")
+    out["launches"] = got  # the 17-frame encode's
+    return out
+
+
+def assert_trees_equal(torch, got, want, what: str, path: str = "") -> None:
+    """Bit equality of two parameter trees (keys, dtypes, shapes, values)."""
+    if isinstance(want, dict):
+        if set(got) != set(want):
+            fail(f"{what}: keys differ at {path or 'the root'}: {sorted(set(got) ^ set(want))}")
+        for k in want:
+            assert_trees_equal(torch, got[k], want[k], what, f"{path}.{k}")
+    elif isinstance(want, list):
+        if len(got) != len(want):
+            fail(f"{what}: {path} has {len(got)} entries, not {len(want)}")
+        for i, (a, b) in enumerate(zip(got, want)):
+            assert_trees_equal(torch, a, b, what, f"{path}[{i}]")
+    elif want is None:
+        if got is not None:
+            fail(f"{what}: {path} is not None")
+    elif isinstance(want, tuple):  # the int8 weights of a fused conv
+        assert_trees_equal(torch, list(got), list(want), what, path)
+    elif got.dtype != want.dtype or got.shape != want.shape or not torch.equal(got, want):
+        fail(f"{what}: {path} differs ({got.dtype} {tuple(got.shape)} vs {want.dtype} "
+             f"{tuple(want.shape)})")
+
+
+def run_checkpoint_load_path(torch, A, VC) -> dict:
+    """Checkpoint loading at full width, in a temporary working directory:
+    synthetic files in the reference's key layout (the port's random
+    parameters, fan-in scaled, non-zero head, through ``dit_state_dict`` /
+    ``vae_state_dict``): the generator as ``{"generator": sd}`` in bf16 with
+    ``_fsdp_wrapped_module.`` prefixes, a PEFT LoRA of the YAML's rank 256
+    on every attention and FFN linear as ``{"generator_lora": ...}`` with
+    ``base_model.model.`` and ``.default`` keys, and
+    ``wan_models/Wan2.1-T2V-1.3B/Wan2.1_VAE.pth`` with the encoder.  The
+    loaders' trees must be bit-equal to a direct in-memory conversion of the
+    same state dicts; then ``run_inference`` on a copy of
+    ``configs/longlive_inference.yaml`` pointing at them runs the main path
+    (15 frames, decode) with its launch counts."""
+    import tempfile
+
+    import yaml
+
+    from longlive_torch import run_inference
+    from longlive_torch.config import DiTConfig, load_pipeline_config
+    from longlive_torch.models import dit as D
+    from longlive_torch.models import vae as V
+    from longlive_torch.utils import checkpoint as CK
+    from longlive_torch.utils import loading
+
+    label, frames, dv = "checkpoint load", 15, derived()
+    cfg, vcfg = DiTConfig(), V.VAEConfig()
+    with open(os.path.join(ROOT, "configs", "longlive_inference.yaml")) as f:
+        raw = yaml.safe_load(f)
+    rank = int(raw["adapter"]["rank"])
+    cpu = lambda tree: {k: v.detach().to("cpu").contiguous() for k, v in tree.items()}  # noqa: E731
+    sd = cpu(CK.dit_state_dict(D.init_dit_params(cfg, torch.bfloat16, "cuda", seed=14,
+                                                 zero_head=False), cfg))
+    vsd = cpu(CK.vae_state_dict(V.init_vae_params(vcfg, torch.float32, "cuda", seed=15), vcfg))
+    g = torch.Generator(device="cuda").manual_seed(16)
+    lora = {}
+    for i in range(cfg.num_layers):
+        for t in ("self_attn.q", "self_attn.k", "self_attn.v", "self_attn.o", "cross_attn.q",
+                  "cross_attn.k", "cross_attn.v", "cross_attn.o", "ffn.0", "ffn.2"):
+            o, n = sd[f"blocks.{i}.{t}.weight"].shape
+            key = f"base_model.model.blocks.{i}.{t}.lora_%s.default.weight"
+            lora[key % "A"] = torch.randn((rank, n), generator=g, device="cuda") / math.sqrt(n)
+            lora[key % "B"] = torch.randn((o, rank), generator=g, device="cuda") * (
+                0.02 / math.sqrt(rank))
+    lora = cpu({k: v.to(torch.bfloat16) for k, v in lora.items()})
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            t0 = time.perf_counter()
+            torch.save({"generator": {f"_fsdp_wrapped_module.{k}": v for k, v in sd.items()},
+                        "step": 0}, "generator.pt")
+            torch.save({"generator_lora": lora}, "lora.pt")
+            os.makedirs(os.path.join("wan_models", "Wan2.1-T2V-1.3B"))
+            torch.save(vsd, os.path.join("wan_models", "Wan2.1-T2V-1.3B", "Wan2.1_VAE.pth"))
+            out["write_s"] = time.perf_counter() - t0
+            raw.update(generator_ckpt="generator.pt", lora_ckpt="lora.pt", data_path=None,
+                       output_folder="videos")
+            with open("inference.yaml", "w") as f:
+                yaml.safe_dump(raw, f)
+            config = load_pipeline_config("inference.yaml")
+            t0 = time.perf_counter()
+            params = loading.load_dit_params(config, cfg, torch.bfloat16, "cuda")
+            torch.cuda.synchronize()
+            out["dit_load_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            vae_params, _ = loading.load_vae_params(config, torch.bfloat16, "cuda")
+            torch.cuda.synchronize()
+            out["vae_load_s"] = time.perf_counter() - t0
+            direct = CK.dit_params_from_torch(
+                CK.fold_lora_into_dit_sd(sd, lora, alpha_over_rank=1.0), cfg, torch.bfloat16,
+                "cuda")
+            assert_trees_equal(torch, params, direct, f"{label}: the loaded DiT")
+            if torch.equal(direct["blocks"][0]["ffn"]["fc1"]["weight"],
+                           CK.dit_params_from_torch(sd, cfg, torch.bfloat16, "cuda")[
+                               "blocks"][0]["ffn"]["fc1"]["weight"]):
+                fail(f"{label}: the LoRA fold changed nothing")
+            assert_trees_equal(torch, vae_params,
+                               CK.vae_params_from_torch(vsd, vcfg, torch.bfloat16, "cuda"),
+                               f"{label}: the loaded VAE")
+            del params, vae_params, direct
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts(A, VC)
+            t0 = time.perf_counter()
+            results, text = run_captured(lambda: run_inference.main([
+                "--config_path", "inference.yaml", "--num_output_frames", str(frames),
+                "--device", "cuda"]))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            got = counts(A, VC)
+            if len(results) != 1:
+                fail(f"{label} wrote {len(results)} videos, expected 1")
+            check_video(torch, label, results[0], frames)
+        finally:
+            os.chdir(ROOT)
+    check_counts(label, got, expect(bias=(frames // 3) * dv["block"], conv=dv["conv"](frames)))
+    out.update(run_inference_wall_s=wall, launches=got,
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               dit_ms_per_latent_frame=profile_number(
+                   text, r"steady-state latency=([0-9.]+) ms/latent-frame", label))
+    log(f"{label}: wrote the files in {out['write_s']:.1f} s; load_dit_params (with the "
+        f"rank-{rank} LoRA fold) {out['dit_load_s']:.2f} s, load_vae_params "
+        f"{out['vae_load_s']:.2f} s, both bit-equal to a direct conversion; run_inference "
+        f"{wall:.1f} s wall (loading included), DiT {out['dit_ms_per_latent_frame']:.2f} "
+        f"ms/latent-frame, peak {out['peak_gib']:.2f} GiB")
+    return out
+
+
 # ---------------------------------------------------------------------------
 # phase 3b: K4 checks at the training path's shapes
 
@@ -2389,6 +2744,7 @@ def main() -> None:
     int8_ref = check_small_int8_reference(torch, A, VC)
     options_ref = check_small_serving_options_reference(torch, A, VC)
     full_ref = check_small_full_forwards(torch, A, VC)
+    encoders_ref = check_small_encoders(torch, VC)
     check_small_training(torch)
     log(f"small references: {time.perf_counter() - t0:.1f} s")
 
@@ -2409,6 +2765,11 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     paths["full forwards"] = run_full_forwards_path(torch, A, VC)
+    for label, run in (("text encoder", run_text_encoder_path), ("vae encode", run_vae_encode_path),
+                       ("checkpoint load", run_checkpoint_load_path)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        paths[label] = run(torch, A, VC)
     gc.collect()
     torch.cuda.empty_cache()
     training = run_training_path(torch, A, VC, card)
@@ -2419,6 +2780,7 @@ def main() -> None:
     log("small int8 reference: " + json.dumps(int8_ref))
     log("small serving-options reference: " + json.dumps(options_ref))
     log("small full-forward reference: " + json.dumps(full_ref))
+    log("small encoder reference: " + json.dumps(encoders_ref))
     log("training: " + json.dumps(training))
     log("training, non-zero heads: " + json.dumps(live))
 

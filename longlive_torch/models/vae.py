@@ -1,4 +1,4 @@
-"""Causal 3D-conv video VAE (Wan2.1), streaming decoder.
+"""Causal 3D-conv video VAE (Wan2.1), streaming decoder and encoder.
 
 - ``CausalConv3d``: temporal causality = prepend the cached last two input
   frames (zeros initially); spatial padding is symmetric SAME.
@@ -6,11 +6,15 @@
   ('Rep') and maps to one pixel frame; every later latent frame maps to 4.
 - Caches are an explicit list threaded through the decoder in traversal
   order (``_CacheThread``); the decoder runs one latent frame per call.
+- The encoder takes pixel frames in chunks of 1, 4, 4, ... (``vae_encode``);
+  each temporal downsample halves T with a stride-2 (3, 1, 1) time conv
+  over [its 1-frame cache ++ the chunk], which the first chunk skips.
 - Activations are channels-last [B, T, H, W, C].  The wide causal convs of
   the residual blocks and the time convs go to ``ops.vae_conv``'s fused
-  kernel (its int8 variant under ``LONGLIVE_VAE_INT8=1``); the narrow convs
-  (decoder conv1 16->384, head 96->3, the 1x1x1 convs, the 2-D resample
-  convs) are plain ``F.conv3d`` / ``F.conv2d``.
+  kernel (its int8 variant under ``LONGLIVE_VAE_INT8=1``), in the encoder
+  too; the narrow convs (decoder conv1 16->384, head 96->3, encoder conv1
+  3->96, head 384->32, the 1x1x1 convs, the 2-D resample convs) and the
+  encoder's strided time convs are plain ``F.conv3d`` / ``F.conv2d``.
 - ``LONGLIVE_VAE_PAIR=1`` (read at call time, as in the JAX package): each
   no-shortcut residual block runs as ONE ``ops.vae_conv.fused_res_block``
   kernel (both convs, conv1's normalised output kept on chip) instead of
@@ -67,12 +71,14 @@ def tiny_vae_config() -> VAEConfig:
 # primitive ops
 
 
-def conv3d(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None) -> torch.Tensor:
+def conv3d(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None,
+           t_stride: int = 1) -> torch.Tensor:
     """x: [B, T, H, W, C] channels-last; w: [O, C, kt, kh, kw].  No temporal
     padding (the caller prepends caches), SAME spatial padding."""
     kh, kw = w.shape[3], w.shape[4]
     y = F.conv3d(x.permute(0, 4, 1, 2, 3), w.to(x.dtype),
-                 None if b is None else b.to(x.dtype), padding=(0, kh // 2, kw // 2))
+                 None if b is None else b.to(x.dtype), stride=(t_stride, 1, 1),
+                 padding=(0, kh // 2, kw // 2))
     return y.permute(0, 2, 3, 4, 1)
 
 
@@ -130,25 +136,27 @@ def _fusable(x: torch.Tensor, p: dict, thread: _CacheThread) -> bool:
 _NORM_OF = {"conv1": "norm1", "conv2": "norm2", "head_conv": "head_norm"}
 
 
-def pack_fused_weights(params: Any) -> Any:
+def pack_fused_weights(params: Any, _down: bool = False) -> Any:
     """Adds the fused kernel's weights beside ``w`` in every conv it takes:
     ``w_packed`` (``ops.vae_conv.pack_weights``) and ``w_int8``
     (``pack_weights_int8`` with the gamma of the norm in front of the conv,
-    for ``LONGLIVE_VAE_INT8=1``), so decoding packs no weights.  Mutates
-    and returns ``params``; call it again after replacing a ``w`` or a
-    norm."""
+    for ``LONGLIVE_VAE_INT8=1``), so decoding and encoding pack no weights.
+    The encoder's strided time convs (under ``downsamples``) stay plain and
+    get none.  Mutates and returns ``params``; call it again after
+    replacing a ``w`` or a norm."""
     if isinstance(params, dict):
         for key, v in params.items():
             w = v.get("w") if isinstance(v, dict) else None
-            if isinstance(w, torch.Tensor) and _fusable_weight(w):
+            if (isinstance(w, torch.Tensor) and _fusable_weight(w)
+                    and not (_down and key == "time_conv")):
                 v["w_packed"] = _vc.pack_weights(w)
                 v["w_int8"] = _vc.pack_weights_int8(w, params.get(_NORM_OF.get(key)))
-        for v in params.values():
+        for key, v in params.items():
             if isinstance(v, (dict, list)):
-                pack_fused_weights(v)
+                pack_fused_weights(v, _down or key == "downsamples")
     elif isinstance(params, list):
         for v in params:
-            pack_fused_weights(v)
+            pack_fused_weights(v, _down)
     return params
 
 
@@ -278,8 +286,30 @@ def resample_up(x, p, thread: _CacheThread, temporal: bool, first_frame: bool):
     return y.reshape(b, t, 2 * h, 2 * w, y.shape[-1])
 
 
+def resample_down(x, p, thread: _CacheThread, temporal: bool, first_chunk: bool):
+    """Spatial (pad right and bottom by one, 3x3 conv of stride 2), then
+    temporal downsampling: a (3, 1, 1) conv of stride 2 without padding over
+    [the 1-frame cache ++ x], the chunk's last frame cached.  The first
+    chunk skips the time conv and only caches its last frame.  Both convs
+    are plain: the fused kernel has no stride."""
+    b, t, h, w, c = x.shape
+    z = F.pad(x.reshape(b * t, h, w, c), (0, 0, 0, 1, 0, 1)).permute(0, 3, 1, 2)
+    y = F.conv2d(z, p["conv"]["w"].to(x.dtype), p["conv"]["b"].to(x.dtype), stride=2)
+    x = y.permute(0, 2, 3, 1).reshape(b, t, y.shape[2], y.shape[3], y.shape[1])
+    if not temporal:
+        return x
+    tc = p["time_conv"]
+    if thread.caches is None:
+        return conv3d(x, tc["w"], tc["b"], t_stride=2)
+    cache = thread.pull()
+    thread.push(x[:, -1:])
+    if first_chunk:
+        return x
+    return conv3d(torch.cat([cache.to(x.dtype), x], dim=1), tc["w"], tc["b"], t_stride=2)
+
+
 # ---------------------------------------------------------------------------
-# decoder
+# decoder and encoder
 
 
 def decoder_apply(params, cfg: VAEConfig, z, caches, first_frame: bool):
@@ -301,6 +331,27 @@ def decoder_apply(params, cfg: VAEConfig, z, caches, first_frame: bool):
             bi += 1
     x = norm_silu_causal_conv(x, params["head_norm"], params["head_conv"], thread)
     return x, (thread.out if caches is not None else None)
+
+
+def encoder_apply(params, cfg: VAEConfig, x, caches, first_chunk: bool):
+    """Encoder3d over a chunk of pixel frames.  x: [B, T, H, W, 3].
+    Returns ([B, T', H/8, W/8, 2 z_dim], caches')."""
+    thread = _CacheThread(caches)
+    y = causal_conv3d(x, params["conv1"], thread)
+    downs = cfg.temperal_downsample
+    bi = 0
+    for i in range(len(cfg.dim_mult)):
+        for _ in range(cfg.num_res_blocks):
+            y = res_block(y, params["downsamples"][bi], thread)
+            bi += 1
+        if i != len(cfg.dim_mult) - 1:
+            y = resample_down(y, params["downsamples"][bi], thread, downs[i], first_chunk)
+            bi += 1
+    y = res_block(y, params["middle"][0], thread)
+    y = attention_block(y, params["middle"][1])
+    y = res_block(y, params["middle"][2], thread)
+    y = norm_silu_causal_conv(y, params["head_norm"], params["head_conv"], thread)
+    return y, (thread.out if caches is not None else None)
 
 
 def decoder_cache_shapes(cfg: VAEConfig, b, h, w) -> List[Tuple[int, ...]]:
@@ -343,15 +394,53 @@ def init_decoder_caches(cfg: VAEConfig, batch, height, width, dtype=torch.float3
             for s in decoder_cache_shapes(cfg, batch, height, width)]
 
 
+def encoder_cache_shapes(cfg: VAEConfig, b, h, w) -> List[Tuple[int, ...]]:
+    """Cache shapes in encoder traversal order; h, w are PIXEL dims.  The
+    temporal downsamples keep one frame."""
+    dims = [cfg.dim * u for u in (1,) + tuple(cfg.dim_mult)]
+    shapes: List[Tuple[int, ...]] = []
+
+    def conv_cache(c, hh, ww, t=CACHE_T):
+        shapes.append((b, t, hh, ww, c))
+
+    def res_caches(c_in, c_out, hh, ww):
+        conv_cache(c_in, hh, ww)   # res conv1 input
+        conv_cache(c_out, hh, ww)  # res conv2 input
+
+    conv_cache(3, h, w)  # encoder conv1
+    hh, ww = h, w
+    for i in range(len(cfg.dim_mult)):
+        c_in, c_out = dims[i], dims[i + 1]
+        for _ in range(cfg.num_res_blocks):
+            res_caches(c_in, c_out, hh, ww)
+            c_in = c_out
+        if i != len(cfg.dim_mult) - 1:
+            hh, ww = (hh - 2) // 2 + 1, (ww - 2) // 2 + 1  # pad (0, 1), 3x3, stride 2
+            if cfg.temperal_downsample[i]:
+                conv_cache(c_out, hh, ww, t=1)  # time conv input
+    res_caches(dims[-1], dims[-1], hh, ww)  # middle res0
+    res_caches(dims[-1], dims[-1], hh, ww)  # middle res1
+    conv_cache(dims[-1], hh, ww)  # head conv
+    return shapes
+
+
+def init_encoder_caches(cfg: VAEConfig, batch, height, width, dtype=torch.float32,
+                        device="cpu"):
+    """Zero caches for streaming encode; height/width are PIXEL dims."""
+    return [torch.zeros(s, dtype=dtype, device=device)
+            for s in encoder_cache_shapes(cfg, batch, height, width)]
+
+
 # ---------------------------------------------------------------------------
 # parameters
 
 
 def init_vae_params(cfg: VAEConfig = VAEConfig(), dtype=torch.float32, device="cpu",
                     seed: int = 0) -> dict:
-    """Random decoder-side parameters (decoder + the 1x1x1 ``conv2`` + the
-    latent mean/std): convs U(-1/sqrt(fan_in), 1/sqrt(fan_in)), norms ones,
-    the attention projection zero."""
+    """Random parameters: convs U(-1/sqrt(fan_in), 1/sqrt(fan_in)), norms
+    ones, the attention projections zero.  The decoder and its 1x1x1
+    ``conv2`` are drawn first, then the encoder and its 1x1x1 ``conv1``, so
+    the decoder's weights do not depend on the encoder's."""
     gen = torch.Generator(device=device).manual_seed(seed)
 
     def uni(shape, std):
@@ -399,9 +488,32 @@ def init_vae_params(cfg: VAEConfig = VAEConfig(), dtype=torch.float32, device="c
         "head_norm": ones(dims[-1]),
         "head_conv": conv(dims[-1], 3, 3),
     }
+    conv2_dec = conv(cfg.z_dim, cfg.z_dim, 1)
+
+    dims_e = [cfg.dim * u for u in (1,) + tuple(cfg.dim_mult)]
+    downs: List[dict] = []
+    for i in range(len(cfg.dim_mult)):
+        c_in, c_out = dims_e[i], dims_e[i + 1]
+        for _ in range(cfg.num_res_blocks):
+            downs.append(res(c_in, c_out))
+            c_in = c_out
+        if i != len(cfg.dim_mult) - 1:
+            p = {"conv": conv2(c_out, c_out, 3)}
+            if cfg.temperal_downsample[i]:
+                p["time_conv"] = conv(c_out, c_out, (3, 1, 1))
+            downs.append(p)
+    encoder = {
+        "conv1": conv(3, dims_e[0], 3),
+        "downsamples": downs,
+        "middle": [res(dims_e[-1], dims_e[-1]), attn(dims_e[-1]), res(dims_e[-1], dims_e[-1])],
+        "head_norm": ones(dims_e[-1]),
+        "head_conv": conv(dims_e[-1], 2 * cfg.z_dim, 3),
+    }
     return {
+        "encoder": pack_fused_weights(encoder),
         "decoder": pack_fused_weights(decoder),
-        "conv2": conv(cfg.z_dim, cfg.z_dim, 1),
+        "conv1": conv(2 * cfg.z_dim, 2 * cfg.z_dim, 1),
+        "conv2": conv2_dec,
         "mean": torch.tensor(WAN_LATENT_MEAN[: cfg.z_dim], dtype=torch.float32, device=device),
         "std": torch.tensor(WAN_LATENT_STD[: cfg.z_dim], dtype=torch.float32, device=device),
     }
@@ -457,3 +569,27 @@ def vae_decode_scan(params, cfg: VAEConfig, latents, caches=None, first: bool = 
         px, caches = vae_decode_chunk(params, cfg, latents[:, i:i + 1], caches, False)
         outs.append(px)
     return torch.cat(outs, dim=1), caches
+
+
+# ---------------------------------------------------------------------------
+# encode
+
+
+@torch.no_grad()
+def vae_encode(params, cfg: VAEConfig, pixels):
+    """Streaming encode of pixels [B, T, 3, H, W] (T = 1 + k 2^d for d
+    temporal downsamples) in chunks of 1, 2^d, 2^d, ... frames.  Returns
+    the normalised latent mean [B, 1 + k, z_dim, H/8, W/8]."""
+    b, t, _, h, w = pixels.shape
+    caches = init_encoder_caches(cfg, b, h, w, pixels.dtype, pixels.device)
+    stride_t = 2 ** sum(cfg.temperal_downsample)
+    chunks = [(0, 1)] + [(1 + stride_t * i, 1 + stride_t * (i + 1))
+                         for i in range((t - 1) // stride_t)]
+    outs = []
+    for ci, (s, e) in enumerate(chunks):
+        y, caches = encoder_apply(params["encoder"], cfg, pixels[:, s:e].permute(0, 1, 3, 4, 2),
+                                  caches, ci == 0)
+        outs.append(y)
+    y = causal_conv3d(torch.cat(outs, dim=1), params["conv1"], _CacheThread(None))  # 1x1x1
+    mu = (y[..., : cfg.z_dim].float() - params["mean"].float()) / params["std"].float()
+    return mu.to(pixels.dtype).permute(0, 1, 4, 2, 3)

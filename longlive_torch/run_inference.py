@@ -4,7 +4,10 @@ Usage:  python -m longlive_torch.run_inference --config_path configs/longlive_in
 
 Runs on the GPU (``--device cuda``, the default); ``--device cpu`` runs the
 plain PyTorch paths.  Without checkpoints the DiT and VAE are randomly
-initialised and, without T5 assets, the prompt embedding is random.
+initialised and, without T5 assets, the prompt embedding is random.  With
+the T5, every prompt is encoded up front and the T5's weights then move to
+the host's memory before generation.  ``tiny_debug: true`` in the config
+runs the tiny model and geometry (smoke runs).
 """
 
 from __future__ import annotations
@@ -17,7 +20,8 @@ import time
 
 import torch
 
-from .config import LatentGeometry, load_pipeline_config
+from .config import LatentGeometry, load_pipeline_config, tiny_dit_config, tiny_geometry
+from .models import dit as D
 from .models import vae as V
 from .pipeline import CausalInferencePipeline
 from .utils import loading
@@ -58,14 +62,24 @@ def main(argv=None):
     config = load_pipeline_config(args.config_path)
     if args.num_output_frames:
         config = dataclasses.replace(config, num_output_frames=args.num_output_frames)
-    cfg = config.dit_config()
-    geom = LatentGeometry()
     dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
-
     use_ema = args.use_ema or config.use_ema
-    params = loading.load_dit_params(config, cfg, dtype, device, use_ema=use_ema)
-    vae_params, vcfg = loading.load_vae_params(config, dtype, device)
-    text_encoder = loading.load_text_encoder(config)
+    if config.extras.get("tiny_debug"):
+        # smoke runs: the tiny random-weight model and geometry, with the
+        # config's window and block
+        cfg = dataclasses.replace(tiny_dit_config(), local_attn_size=config.local_attn_size,
+                                  sink_size=config.sink_size,
+                                  num_frame_per_block=config.num_frame_per_block)
+        geom = tiny_geometry()
+        params = D.init_dit_params(cfg, dtype, device, seed=config.seed, zero_head=False)
+        vcfg = V.tiny_vae_config()
+        vae_params = V.init_vae_params(vcfg, dtype, device, seed=0)
+    else:
+        cfg = config.dit_config()
+        geom = LatentGeometry()
+        params = loading.load_dit_params(config, cfg, dtype, device, use_ema=use_ema)
+        vae_params, vcfg = loading.load_vae_params(config, dtype, device)
+    text_encoder = loading.load_text_encoder(config, dtype, device)
 
     pipe = CausalInferencePipeline(config, params, geometry=geom, dit_config=cfg,
                                    device=device)
@@ -80,8 +94,12 @@ def main(argv=None):
         rows = rows[: config.inference_iter + 1]
 
     gen = torch.Generator(device=device).manual_seed(config.seed)
-    conds = [torch.randn((1, cfg.text_len, cfg.text_dim), generator=gen, device=device)
-             for _ in rows]
+    if text_encoder is not None:
+        conds = [text_encoder([row["prompts"]])["prompt_embeds"] for row in rows]
+        text_encoder.offload()
+    else:
+        conds = [torch.randn((1, cfg.text_len, cfg.text_dim), generator=gen, device=device)
+                 for _ in rows]
 
     out_dir = config.output_folder or "videos/long"
     model_type = "lora" if config.lora_ckpt else "ema" if use_ema else "regular"

@@ -5,10 +5,11 @@ Usage:  python -m longlive_torch.run_interactive --config_path configs/longlive_
 Runs on the GPU (``--device cuda``, the default); ``--device cpu`` runs the
 plain PyTorch paths.  Without checkpoints the DiT and VAE are randomly
 initialised and, without T5 assets, each prompt segment's embedding is
-random.  ``tiny_debug: true`` in the config runs the tiny model and
-geometry (smoke runs).  With ``profile: true`` the one-shot recache loop
-runs and prints the switch stall; otherwise the eager-recache production
-loop runs.
+random.  With the T5, every segment of every row is encoded up front and
+the T5's weights then move to the host's memory.  ``tiny_debug: true`` in
+the config runs the tiny model and geometry (smoke runs).  With
+``profile: true`` the one-shot recache loop runs and prints the switch
+stall; otherwise the eager-recache production loop runs.
 """
 
 from __future__ import annotations
@@ -67,13 +68,12 @@ def main(argv=None):
         params = D.init_dit_params(cfg, dtype, device, seed=config.seed, zero_head=False)
         vcfg = V.tiny_vae_config()
         vae_params = V.init_vae_params(vcfg, dtype, device, seed=0)
-        text_encoder = None
     else:
         cfg = config.dit_config()
         geom = LatentGeometry()
         params = loading.load_dit_params(config, cfg, dtype, device, use_ema=use_ema)
         vae_params, vcfg = loading.load_vae_params(config, dtype, device)
-        text_encoder = loading.load_text_encoder(config)
+    text_encoder = loading.load_text_encoder(config, dtype, device)
 
     pipe = InteractiveCausalInferencePipeline(config, params, geometry=geom, dit_config=cfg,
                                               device=device)
@@ -95,8 +95,13 @@ def main(argv=None):
         if len(row["prompts"]) != len(switch_indices) + 1:
             raise ValueError(f"{len(row['prompts'])} prompt segments vs "
                              f"{len(switch_indices)} switches")
-        all_conds.append([torch.randn((1, cfg.text_len, cfg.text_dim), generator=gen,
-                                      device=device) for _ in row["prompts"]])
+        if text_encoder is not None:
+            all_conds.append([text_encoder([p])["prompt_embeds"] for p in row["prompts"]])
+        else:
+            all_conds.append([torch.randn((1, cfg.text_len, cfg.text_dim), generator=gen,
+                                          device=device) for _ in row["prompts"]])
+    if text_encoder is not None:
+        text_encoder.offload()
 
     out_dir = config.output_folder or "videos/interactive"
     model_type = "lora" if config.lora_ckpt else "ema" if use_ema else "regular"

@@ -185,7 +185,7 @@ def main(argv=None):
                                              strict=strict)
         vae_params, vcfg = loading.load_vae_params(pconfig, torch.bfloat16, device,
                                                    strict=strict)
-        text_encoder = loading.load_text_encoder(pconfig, strict=strict)
+        text_encoder = loading.load_text_encoder(pconfig, torch.bfloat16, device, strict=strict)
     teacher_params, teacher_cfg, critic_params = resolve_score_models(
         raw, dit_cfg, tcfg, device, strict=strict)
     trainer = ScoreDistillationTrainer(tcfg, dit_cfg, geom, gen_params, critic_params,
@@ -217,8 +217,10 @@ def main(argv=None):
 
     def encode(p):
         if text_encoder is not None:
-            return text_encoder([p])["prompt_embeds"]
+            return text_encoder([p])["prompt_embeds"].float()
         return random_prompt_embedding(p, dit_cfg, device)
+
+    neg_embed = encode(neg_prompt)  # the same every step: encoded once
 
     vis_interval = int(raw.get("vis_interval", 0) or 0)
     vis_lengths = list(raw.get("vis_video_lengths", [21]) or [21])
@@ -252,7 +254,7 @@ def main(argv=None):
     while int(trainer.state["step"]) < max_iters:
         step = int(trainer.state["step"])
         row = next(prompt_iter)
-        cc, cu = encode(row["prompts"]), encode(neg_prompt)
+        cc, cu = encode(row["prompts"]), neg_embed
         # the step's noise, from a stream of its own (the trainer's draws
         # take (seed << 32) + step)
         g = torch.Generator().manual_seed((tcfg.seed << 32) + (1 << 31) + step)

@@ -11,7 +11,8 @@ JAX package's ``quantize_dit_params`` (``{"w_int8": [in, out],
 "bias"}``, the operand layout of the port's int8 kernel.  The halfsplit
 q/k permutation is already applied in a JAX tree
 (``canonicalize_rope_layout`` ran when it was built) and is not applied
-again.
+again.  The VAE's conv weights are in the torch layout in both packages
+(encoder and decoder); the umT5 encoder's stacked layers become a list.
 """
 
 from __future__ import annotations
@@ -69,12 +70,36 @@ def dit_params_from_jax(tree: dict, dtype=None, device="cpu") -> dict:
 
 
 def vae_params_from_jax(tree: dict, dtype=None, device="cpu") -> dict:
-    """JAX VAE params (numpy leaves) -> the port's decoder-side parameters.
-    Conv weights are already in the torch [O, I, k...] layout; the encoder
-    subtree is not carried (the decoder slice does not use it).  The fused
-    convs get their packed weights (``vae.pack_fused_weights``)."""
-    out = {k: _convert(tree[k], dtype, device) for k in ("decoder", "conv2")}
+    """JAX VAE params (numpy leaves) -> the port's VAE parameters: the
+    encoder and decoder with their 1x1x1 ``conv1`` / ``conv2``.  Conv
+    weights are already in the torch [O, I, k...] layout.  The fused convs
+    get their packed weights (``vae.pack_fused_weights``)."""
+    out = {k: _convert(tree[k], dtype, device) for k in ("encoder", "decoder", "conv1", "conv2")}
+    pack_fused_weights(out["encoder"])
     pack_fused_weights(out["decoder"])
     for k in ("mean", "std"):
         out[k] = _tensor(tree[k], torch.float32, device)
     return out
+
+
+def t5_params_from_jax(tree: dict, dtype=None, device="cpu") -> dict:
+    """JAX umT5 params (numpy leaves; the layers stacked on [L], linears
+    [in, out]) -> the port's (``models.t5``: a list of per-layer dicts,
+    linear weights [out, in])."""
+    blocks = tree["blocks"]
+    num_layers = np.asarray(blocks["norm1"]).shape[0]
+
+    def layer(i):
+        def at(a, transpose=False):
+            a = np.asarray(a)[i]
+            return _tensor(a.T if transpose else a, dtype, device)
+
+        return {"norm1": at(blocks["norm1"]),
+                "attn": {k: at(v, True) for k, v in blocks["attn"].items()},
+                "pos_emb": at(blocks["pos_emb"]),
+                "norm2": at(blocks["norm2"]),
+                "ffn": {k: at(v, True) for k, v in blocks["ffn"].items()}}
+
+    return {"token_embedding": _tensor(tree["token_embedding"], dtype, device),
+            "blocks": [layer(i) for i in range(num_layers)],
+            "norm": _tensor(tree["norm"], dtype, device)}

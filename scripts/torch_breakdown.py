@@ -15,7 +15,10 @@ int8 serving mode (``configs/longlive_inference_tuned.yaml`` with
 ``LONGLIVE_MXU_LSUM=1``).  Then it decodes latent frames 0-1 and
 profiles the decode of frame 2, three times: bf16, with the int8 convs
 (``LONGLIVE_VAE_INT8=1``) and with the fused res blocks
-(``LONGLIVE_VAE_PAIR=1``).  Then the training step of
+(``LONGLIVE_VAE_PAIR=1``).  Then the two encoders: the VAE encoder's third
+chunk (pixel frames 5-8 of a 480x832 clip, one latent frame) after chunks
+0-1, and umT5-XXL's ``encode_prompts`` of one prompt of 512 ids (40
+valid).  Then the training step of
 ``configs/longlive_train_init.yaml`` (21 frames, float32 parameters under
 bf16 autocast): the generator's replay of the last rollout block (exit step
 1: one pre-exit forward, the exit forward with its backward, the commit)
@@ -52,6 +55,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 from longlive_torch.config import (LatentGeometry, PipelineConfig,  # noqa: E402
                                    load_pipeline_config)
 from longlive_torch.models import dit as D  # noqa: E402
+from longlive_torch.models import t5 as T5  # noqa: E402
 from longlive_torch.models import vae as V  # noqa: E402
 from longlive_torch.pipeline import CausalInferencePipeline  # noqa: E402
 
@@ -206,6 +210,41 @@ def vae_frame(dev, vp, lat, label: str, env: dict):
     return row
 
 
+@torch.no_grad()
+def vae_encode_chunk(dev, vp, label: str):
+    """The profile of the encoder on pixel frames 5-8 of a random 480x832
+    clip after frames 0 and 1-4 (bf16 convs; the VAE switches cleared)."""
+    vcfg = V.VAEConfig()
+    with _env(LONGLIVE_VAE_INT8="0", LONGLIVE_VAE_PAIR="0"):
+        g = torch.Generator(device=dev).manual_seed(1)
+        x = (torch.rand((1, 9, 480, 832, 3), generator=g, device=dev) * 2 - 1).to(torch.bfloat16)
+        caches = V.init_encoder_caches(vcfg, 1, 480, 832, torch.bfloat16, dev)
+        _, caches = V.encoder_apply(vp["encoder"], vcfg, x[:, :1], caches, True)
+        _, caches = V.encoder_apply(vp["encoder"], vcfg, x[:, 1:5], caches, False)
+        row = _summary(label, *_profile(
+            lambda: V.encoder_apply(vp["encoder"], vcfg, x[:, 5:9], caches, False)),
+            per="1 latent frame (4 pixel frames)")
+    del caches, x
+    torch.cuda.empty_cache()
+    return row
+
+
+def t5_prompt(dev, label: str):
+    """The profile of umT5-XXL's ``encode_prompts`` (random bf16 weights)
+    on one prompt of 512 ids, 40 valid."""
+    tcfg = T5.T5Config()
+    params = T5.init_t5_params(tcfg, torch.bfloat16, dev, seed=0)
+    g = torch.Generator(device=dev).manual_seed(2)
+    mask = (torch.arange(tcfg.text_len, device=dev) < 40).long()[None]
+    ids = torch.randint(1, tcfg.vocab_size, (1, tcfg.text_len), generator=g, device=dev) * mask
+    T5.encode_prompts(params, tcfg, ids, mask)  # warm-up
+    row = _summary(label, *_profile(lambda: T5.encode_prompts(params, tcfg, ids, mask)),
+                   per="1 prompt")
+    del params
+    torch.cuda.empty_cache()
+    return row
+
+
 def _config(name: str, **changes) -> PipelineConfig:
     pc = load_pipeline_config(os.path.join(ROOT, "configs", name))
     return dataclasses.replace(pc, num_output_frames=15, **changes)
@@ -303,12 +342,14 @@ def main():
                      "(LONGLIVE_VAE_INT8=1)", {"LONGLIVE_VAE_INT8": "1"}),
            vae_frame(dev, vp, lat, "VAE decode of latent frame 2, fused res blocks "
                      "(LONGLIVE_VAE_PAIR=1)", {"LONGLIVE_VAE_PAIR": "1"})]
+    encoders = [vae_encode_chunk(dev, vp, "VAE encode of pixel frames 5-8 (one latent frame)"),
+                t5_prompt(dev, "umT5-XXL encode_prompts, one prompt of 512 ids (40 valid)")]
     del vp, lat
     torch.cuda.empty_cache()
     with torch.enable_grad():
         train = training_steps(dev)
     result = {"card": card, "torch": torch.__version__,
-              "steps": [dit, int8, options] + vae + train}
+              "steps": [dit, int8, options] + vae + encoders + train}
     text = json.dumps(result, indent=1)
     print(text)
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)

@@ -94,6 +94,8 @@ CONV_CASES = [
     (1, 12, 40, 128, 384, 1, False, False),  # 1x1, 64 channels per K step, N = 192
     (1, 8, 16, 32, 96, 1, False, True),    # 1x1, 32 channels per K step, N = 96
     (1, 60, 104, 384, 384, 3, True, True),  # the decoder's 384-wide res conv2
+    (4, 240, 416, 96, 192, 3, True, False),  # the encoder's stage-1 shortcut-block conv1
+    (1, 240, 416, 96, 192, 3, True, False),  # the same in the first chunk
 ]
 
 
@@ -193,6 +195,8 @@ CONV_INT8_CASES = [
     (3, 9, 50, 96, 192, 3, True, False),   # C = 96, T = 3, H and W ragged
     (2, 6, 30, 384, 768, 1, False, False),  # the decoder's time conv, W ragged
     (1, 12, 40, 128, 384, 3, True, True),  # 128-channel K steps, three N tiles
+    (4, 240, 416, 96, 192, 3, True, False),  # the encoder's 96 -> 192 conv1, two N tiles
+    (1, 240, 416, 96, 192, 3, True, False),
 ]
 
 

@@ -99,13 +99,26 @@ def test_rollout_latents_and_gradients_match_jax(models):
     exit step 2: the latents, then the generator gradients of
     sum(latents * w) (the port's per-block backward with the cross K/V as a
     leaf, against jax.grad over the whole rollout)."""
+    _check_rollout(models, context_noise=0.0)
+
+
+@pytest.mark.parametrize("context_noise", [100.0])
+def test_rollout_with_context_noise_matches_jax(models, context_noise):
+    """The same rollout with each block's commit re-run on its prediction
+    noised to ``context_noise`` (the shipped configs set 0), the commit's
+    draw replayed."""
+    _check_rollout(models, context_noise=context_noise)
+
+
+def _check_rollout(models, context_noise):
     jcfg, tcfg, (gen, _, _) = models
     geom = tiny_geometry()
     jsched, tsched = _sched()
     steps = tuple(float(x) for x in JS.warp_denoising_steps(jsched, (1000, 750, 500, 250)))
     jr = jro.RolloutConfig(denoise_timesteps=steps, frame_block=1, attn_impl="xla",
-                           window_frames=3)
-    tr = tro.RolloutConfig(denoise_timesteps=steps, frame_block=1, window_frames=3)
+                           window_frames=3, context_noise=context_noise)
+    tr = tro.RolloutConfig(denoise_timesteps=steps, frame_block=1, window_frames=3,
+                           context_noise=context_noise)
     fs = geom.frame_seq_length
     jcc, tcc = JCacheConfig(1, 3, fs), CacheConfig(1, 3, fs)
     jt, tt = j_rope_tables(jcfg.head_dim, jcfg.rope_max_pos), make_rope_tables(tcfg.head_dim,
@@ -228,10 +241,29 @@ def test_two_train_steps_match_jax_trainer(models):
     raised (and kept apart) so that the change dominates float32 rounding:
     at the shipped 2e-6 an update of ~lr is below the parameters' own
     tolerance, and a missing, negated or misrouted update would pass."""
+    _check_train_steps(models, 2)
+
+
+@pytest.mark.parametrize("options", [dict(ts_schedule=True, ts_schedule_max=True),
+                                     dict(ts_schedule=True)],
+                         ids=["ts_schedule and ts_schedule_max", "ts_schedule"])
+def test_train_step_options_match_jax_trainer(models, options):
+    """One step as above with the score timesteps drawn inside the
+    rollout's denoised range (``ts_schedule``: from its lower end;
+    ``ts_schedule_max``: up to its upper end): the port's draws come from
+    its own ``score_timestep_range``, so a wrong range departs from the JAX
+    trainer's draws in the losses, the grad norms and the timestep means.
+    The parameters' change is held by the test above: after one AdamW step
+    it is +-lr wherever |grad| >> eps, and a few elements with |grad| near
+    eps (1e-8) make it hang on float32 roundoff of those gradients."""
+    _check_train_steps(models, 1, check_updates=False, **options)
+
+
+def _check_train_steps(models, num_steps, check_updates=True, **options):
     jcfg, tcfg, (gen, critic, teacher) = models
     geom = tiny_geometry()
     kw = dict(num_frame_per_block=1, num_training_frames=3, slice_last_frames=3,
-              dfake_gen_update_ratio=1, lr=1e-3, lr_critic=3e-4)
+              dfake_gen_update_ratio=1, lr=1e-3, lr_critic=3e-4, **options)
     copy = lambda t: jax.tree.map(jnp.array, t)  # noqa: E731  (the JAX trainer donates)
     jtr = JTrainer(JTrainerConfig(**kw, attn_impl="xla"), jcfg, geom, copy(gen), copy(critic),
                    copy(teacher))
@@ -244,7 +276,8 @@ def test_two_train_steps_match_jax_trainer(models):
     pe_u = (pe_c * 0.1).astype(np.float32)
     key = jax.random.PRNGKey(12)
     jnoise = jnp.asarray(noise)
-    for micro in range(2):
+    ranges = []
+    for micro in range(num_steps):
         # the JAX trainer's key splits (trainer.py train_step)
         r = jax.random.fold_in(key, micro)
         r_exit, r_len, r_g, r_exit2, r_len2, r_c = jax.random.split(r, 6)
@@ -254,6 +287,7 @@ def test_two_train_steps_match_jax_trainer(models):
             r_roll, r_second = jax.random.split(r_phase)
             t_from, t_to = jro.denoised_timestep_bounds(jtr.sched, jtr.rcfg, exit_idx)
             lo, hi = tdmd.score_timestep_range(ttr.dcfg, t_from, t_to)
+            ranges.append((lo, hi))
             st, sn = jax_score_draws(r_second, (1, nb) + noise.shape[2:], lo, hi)
             return PhaseDraws(exit_idx, nb,
                               jax_rollout_draws(r_roll, nb, exit_idx, (1, 1) + noise.shape[2:]),
@@ -267,7 +301,7 @@ def test_two_train_steps_match_jax_trainer(models):
         for k in ("generator_loss", "critic_loss", "generator_grad_norm", "critic_grad_norm",
                   "dmdtrain_gradient_norm", "dmd_timestep_mean", "critic_timestep_mean"):
             _close(tm[k], jm[k], GRAD_TOL)
-    for key_, init in (("gen_params", gen), ("critic_params", critic)):
+    for key_, init in (("gen_params", gen), ("critic_params", critic)) if check_updates else ():
         want = dit_params_from_jax(jax.tree.map(np.asarray, jtr.state[key_]))
         leaves = zip(param_leaves(ttr.state[key_]), param_leaves(want),
                      param_leaves(dit_params_from_jax(init)))
@@ -275,7 +309,10 @@ def test_two_train_steps_match_jax_trainer(models):
             d_got, d_want = got.detach() - p0, w - p0
             err = ((d_got - d_want).norm() / d_want.norm()).item()
             assert err <= UPDATE_TOL, f"{key_} leaf {i}: change off by {err:.2e} (relative)"
-    assert ttr.state["step"] == 2
+    assert ttr.state["step"] == num_steps
+    full = (ttr.dcfg.min_score_timestep, ttr.dcfg.num_train_timestep)
+    assert any(r != full for r in ranges) == bool(options.get("ts_schedule")
+                                                  or options.get("ts_schedule_max"))
 
 
 @pytest.mark.parametrize("loss_type", ["x0", "v", "noise", "flow"])

@@ -1,7 +1,7 @@
 """The port's utilities held against the JAX package's: video export, the
 prompt dataset and its sharding, and the loading rules (random init with a
-warning when an artifact is absent, an error under ``strict``, and
-NotImplementedError for artifacts whose loaders are not ported yet)."""
+warning when an artifact is absent, an error under ``strict``, and an error
+from the file itself when an artifact is present but unreadable)."""
 
 import os
 
@@ -61,7 +61,8 @@ def test_loading_random_init_and_fail_fast(tmp_path, monkeypatch, capsys):
 
 
 def test_loading_raises_for_present_artifacts(tmp_path, monkeypatch):
-    """Files that exist are never replaced by random weights."""
+    """Files that exist are read, never replaced by random weights: an
+    empty (truncated) checkpoint raises from ``torch.load``."""
     monkeypatch.chdir(tmp_path)
     ckpt = tmp_path / "gen.pt"
     ckpt.write_bytes(b"")
@@ -70,12 +71,12 @@ def test_loading_raises_for_present_artifacts(tmp_path, monkeypatch):
     (base / "google" / "umt5-xxl").mkdir(parents=True)
     (base / "Wan2.1_VAE.pth").write_bytes(b"")
     (base / "models_t5_umt5-xxl-enc-bf16.pth").write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(EOFError):
         loading.load_dit_params(pc, tiny_dit_config(), torch.float32, "cpu")
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(EOFError):
         loading.load_vae_params(pc, torch.float32, "cpu")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        loading.load_text_encoder(pc)
+    with pytest.raises(EOFError):
+        loading.load_text_encoder(pc, torch.float32, "cpu")
 
 
 @pytest.mark.parametrize("flags", [["--sp", "2"], ["--decode_device", "1"]])

@@ -62,15 +62,20 @@ def _convs(tree):
             yield from _convs(v)
 
 
-@pytest.mark.parametrize("width,fused", [(8, 0), (96, 13)])
-def test_fused_convs_carry_packed_weights(width, fused):
+@pytest.mark.parametrize("width,fused,fused_enc", [(8, 0, 0), (96, 13, 8)],
+                         ids=["8-0", "96-13"])
+def test_fused_convs_carry_packed_weights(width, fused, fused_enc):
     """Both ways of building the parameters pack the fused convs' weights
-    once.  Width 96: 6 res blocks x 2 convs of >= 96 channels (middle 2,
-    upsample stages 2 + 2) and one 192->384 time conv; the 16->192 conv1 and
-    the 96->3 head are narrow."""
+    once.  Width 96, decoder: 6 res blocks x 2 convs of >= 96 channels
+    (middle 2, upsample stages 2 + 2) and one 192->384 time conv; the
+    16->192 conv1 and the 96->3 head are narrow.  Encoder: 4 res blocks x 2
+    convs (stage 0, stage 1, middle 2); the strided time conv, the 3->96
+    conv1 and the 192->8 head stay plain."""
     _, tcfg, tree = _pair(width)
     for params in (vae_params_from_jax(tree), TV.init_vae_params(tcfg)):
-        packed = [p for p in _convs(params) if "w_packed" in p]
-        assert len(packed) == fused
-        for p in packed:
-            assert torch.equal(p["w_packed"], pack_weights(p["w"]))
+        for side, n in (("decoder", fused), ("encoder", fused_enc)):
+            packed = [p for p in _convs(params[side]) if "w_packed" in p]
+            assert len(packed) == n
+            for p in packed:
+                assert torch.equal(p["w_packed"], pack_weights(p["w"]))
+        assert not any("w_packed" in p for p in _convs({k: params[k] for k in ("conv1", "conv2")}))

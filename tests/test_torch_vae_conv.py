@@ -47,9 +47,9 @@ def test_plain_conv_matches_pallas(t, c, o, norm, res, khw):
 
 def _conv_tile_shapes():
     """(H, W, C, O, kernel rows) of every fused conv of the 480x832 decoder
-    (``chip_smoke.CONV_CASES``; the first latent frame runs each at T = 1,
-    the later ones at T = 1, 2 or 4, and the tiles do not depend on T) and
-    of the CUDA tests' cases."""
+    and encoder (``chip_smoke.CONV_CASES``; the first latent frame runs each
+    at T = 1, the later ones at T = 1, 2 or 4, and the tiles do not depend
+    on T) and of the CUDA tests' cases."""
     import chip_smoke
     from test_torch_kernels_cuda import CONV_CASES as CUDA_CASES
 
@@ -185,7 +185,8 @@ def test_plain_int8_conv_matches_pallas(monkeypatch, t, h, w, c, o, norm, res, k
 
 def _conv_int8_tile_shapes():
     """(T, H, W, C, O, kernel rows/cols) of every fused conv of the 480x832
-    decoder (``chip_smoke.CONV_CASES``) and of the int8 CUDA tests."""
+    decoder and encoder (``chip_smoke.CONV_CASES``) and of the int8 CUDA
+    tests."""
     import chip_smoke
     from test_torch_kernels_cuda import CONV_INT8_CASES
 
