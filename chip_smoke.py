@@ -15,7 +15,9 @@ Phases, each of which exits non-zero when it fails:
    plain pass, K2 bf16 and int8 at the decoder's and the encoder's shapes
    (the int8 pre-pass's operand bit-equal to its plain version), K6, K5, K3 under its three mask
    kinds at the full forwards' shapes, elided bit-equal to unelided, K4's
-   forward and its two backward kernels at the four training shapes)
+   forward and its two backward kernels at the four training shapes and at
+   the streaming rollout's wrapped ring, K1 bias at the streaming recache's
+   32760 over 32760, K2 at the one-frame decode's and encode's shapes)
    against its plain PyTorch version on the same
    inputs, with times of the kernel, the plain version, the least time the
    card could take, and one PyTorch library call computing the same
@@ -28,7 +30,9 @@ Phases, each of which exits non-zero when it fails:
    block), the full-sequence forwards (teacher forcing, and a sink-window
    ``FrameMaskSpec``; once more under ``LONGLIVE_CROSS_FLASH=1``), the two
    encoders (umT5 ``encode_prompts``, and ``vae_encode`` at widths where K2
-   takes the res-block convs) and one training step;
+   takes the res-block convs), one training step, and one streaming step
+   with LoRA adapters (bf16 on the GPU, float32 on the CPU; a switch with
+   its recache and a re-encoded overlap frame);
 5. the paths, at full Wan2.1-1.3B width with random weights, each with
    every kernel's launch count checked against the count derived from the
    model structure:
@@ -76,7 +80,15 @@ Phases, each of which exits non-zero when it fails:
       trainer on models with non-zero heads (``run_train``'s random init
       gives the teacher and critic zero heads, which zeroes the generator's
       gradient and stops the critic's at its head), with non-zero gradients
-      reaching the first layer of the generator and of the critic.
+      reaching the first layer of the generator and of the critic;
+   x. streaming: ``run_train`` on ``configs/longlive_train_long.yaml``
+      (streaming long tuning, rank-256 LoRA on the generator and the
+      critic) cut to ``streaming_max_length`` 60 and ``switch_choices``
+      [21], 3 steps: the chunk state (a prompt switch with the 21-frame
+      recache on step 0, a new sequence on step 2), K4, K1 (the recache) and
+      K2 (the re-encodes) launches, the phase split, the peak; then one
+      streaming step on models with non-zero heads, with non-zero
+      gradients reaching layer 0's ``lora_b`` of both models.
 
 The last lines are the ``kernels`` JSON line, the card line, and
 ``{"ok": true, "device": {...}}``.
@@ -332,16 +344,21 @@ def check_attention(torch, A):
 
 
 # K1 at the shapes the new paths give it: (label, mode, query frames, cache
-# frames, valid frames).  Tuned config: 9-frame cache (sink 3 + ring 6);
-# its reactive replay attends the sink and the 6 replayed slots.  The
-# interactive one-shot recache replays 12 frames over the 12-frame cache.
-# The bias case at the tuned shape is no path's; it sets the q_rope
-# prologue's cost beside the same work without it.
+# frames, valid frames: a count from slot 0, or the valid slots).  Tuned
+# config: 9-frame cache (sink 3 + ring 6); its reactive replay attends the
+# sink and the 6 replayed slots.  The interactive one-shot recache replays
+# 12 frames over the 12-frame cache.  The streaming trainer's recache
+# replays 21 frames over the 21-frame training cache and attends the sink
+# and the last 9 replay slots (window 12).  The bias case at the tuned
+# shape is no path's; it sets the q_rope prologue's cost beside the same
+# work without it.
 ATTN_CASES = [
     ("q_rope tuned decode: 3-frame block over the 9-frame cache", "q_rope", 3, 9, 9),
     ("bias at the tuned decode shape (q pre-roped; the prologue's cost)", "bias", 3, 9, 9),
     ("q_rope tuned reactive replay: 6 frames over the 9-frame cache", "q_rope", 6, 9, 6),
     ("bias interactive recache: 12 frames over the 12-frame cache", "bias", 12, 12, 12),
+    ("bias streaming recache: 21 frames over the 21-frame training cache", "bias", 21, 21,
+     (0, 1, 2) + tuple(range(12, 21))),
 ]
 
 
@@ -380,7 +397,10 @@ def check_attention_cases(torch, A, entry):
         q = torch.randn((b, sq, n, d), generator=g, device="cuda").to(torch.bfloat16)
         k = torch.randn((b * n, s, d), generator=g, device="cuda").to(torch.bfloat16)
         v = torch.randn((b * n, s, d), generator=g, device="cuda").to(torch.bfloat16)
-        valid = torch.arange(s, device="cuda") < vf * fs
+        slots = torch.arange(s, device="cuda") // fs
+        valid = (slots < vf) if isinstance(vf, int) else torch.isin(
+            slots, torch.tensor(vf, device="cuda"))
+        nvalid = vf if isinstance(vf, int) else len(vf)
         bias = torch.where(valid, 0.0, A.NEG_INF).float()[None].contiguous()
         rope = rope_multipliers(tables, qf, 30, 52, start_frame=24) if mode == "q_rope" else None
         out = A.flash_attention(q, k, v, bias, q_rope=rope)
@@ -397,7 +417,7 @@ def check_attention_cases(torch, A, entry):
         plain_ms = cuda_ms(torch, lambda: A.flash_attention_plain(q, k, v, bias, q_rope=rope), 2)
         lib_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=mask4), 10)
-        t_bound, bound_by = bound(4.0 * b * n * sq * vf * fs * d,
+        t_bound, bound_by = bound(4.0 * b * n * sq * nvalid * fs * d,
                                   2 * q.numel() * 2 + 2 * k.numel() * 2 + b * s * 4)
         log(f"flash_attention {label}: max_abs_err={err:.3e} tol={tol:.3e} "
             f"rel_rms_err={rel:.3e} (limit {REL_RMS_LIMIT:.0e}) ms={ms:.4f} "
@@ -408,7 +428,7 @@ def check_attention_cases(torch, A, entry):
                  f"max_abs_err {err} (limit {tol}), rel_rms_err {rel} "
                  f"(limit {REL_RMS_LIMIT})")
         case = {"case": label, "mode": mode, "q": [b, sq, n, d], "kv": [b * n, s, d],
-                "valid_tokens": vf * fs, "max_abs_err": err, "tolerance": tol,
+                "valid_tokens": nvalid * fs, "max_abs_err": err, "tolerance": tol,
                 "rel_rms_err": rel, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                 "bound_ms": t_bound, "bound_by": bound_by}
         if mode == "q_rope":
@@ -1009,6 +1029,13 @@ CONV_CASES = [
     ("encoder shortcut-block conv1 96->192@240x416", 4, 240, 416, 96, 192, 3, True, False, 0),
     ("encoder shortcut-block conv1 96->192@240x416 T=1 (first chunk)", 1, 240, 416, 96, 192, 3,
      True, False, 0),
+    # the streaming trainer's re-encode: a one-frame decode and a one-frame
+    # encode run every res-block conv at T = 1; these two shapes are the
+    # ones the cases above do not cover at T = 1
+    ("shortcut-block conv1 192->384@120x208 T=1 (one-frame decode and encode)", 1, 120, 208,
+     192, 384, 3, True, False, 0),
+    ("res conv2 384@120x208 T=1 (one-frame decode and encode)", 1, 120, 208, 384, 384, 3,
+     True, True, 0),
 ]
 
 
@@ -2339,7 +2366,30 @@ def train_attention_cases(torch):
         ("rollout cross: 3-frame block over 512 text tokens", 3 * fs, 512, None),
         ("critic/teacher self: 21 frames over 21 frames", 21 * fs, 21 * fs, None),
         ("critic/teacher cross: 21 frames over 512 text tokens", 21 * fs, 512, None),
+        ("streaming rollout self over the wrapped ring: frames 24-26 after the recache at 21 "
+         "(valid slots 0-5, 18-20)", 3 * fs, 24 * fs, wrapped_ring_valid(torch)[None]),
     ]
+
+
+def wrapped_ring_valid(torch):
+    """The kv mask of the streaming rollout's block at frames 24-26 (the
+    critic's chunk after the switch at 21 in the "streaming" path): the
+    recache packed frames 0-20 from slot 0 (ring base 3), frames 21-23
+    went to slots 3-5, so the 12-frame window (sink 3 + frames 18-23)
+    lives in slots 0-5 and 18-20, out of slot order, beside the block."""
+    from longlive_torch.config import CacheConfig
+    from longlive_torch.ops import kv_cache as kvc
+
+    fs = 1560
+    cc = CacheConfig(sink_frames=3, ring_frames=18, frame_seq=fs)
+    state = kvc.KVCache(k=torch.empty(0), v=torch.empty(0), ring_base=3, sink_filled=3,
+                        ring_filled=18)
+    cache_valid = kvc.validity_mask(cc, state, 24, 3, window_frames=12, device="cuda",
+                                    exclude_block=True)
+    slots = torch.nonzero(cache_valid.view(21, fs)[:, 0]).flatten().tolist()
+    if slots != [0, 1, 2, 3, 4, 5, 18, 19, 20]:
+        fail(f"wrapped-ring mask: valid slots {slots}")
+    return torch.cat([cache_valid, torch.ones(3 * fs, dtype=torch.bool, device="cuda")])
 
 
 def train_attention_bounds(b: int, sq: int, skv: int, n: int, d: int, nvalid: int):
@@ -2691,6 +2741,260 @@ def run_live_training_step(torch, A, VC, card: str) -> dict:
             "adam_step_rms_over_lr": adam_rms, "launches": got}
 
 
+# ---------------------------------------------------------------------------
+# phase 4c and 5f: streaming long tuning with LoRA
+
+
+def check_small_streaming(torch):
+    """One streaming step with rank-8 LoRA adapters on the generator and the
+    critic (generator and critic, ratio 1) of a small model on the GPU
+    (float32 bases, bf16 adapters, bf16 autocast, kernels) against the CPU
+    (float32 adapters, plain versions), the same draws and the same
+    adapters' init: the generator's chunk is 3 fresh frames, the critic's 2
+    new frames after 1 overlap frame (re-encoded through a VAE at widths
+    where K2 takes its convs) under a switch at frame 4 (the recache, K1).
+    Losses and grad norms within 5e-2 relative; the adapters' change within
+    UPDATE_LIMIT (as ``check_small_training``; A moves by the weight decay
+    alone on a first step, which bf16 rounds away, so B's change carries
+    the reading)."""
+    from longlive_torch.config import DiTConfig, LatentGeometry
+    from longlive_torch.models import dit as D
+    from longlive_torch.models import vae as V
+    from longlive_torch.training.streaming import StreamingConfig, StreamingTrainer
+    from longlive_torch.training.trainer import TrainerConfig, map_tree, param_leaves
+
+    cfg = DiTConfig(dim=256, ffn_dim=512, num_heads=2, num_layers=2, in_dim=16, out_dim=16,
+                    text_dim=64, text_len=16, freq_dim=64, local_attn_size=2, sink_size=1,
+                    num_frame_per_block=1, rope_max_pos=64)
+    geom = LatentGeometry(height=16, width=24)
+    vcfg = dataclasses.replace(V.tiny_vae_config(), dim=96, z_dim=16)  # widths 96/192: fused
+    vp32 = V.init_vae_params(vcfg, torch.float32, "cpu", seed=24)
+    scfg = StreamingConfig(chunk_size=3, max_length=8, min_new_frame=2, switch_choices=(4,))
+    g = torch.Generator().manual_seed(9)
+    pc, pu, ps = (torch.randn((1, cfg.text_len, cfg.text_dim), generator=g) for _ in range(3))
+    models = [D.init_dit_params(cfg, torch.float32, "cpu", seed=s, zero_head=False)
+              for s in (3, 4, 5)]
+    runs = {}
+    for dev, ldt in (("cpu", "float32"), ("cuda", "bfloat16")):
+        tcfg = TrainerConfig(num_frame_per_block=1, num_training_frames=3,
+                             min_num_training_frames=3, slice_last_frames=3,
+                             dfake_gen_update_ratio=1, lr=1e-4, lr_critic=3e-5, lora_rank=8,
+                             lora_alpha=8.0, lora_dtype=ldt)
+        copies = (map_tree(lambda t: t.detach().to(dev, copy=True), m) for m in models)
+        vp = vp32 if dev == "cpu" else V.pack_fused_weights(to_dev(vp32, dev, torch.bfloat16))
+        tr = StreamingTrainer(tcfg, cfg, geom, *copies, device=dev, streaming_cfg=scfg,
+                              vae_params=vp, vae_cfg=vcfg)
+        before = {k: map_tree(lambda t: t.detach().to("cpu", torch.float32, copy=True),
+                              tr.state[k]) for k in ("gen_lora", "critic_lora")}
+        tr.start_new_sequence(pc, pu, prompt_switch=ps, switch_choice=0)
+        m = tr.streaming_train_step()
+        runs[dev] = (m, tr, before)
+    (mc, tc, bc), (mg, tg, bg) = runs["cpu"], runs["cuda"]
+    if not (mg["switched"] and mg["overlap"] == 1 and mg["current_length"] == 5
+            and all(mg[k] == mc[k] for k in ("exit_idx", "gen_exit_idx"))):
+        fail(f"small streaming reference: chunk state {mg} (CPU {mc})")
+    errs = {k: abs(mg[k] - mc[k]) / max(abs(mc[k]), 1e-12)
+            for k in ("generator_loss", "critic_loss", "gen_generator_grad_norm",
+                      "critic_grad_norm")}
+    flat = lambda tree: torch.cat([t.detach().float().flatten().cpu()  # noqa: E731
+                                   for t in param_leaves(tree)])
+    for key in ("gen_lora", "critic_lora"):
+        d_gpu = flat(tg.state[key]) - flat(bg[key])
+        d_cpu = flat(tc.state[key]) - flat(bc[key])
+        errs[f"{key} change"] = ((d_gpu - d_cpu).norm() / d_cpu.norm()).item()
+    log("small streaming LoRA reference (GPU bf16 kernels vs CPU float32 plain; limits 5e-2 "
+        f"for losses and grad norms, {UPDATE_LIMIT} for the adapters' change): "
+        + ", ".join(f"{k} rel_err={v:.3e}" for k, v in errs.items()))
+    bad = {k: v for k, v in errs.items()
+           if not v <= (UPDATE_LIMIT if k.endswith("change") else 5e-2)}
+    if bad or not all(math.isfinite(mg[k]) for k in errs if not k.endswith("change")):
+        fail(f"small streaming reference disagrees: {bad}")
+    return errs
+
+
+def derived_streaming_launches(layers: int, chunks) -> dict:
+    """K4 launches of streaming steps: ``chunks`` lists each update as
+    (trains the generator, rollout blocks, exit step); each counts as the
+    batch trainer's update of that many blocks (``derived_train_launches``:
+    the DMD and critic forwards run over the whole chunk, overlap frames
+    included, in the same number of launches)."""
+    total = {"fwd": 0, "bwd_dq": 0, "bwd_dkdv": 0}
+    for gen, blocks, exit_idx in chunks:
+        one = derived_train_launches(layers, blocks, exit_idx if gen else None,
+                                     [] if gen else [exit_idx])
+        total = {k: total[k] + one[k] for k in total}
+    return total
+
+
+def _stream_chunks(rows, fpb: int):
+    """(trains the generator, blocks, exit) of each update of the logged
+    streaming steps, in order."""
+    out = []
+    for r in rows:
+        if "generator_loss" in r:
+            out.append((True, r["gen_new_frames"] // fpb, r["gen_exit_idx"]))
+        out.append((False, (r["new_frames"] - r.get("gen_new_frames", 0)) // fpb,
+                    r["exit_idx"]))
+    return out
+
+
+def run_streaming_path(torch, A, VC, card: str) -> dict:
+    """``run_train`` on ``configs/longlive_train_long.yaml`` (streaming long
+    tuning, rank-256 LoRA on the generator and the critic, generator, critic
+    and teacher all 1.3B) for 3 steps, two depth cuts in a copy of the
+    config: ``streaming_max_length`` 60 of 240 (so that step 2 starts a new
+    sequence) and ``switch_choices`` [21], the first of its eleven (so that
+    the second chunk switches prompts and runs the recache).  Step 0 trains
+    the generator on a 21-frame chunk, then the critic on 18 new frames
+    after 3 overlap frames (re-encoded: a one-frame decode and encode, K2
+    28 + 20) after the 21-frame recache (K1 bias, 29 layers: its last layer
+    writes K/V only); step 1 the critic on 18 more; step 2 the critic on a
+    new sequence's first chunk.  K4's launches are derived from the logged
+    exits; K1 and K2 counted exactly; no other serving kernel."""
+    import shutil
+
+    import yaml
+
+    from longlive_torch import run_train
+    from longlive_torch.config import DiTConfig
+    from longlive_torch.training.trainer import param_leaves
+
+    with open(os.path.join(ROOT, "configs", "longlive_train_long.yaml")) as f:
+        raw = yaml.safe_load(f)
+    raw.update(streaming_max_length=60, switch_choices=[21], phase_ledger=True)
+    path = os.path.join(ROOT, "build", "chip_smoke_train_long.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(raw, f)
+    logdir = os.path.join(ROOT, "build", "chip_smoke_train_long")
+    shutil.rmtree(logdir, ignore_errors=True)
+    log("streaming: configs/longlive_train_long.yaml cut to streaming_max_length 60 (of 240) "
+        "and switch_choices [21] (the first of 11), 3 steps, no checkpoint")
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(A, VC)
+    t0 = time.perf_counter()
+    trainer, _ = run_captured(lambda: run_train.main([
+        "--config_path", path, "--logdir", logdir, "--allow_random_weights", "--max_iters", "3",
+        "--no_auto_resume", "--no_save", "--device", "cuda"]))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = dict(A.train_launches)
+    serving = counts(A, VC)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    lora_params = sum(t.numel() for k in ("gen_lora", "critic_lora")
+                      for t in param_leaves(trainer.state[k]))
+    del trainer
+    with open(os.path.join(logdir, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    state = [(r.get("gen_current_length"), r.get("gen_overlap"), r.get("gen_switched"),
+              r["current_length"], r["overlap"], r["switched"]) for r in rows]
+    want_state = [(21, 0, False, 39, 3, True), (None, None, None, 57, 3, False),
+                  (None, None, None, 21, 0, False)]
+    log(f"streaming: (gen current_length, overlap, switched; critic's) per step {state}")
+    if [r["step"] for r in rows] != [0, 1, 2] or state != want_state:
+        fail(f"streaming: steps {[r['step'] for r in rows]}, chunk state {state}, "
+             f"expected {want_state}")
+    losses = {f"step {r['step']} {k}": r[k] for r in rows
+              for k in ("generator_loss", "critic_loss", "gen_generator_grad_norm",
+                        "critic_grad_norm") if k in r}
+    if not all(math.isfinite(v) for v in losses.values()):
+        fail(f"streaming: non-finite losses {losses}")
+    fpb = int(raw["num_frame_per_block"])
+    chunks = _stream_chunks(rows, fpb)
+    want = derived_streaming_launches(DiTConfig().num_layers, chunks)
+    want_serving = expect(bias=DiTConfig().num_layers - 1, conv=2 * (28 + 20))
+    log(f"streaming: K4 launches {json.dumps(got)} (want {json.dumps(want)}; updates "
+        f"(generator, blocks, exit) {chunks})")
+    if got != want:
+        fail(f"streaming: K4 launch counts {got} != {want}")
+    check_counts("streaming", serving, want_serving)
+    if peak >= 80:
+        fail(f"streaming: peak device memory {peak:.2f} GiB")
+    steps = [{"step_s": sum(r["phase_ms"].values()) / 1e3, "phase_ms": r["phase_ms"]}
+             for r in rows]
+    for r, st in zip(rows, steps):
+        log(f"streaming step {r['step']}: {st['step_s']:.2f} s "
+            f"({', '.join(f'{k} {v:.0f} ms' for k, v in st['phase_ms'].items())})")
+    log(f"streaming on {card}: {wall:.1f} s wall for set-up and 3 steps, peak device memory "
+        f"{peak:.2f} GiB, {lora_params} adapter parameters (generator + critic); "
+        + ", ".join(f"{k} {v:.6g}" for k, v in losses.items()))
+    return {"wall_s": wall, "peak_gib": peak, "steps": steps, "losses": losses,
+            "chunk_state": state, "train_launches": got, "launches": serving,
+            "adapter_params": lora_params}
+
+
+def run_live_streaming_step(torch, A, VC, card: str) -> dict:
+    """One streaming step (generator, then critic) of the trainer
+    ``run_train`` builds for ``configs/longlive_train_long.yaml`` (rank-256
+    LoRA on both), on full-width models with non-zero heads (seeds 0, 2, 1
+    for generator, critic, teacher; ``run_train``'s random init gives the
+    teacher and critic zero heads, which zeroes every adapter's gradient)
+    and the Wan VAE (random, bf16): a 21-frame chunk, then 18 new frames
+    after 3 overlap frames re-encoded.  Fails unless the losses and grad
+    norms are finite and non-zero and layer 0's ``lora_b`` of the generator
+    and of the critic moved off zero (AdamW moves an element only where its
+    gradient is non-zero; A's gradient carries B = 0 on this first step),
+    and the launches are as derived."""
+    import yaml
+
+    from longlive_torch.config import LatentGeometry, pipeline_config_from_dict
+    from longlive_torch.models import dit as D
+    from longlive_torch.models import vae as V
+    from longlive_torch.run_train import build_trainer_config
+    from longlive_torch.training.streaming import StreamingConfig, StreamingTrainer
+
+    with open(os.path.join(ROOT, "configs", "longlive_train_long.yaml")) as f:
+        raw = yaml.safe_load(f)
+    raw["phase_ledger"] = True
+    tcfg = build_trainer_config(raw)
+    cfg, geom = pipeline_config_from_dict(raw).dit_config(), LatentGeometry()
+    torch.cuda.reset_peak_memory_stats()
+    gen, critic, teacher = (D.init_dit_params(cfg, torch.float32, "cuda", seed=s,
+                                              zero_head=False) for s in (0, 2, 1))
+    vcfg = V.VAEConfig()
+    vae = V.init_vae_params(vcfg, torch.bfloat16, "cuda", seed=0)
+    tr = StreamingTrainer(tcfg, cfg, geom, gen, critic, teacher, device="cuda",
+                          streaming_cfg=StreamingConfig(max_length=60), vae_params=vae,
+                          vae_cfg=vcfg)
+    g = torch.Generator().manual_seed(12)
+    pc, pu = (torch.randn((1, cfg.text_len, cfg.text_dim), generator=g) for _ in range(2))
+    tr.start_new_sequence(pc, pu)
+    reset_counts(A, VC)
+    m = tr.streaming_train_step()
+    torch.cuda.synchronize()
+    got = dict(A.train_launches)
+    serving = counts(A, VC)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    moved = {}
+    for who in ("gen_lora", "critic_lora"):
+        for grp, name in (("self_attn", "q"), ("cross_attn", "k"), ("ffn", "fc2")):
+            b = tr.state[who][0][grp][name]["lora_b"].detach()
+            moved[f"{who} layer 0 {grp}.{name} lora_b nonzero share"] = (
+                (b != 0).float().mean().item())
+    norms = {k: m[k] for k in ("generator_loss", "critic_loss", "gen_generator_grad_norm",
+                               "critic_grad_norm", "gen_dmdtrain_gradient_norm")}
+    want = derived_streaming_launches(cfg.num_layers, _stream_chunks([m], tcfg.num_frame_per_block))
+    step_s = sum(m["phase_ms"].values()) / 1e3
+    log(f"streaming, non-zero heads, on {card}: {step_s:.2f} s "
+        f"({', '.join(f'{k} {v:.0f} ms' for k, v in m['phase_ms'].items())}), peak "
+        f"{peak:.2f} GiB; exits generator {m['gen_exit_idx']}, critic {m['exit_idx']}; "
+        + ", ".join(f"{k} {v:.6g}" for k, v in norms.items()) + "; "
+        + ", ".join(f"{k} {v:.3f}" for k, v in moved.items())
+        + f"; launches {json.dumps(got)} (want {json.dumps(want)})")
+    if not all(math.isfinite(v) for v in norms.values()):
+        fail(f"streaming, non-zero heads: non-finite values {norms}")
+    if not all(norms[k] > 0 for k in ("gen_generator_grad_norm", "critic_grad_norm",
+                                      "gen_dmdtrain_gradient_norm")):
+        fail(f"streaming, non-zero heads: a zero gradient {norms}")
+    if not all(v > 0.5 for v in moved.values()):
+        fail(f"streaming, non-zero heads: a layer-0 lora_b took no gradient {moved}")
+    if got != want:
+        fail(f"streaming, non-zero heads: K4 launch counts {got} != {want}")
+    check_counts("streaming, non-zero heads", serving, expect(conv=28 + 20))
+    return {"step_s": step_s, "phase_ms": m["phase_ms"], "peak_gib": peak, "norms": norms,
+            "lora_b_nonzero_share": moved, "train_launches": got, "launches": serving}
+
+
 def main() -> None:
     try:
         import torch
@@ -2746,6 +3050,7 @@ def main() -> None:
     full_ref = check_small_full_forwards(torch, A, VC)
     encoders_ref = check_small_encoders(torch, VC)
     check_small_training(torch)
+    streaming_ref = check_small_streaming(torch)
     log(f"small references: {time.perf_counter() - t0:.1f} s")
 
     paths = {}
@@ -2776,6 +3081,12 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     live = run_live_training_step(torch, A, VC, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths["streaming"] = run_streaming_path(torch, A, VC, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    live_stream = run_live_streaming_step(torch, A, VC, card)
     log("paths: " + json.dumps(paths))
     log("small int8 reference: " + json.dumps(int8_ref))
     log("small serving-options reference: " + json.dumps(options_ref))
@@ -2783,6 +3094,8 @@ def main() -> None:
     log("small encoder reference: " + json.dumps(encoders_ref))
     log("training: " + json.dumps(training))
     log("training, non-zero heads: " + json.dumps(live))
+    log("streaming, non-zero heads: " + json.dumps(live_stream))
+    log("small streaming reference: " + json.dumps(streaming_ref))
 
     # each entry's launches: the count of the path that runs it, read from
     # that path's own run (counts set to 0 just before it)
@@ -2815,8 +3128,11 @@ def main() -> None:
                    "flash_attention_train_bwd_dkdv": "bwd_dkdv"}[name]
             entry["launches_path"] = "training"
             entry["launches"] = training["launches"][key]
-            entry["launches_by_path"] = {"training": training["launches"][key],
-                                         "training, non-zero heads": live["launches"][key]}
+            entry["launches_by_path"] = {
+                "training": training["launches"][key],
+                "training, non-zero heads": live["launches"][key],
+                "streaming": paths["streaming"]["train_launches"][key],
+                "streaming, non-zero heads": live_stream["train_launches"][key]}
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": entries}), flush=True)
     print(card, flush=True)

@@ -19,16 +19,33 @@ import torch.nn.functional as F
 from ..ops import quant
 
 
+def lora_weight(w: torch.Tensor, lora_a: torch.Tensor, lora_b: torch.Tensor,
+                scale: float) -> torch.Tensor:
+    """W0 + scale B A: the product and the sum in float32 (outside any
+    autocast region), rounded once to W0's dtype."""
+    with torch.autocast(w.device.type, enabled=False):
+        return (w.float() + scale * (lora_b.float() @ lora_a.float())).to(w.dtype)
+
+
 def linear(x: torch.Tensor, p: dict) -> torch.Tensor:
     """x @ weight.T + bias, output in the input dtype.  Linears quantized by
     ``ops.quant.quantize_dit_params`` (``w_int8``) take the int8 route:
     ``LONGLIVE_INT8_FUSED`` set and not ``0`` (read at call time) selects
-    the fused kernel, otherwise the separate-quantize route."""
+    the fused kernel, otherwise the separate-quantize route.
+
+    A linear with LoRA adapters (``training.lora.attach_lora``: ``lora_a``
+    [r, in], ``lora_b`` [out, r], ``lora_s``) runs one GEMM on
+    ``lora_weight``, the merged weight of this layer only (the JAX
+    package's delta-first form); its backward keeps that layer's weight as
+    the GEMM's operand and hands the adapters their gradients."""
     if "w_int8" in p:
         if os.environ.get("LONGLIVE_INT8_FUSED", "0") != "0":
             return quant.linear_int8_fused(x, p)
         return quant.linear_int8(x, p)
-    return F.linear(x, p["weight"], p.get("bias"))
+    w = p["weight"]
+    if "lora_a" in p:
+        w = lora_weight(w, p["lora_a"], p["lora_b"], p["lora_s"])
+    return F.linear(x, w, p.get("bias"))
 
 
 def layer_norm(x: torch.Tensor, eps: float = 1e-6,

@@ -1,15 +1,24 @@
-"""Training CLI: batch DMD training (Self-Forcing init).
+"""Training CLI: batch DMD training (Self-Forcing init) and streaming long
+tuning.
 
 Usage:
   python -m longlive_torch.run_train --config_path configs/longlive_train_init.yaml \\
       --allow_random_weights
+  python -m longlive_torch.run_train --config_path configs/longlive_train_long.yaml \\
+      --allow_random_weights
 
-Runs on the GPU (``--device cuda``, the default); a YAML with
-``tiny_debug: true`` runs the tiny model and ``--device cpu`` the plain
-PyTorch paths.  Auto-resume restores the latest checkpoint under
-``--logdir`` (and the loader's position) unless ``--no_auto_resume``.
-Streaming long tuning (``streaming_training: true``), LoRA adapters and
-more than one process are not ported yet and raise NotImplementedError.
+``streaming_training: true`` selects the streaming trainer (chunks
+continuing one KV cache, prompt switches from ``switch_prompt_path`` with
+the KV-recache, the first-frame re-encode through the VAE); ``adapter:
+{type: lora, ...}`` trains LoRA adapters on the generator (and the critic
+with ``apply_to_critic``) over frozen bases.  Runs on the GPU (``--device
+cuda``, the default); a YAML with ``tiny_debug: true`` runs the tiny model
+and ``--device cpu`` the plain PyTorch paths.  Auto-resume restores the
+latest checkpoint under ``--logdir`` (adapters and their optimiser states
+included, and the loader's position) unless ``--no_auto_resume``; a
+streaming run resumes at the start of a new sequence (the sequence's state
+is not in the checkpoint).  More than one process is not ported yet and
+raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -28,6 +37,8 @@ from .config import (WAN_MODEL_CONFIGS, LatentGeometry, pipeline_config_from_dic
                      tiny_dit_config, tiny_geometry, warn_unknown_keys)
 from .models import dit as D
 from .models import vae as V
+from .training import lora as lora_mod
+from .training.streaming import StreamingConfig, StreamingTrainer
 from .training.trainer import ScoreDistillationTrainer, TrainerConfig, map_tree
 from .utils import loading, train_state
 from .utils.dataset import ShardedCheckpointableLoader, TextDataset, TwoTextDataset, cycle
@@ -152,12 +163,6 @@ def main(argv=None):
     with open(args.config_path) as f:
         raw = yaml.safe_load(f)
     warn_unknown_keys(raw, source=args.config_path)
-    if raw.get("streaming_training"):
-        raise NotImplementedError("streaming long tuning (streaming_training: true) is not "
-                                  "ported yet: ROADMAP queue 1, item 12 (streaming long tuning)")
-    if (raw.get("adapter") or {}).get("type") == "lora":
-        raise NotImplementedError("LoRA training (adapter: lora) is not ported yet: "
-                                  "ROADMAP queue 1, item 12 (streaming long tuning)")
     pconfig = pipeline_config_from_dict(raw)
     tcfg = build_trainer_config(raw)
     tiny = bool(raw.get("tiny_debug"))
@@ -177,7 +182,7 @@ def main(argv=None):
 
     if tiny:
         gen_params = D.init_dit_params(dit_cfg, torch.float32, device, seed=0, zero_head=False)
-        vcfg = V.tiny_vae_config()  # only visualize() decodes
+        vcfg = V.tiny_vae_config()  # visualize() and the streaming re-encode
         vae_params = V.init_vae_params(vcfg, torch.float32, device, seed=0)
         text_encoder = None
     else:
@@ -188,8 +193,22 @@ def main(argv=None):
         text_encoder = loading.load_text_encoder(pconfig, torch.bfloat16, device, strict=strict)
     teacher_params, teacher_cfg, critic_params = resolve_score_models(
         raw, dit_cfg, tcfg, device, strict=strict)
-    trainer = ScoreDistillationTrainer(tcfg, dit_cfg, geom, gen_params, critic_params,
-                                       teacher_params, teacher_cfg=teacher_cfg, device=device)
+    streaming = bool(raw.get("streaming_training", False))
+    if streaming:
+        scfg = StreamingConfig(
+            chunk_size=int(raw.get("streaming_chunk_size", 21)),
+            max_length=int(raw.get("streaming_max_length", 240)),
+            min_new_frame=int(raw.get("streaming_min_new_frame", 18)),
+            switch_choices=tuple(raw.get("switch_choices", ()) or ()),
+            global_sink=bool(raw.get("global_sink", False)),
+            train_first_chunk=bool(raw.get("train_first_chunk", True)))
+        trainer = StreamingTrainer(tcfg, dit_cfg, geom, gen_params, critic_params,
+                                   teacher_params, teacher_cfg=teacher_cfg, device=device,
+                                   streaming_cfg=scfg, vae_params=vae_params, vae_cfg=vcfg)
+    else:
+        trainer = ScoreDistillationTrainer(tcfg, dit_cfg, geom, gen_params, critic_params,
+                                           teacher_params, teacher_cfg=teacher_cfg,
+                                           device=device)
 
     if not args.no_auto_resume:
         restored = train_state.restore_train_state(args.logdir)
@@ -231,7 +250,11 @@ def main(argv=None):
         from .utils.video_io import to_video_array, write_video
 
         cdt = torch.bfloat16 if device.type == "cuda" else torch.float32
-        ema = map_tree(lambda t: t.to(device, cdt), trainer.state["ema_params"])
+        ema = trainer.state["ema_params"]
+        if trainer.use_lora:  # the EMA tracks the adapters: merge them into the base
+            ema = lora_mod.merge_lora(trainer.state["gen_params"],
+                                      map_tree(lambda t: t.to(device), ema), trainer.lora_scale)
+        ema = map_tree(lambda t: t.detach().to(device, cdt), ema)
         pipe = CausalInferencePipeline(pconfig, ema, geometry=geom, dit_config=dit_cfg,
                                        device=device)
         cross = pipe.prepare_condition(encode(next(prompt_iter)["prompts"]).to(cdt))
@@ -250,17 +273,30 @@ def main(argv=None):
                       if wandb_project not in (None, "YOUR_WANDB_PROJECT") else None))
     batch = int(raw.get("image_or_video_shape", [1])[0])
 
+    def new_sequence():
+        row = next(prompt_iter)
+        ps = row.get("switch_prompts")
+        trainer.start_new_sequence(
+            encode(row["prompts"]).expand(batch, -1, -1), neg_embed.expand(batch, -1, -1),
+            prompt_switch=None if ps is None else encode(ps).expand(batch, -1, -1))
+
     t0 = time.time()
     while int(trainer.state["step"]) < max_iters:
         step = int(trainer.state["step"])
-        row = next(prompt_iter)
-        cc, cu = encode(row["prompts"]), neg_embed
-        # the step's noise, from a stream of its own (the trainer's draws
-        # take (seed << 32) + step)
-        g = torch.Generator().manual_seed((tcfg.seed << 32) + (1 << 31) + step)
-        noise = torch.randn((batch, tcfg.num_training_frames, geom.channels, geom.height,
-                             geom.width), generator=g)
-        metrics = trainer.train_step(noise, cc.expand(batch, -1, -1), cu.expand(batch, -1, -1))
+        if streaming:
+            if not trainer.can_generate_more():
+                new_sequence()
+            metrics = trainer.streaming_train_step(new_sequence_cb=new_sequence)
+        else:
+            row = next(prompt_iter)
+            cc, cu = encode(row["prompts"]), neg_embed
+            # the step's noise, from a stream of its own (the trainer's
+            # draws take (seed << 32) + step)
+            g = torch.Generator().manual_seed((tcfg.seed << 32) + (1 << 31) + step)
+            noise = torch.randn((batch, tcfg.num_training_frames, geom.channels, geom.height,
+                                 geom.width), generator=g)
+            metrics = trainer.train_step(noise, cc.expand(batch, -1, -1),
+                                         cu.expand(batch, -1, -1))
         if step % log_iters == 0 or step < 3:
             metrics["wall_s"] = round(time.time() - t0, 1)
             print(metrics, flush=True)

@@ -130,6 +130,7 @@ def rollout_trajectory(params: dict, cfg: DiTConfig, cache_cfg: CacheConfig,
                        noise: torch.Tensor, cross_kv: D.CrossKV, draws: torch.Tensor,
                        exit_idx: int, cotangent: Optional[torch.Tensor] = None,
                        cache_dtype: Optional[torch.dtype] = None,
+                       cache: Optional[kvc.KVCache] = None, current_start_frame: int = 0,
                        ) -> Tuple[torch.Tensor, kvc.KVCache]:
     """Rolls out ``F_total`` frames block by block with the KV cache.
     noise: [B, F_total, C, H, W]; draws: [F_total / fpb, exit_idx + 1, B,
@@ -138,8 +139,12 @@ def rollout_trajectory(params: dict, cfg: DiTConfig, cache_cfg: CacheConfig,
 
     ``cotangent`` [B, F_total, C, H, W]: the gradient form (module
     docstring); the parameters (and ``cross_kv``, where it is a leaf that
-    requires grad) gather d(sum(latents * cotangent)) in ``.grad``.  The
-    cache is in ``cache_dtype`` (default: the parameters')."""
+    requires grad) gather d(sum(latents * cotangent)) in ``.grad``.  A new
+    cache is in ``cache_dtype`` (default: the parameters').
+
+    ``cache`` and ``current_start_frame`` continue a sequence (streaming
+    long tuning): the blocks start at absolute frame
+    ``current_start_frame`` and are committed into ``cache``, in place."""
     b, f_total = noise.shape[:2]
     fpb = rcfg.frame_block
     if f_total % fpb:
@@ -147,14 +152,16 @@ def rollout_trajectory(params: dict, cfg: DiTConfig, cache_cfg: CacheConfig,
     if draws.shape[:2] != (f_total // fpb, exit_idx + 1):
         raise ValueError(f"draws must be [{f_total // fpb}, {exit_idx + 1}, ...], "
                          f"got {tuple(draws.shape)}")
-    cache = kvc.init_cache(cache_cfg, cfg.num_layers, b, cfg.num_heads, cfg.head_dim,
-                           cache_dtype or params["patch_embedding"]["weight"].dtype,
-                           noise.device)
+    if cache is None:
+        cache = kvc.init_cache(cache_cfg, cfg.num_layers, b, cfg.num_heads, cfg.head_dim,
+                               cache_dtype or params["patch_embedding"]["weight"].dtype,
+                               noise.device)
     outputs = []
     for bi, s in enumerate(range(0, f_total, fpb)):
         x0, cache = rollout_block(
             params, cfg, cache_cfg, tables, sched, rcfg, cross_kv, noise[:, s:s + fpb], cache,
-            draws[bi], s, exit_idx, None if cotangent is None else cotangent[:, s:s + fpb])
+            draws[bi], current_start_frame + s, exit_idx,
+            None if cotangent is None else cotangent[:, s:s + fpb])
         outputs.append(x0)
     return torch.cat(outputs, dim=1), cache
 

@@ -29,6 +29,13 @@ arithmetic.  On the GPU each model runs under ``torch.autocast`` (bf16
 linears and attention operands with float32 accumulation, norms' statistics
 in float32); on the CPU everything is float32.
 
+LoRA (``lora_rank`` > 0, the JAX package's adapter mode): the generator's
+bases are frozen and its adapters (``training.lora``, in ``lora_dtype``)
+are what AdamW, the gradient clip and the EMA see; with
+``lora_apply_to_critic`` the critic's likewise, otherwise the critic trains
+in full.  The models run with their adapters attached (``_gen_full``,
+``_critic_full``), so no merged copy of either exists.
+
 Random draws: ``train_step`` takes a ``StepDraws`` (the tests replay the
 JAX package's draws through it) or, by default, draws one from a
 ``torch.Generator`` seeded by (seed, step) on the CPU, so a step's draws do
@@ -49,6 +56,7 @@ from ..models import dit as D
 from ..ops import scheduler as S
 from ..ops.rope import make_rope_tables
 from . import dmd as dmd_mod
+from . import lora as lora_mod
 from . import rollout as ro
 
 _LEVERS = "ROADMAP queue 1, item 12 (single-chip training levers)"
@@ -151,9 +159,6 @@ class ScoreDistillationTrainer:
                           ("cache_int8", _LEVERS)):
             if getattr(tcfg, name):
                 raise NotImplementedError(f"{name} is not ported yet: {why}")
-        if tcfg.lora_rank > 0:
-            raise NotImplementedError("LoRA training is not ported yet: ROADMAP queue 1, "
-                                      "item 12 (streaming long tuning)")
         if tcfg.gradient_accumulation_steps > 1:
             raise NotImplementedError(f"gradient accumulation is not ported yet: {_LEVERS}")
         if tcfg.attn_impl != "train_auto":
@@ -194,10 +199,27 @@ class ScoreDistillationTrainer:
                             else gen_params["patch_embedding"]["weight"].dtype)
 
         self.teacher_params = teacher_params
-        for t in param_leaves(teacher_params):
+        self.use_lora = tcfg.lora_rank > 0
+        self.critic_lora_on = self.use_lora and tcfg.lora_apply_to_critic
+        self.lora_scale = tcfg.lora_alpha / tcfg.lora_rank if self.use_lora else 1.0
+        gen_lora = critic_lora = None
+        if self.use_lora:
+            # a stream apart from the steps' draws ((seed << 32) + step) and
+            # the training loop's noise ((seed << 32) + 2^31 + step); the
+            # generator's adapters first, then the critic's (JAX: the two
+            # halves of PRNGKey(seed + 17))
+            g = torch.Generator().manual_seed((tcfg.seed << 32) + (1 << 30) + 17)
+            ldt = lora_mod.lora_dtype(tcfg.lora_dtype)
+            gen_lora = lora_mod.init_lora(gen_params, tcfg.lora_rank, ldt, g)
+            if self.critic_lora_on:
+                critic_lora = lora_mod.init_lora(critic_params, tcfg.lora_rank, ldt, g)
+        gen_trained = gen_lora if self.use_lora else gen_params
+        critic_trained = critic_lora if self.critic_lora_on else critic_params
+        for t in param_leaves(teacher_params) + param_leaves(gen_params) + param_leaves(
+                critic_params):
             t.requires_grad_(False)
-        self.gen_leaves = [t.requires_grad_(True) for t in param_leaves(gen_params)]
-        self.critic_leaves = [t.requires_grad_(True) for t in param_leaves(critic_params)]
+        self.gen_leaves = [t.requires_grad_(True) for t in param_leaves(gen_trained)]
+        self.critic_leaves = [t.requires_grad_(True) for t in param_leaves(critic_trained)]
         # eps outside the square root and decoupled decay, as optax.adamw
         self.gen_opt = torch.optim.AdamW(self.gen_leaves, lr=tcfg.lr,
                                          betas=(tcfg.beta1, tcfg.beta2), eps=1e-8,
@@ -207,8 +229,10 @@ class ScoreDistillationTrainer:
                                             eps=1e-8, weight_decay=tcfg.weight_decay)
         self.state: Dict[str, Any] = {
             "gen_params": gen_params, "critic_params": critic_params,
+            "gen_lora": gen_lora, "critic_lora": critic_lora,
             "gen_opt": self.gen_opt, "critic_opt": self.critic_opt,
-            "ema_params": map_tree(self._host_copy, gen_params), "step": 0}
+            # the EMA follows the trained tree: the adapters under LoRA
+            "ema_params": map_tree(self._host_copy, gen_trained), "step": 0}
         self.phase_ms: Dict[str, float] = {}
 
     # -- helpers -------------------------------------------------------------
@@ -239,11 +263,27 @@ class ScoreDistillationTrainer:
     def _param_dtype(self) -> torch.dtype:
         return self.state["gen_params"]["patch_embedding"]["weight"].dtype
 
-    def _rollout(self, noise, cross, d: PhaseDraws, cotangent=None):
+    def _gen_full(self) -> dict:
+        """The generator as it runs: its adapters attached under LoRA."""
+        if self.use_lora:
+            return lora_mod.attach_lora(self.state["gen_params"], self.state["gen_lora"],
+                                        self.lora_scale)
+        return self.state["gen_params"]
+
+    def _critic_full(self) -> dict:
+        if self.critic_lora_on:
+            return lora_mod.attach_lora(self.state["critic_params"], self.state["critic_lora"],
+                                        self.lora_scale)
+        return self.state["critic_params"]
+
+    def _rollout(self, gen: dict, noise, cross, renoise: torch.Tensor, exit_idx: int,
+                 cotangent=None, cache=None, start: int = 0):
+        """(latents, final cache) of the generator's rollout; ``cache`` and
+        ``start`` continue a sequence."""
         return ro.rollout_trajectory(
-            self.state["gen_params"], self.cfg, self.cache_cfg, self.tables, self.sched,
-            self.rcfg, noise, cross, d.renoise.to(self.device), d.exit_idx,
-            cotangent=cotangent, cache_dtype=self.cache_dtype)[0]
+            gen, self.cfg, self.cache_cfg, self.tables, self.sched, self.rcfg, noise, cross,
+            renoise.to(self.device), exit_idx, cotangent=cotangent,
+            cache_dtype=self.cache_dtype, cache=cache, current_start_frame=start)
 
     def _apply_update(self, opt: torch.optim.Optimizer, leaves: List[torch.Tensor]) -> float:
         """clip_by_global_norm then AdamW; returns the pre-clip global norm.
@@ -297,49 +337,70 @@ class ScoreDistillationTrainer:
 
     # -- the two updates -----------------------------------------------------
 
+    def _dmd_cotangent(self, latents, prompt_c, prompt_u, score_t, score_noise, gmask):
+        """(loss, aux, dL/dlatents) of the DMD loss, the critic and the
+        teacher run without gradient."""
+        real_x0 = dmd_mod.teacher_real_x0(
+            self.teacher_params, self.teacher_cfg, self.tables, self.sched, self.dcfg,
+            latents, prompt_c, prompt_u, score_t, score_noise)
+        lat = latents.detach().requires_grad_()
+        loss, aux = dmd_mod.distribution_matching_loss(
+            lat, self._critic_full(), None, self.cfg, self.tables, self.sched, self.dcfg,
+            prompt_c, prompt_u, score_t, score_noise, gradient_mask=gmask,
+            teacher_cfg=self.teacher_cfg, real_x0=real_x0)
+        (dlat,) = torch.autograd.grad(loss, lat)
+        return loss, aux, dlat
+
+    def _replay_backward(self, gen: dict, noise, prompt_c, renoise, exit_idx, dlat,
+                         cache=None, start: int = 0) -> None:
+        """The rollout replayed block by block against ``dlat``, the cross
+        K/V a leaf whose gradient goes through ``prepare_cross_kv`` once at
+        the end; the gradients gather in the trained leaves' ``.grad``."""
+        cross = D.prepare_cross_kv(gen, self.cfg, prompt_c, self._param_dtype())
+        leaf = D.CrossKV(k=cross.k.detach().requires_grad_(),
+                         v=cross.v.detach().requires_grad_())
+        self._rollout(gen, noise, leaf, renoise, exit_idx, cotangent=dlat, cache=cache,
+                      start=start)
+        if leaf.k.grad is not None:
+            torch.autograd.backward([cross.k, cross.v], [leaf.k.grad, leaf.v.grad])
+
     def _gen_step(self, noise, prompt_c, prompt_u, d: PhaseDraws):
-        gen, dtype = self.state["gen_params"], self._param_dtype()
+        gen, dtype = self._gen_full(), self._param_dtype()
         fpb = self.rcfg.frame_block
         use_mask = d.num_blocks != self._block_range(noise.shape[1])[0]
         noise = noise[:, :d.num_blocks * fpb]
         with self._phase("gen_rollout"), torch.no_grad(), self._autocast():
-            latents = self._rollout(noise, D.prepare_cross_kv(gen, self.cfg, prompt_c, dtype), d)
+            cross = D.prepare_cross_kv(gen, self.cfg, prompt_c, dtype)
+            latents = self._rollout(gen, noise, cross, d.renoise, d.exit_idx)[0]
         gmask = None
         if use_mask:  # the DMD loss skips the first block of a shortened rollout
             gmask = (torch.arange(latents.shape[1], device=self.device)[None] >= fpb
                      ).expand(latents.shape[:2])
         with self._phase("dmd_loss_grad"), self._autocast():
-            real_x0 = dmd_mod.teacher_real_x0(
-                self.teacher_params, self.teacher_cfg, self.tables, self.sched, self.dcfg,
-                latents, prompt_c, prompt_u, d.score_t, d.score_noise)
-            lat = latents.detach().requires_grad_()
-            loss, aux = dmd_mod.distribution_matching_loss(
-                lat, self.state["critic_params"], None, self.cfg, self.tables, self.sched,
-                self.dcfg, prompt_c, prompt_u, d.score_t, d.score_noise, gradient_mask=gmask,
-                teacher_cfg=self.teacher_cfg, real_x0=real_x0)
-            (dlat,) = torch.autograd.grad(loss, lat)
-        del real_x0, lat, latents
+            loss, aux, dlat = self._dmd_cotangent(latents, prompt_c, prompt_u, d.score_t,
+                                                  d.score_noise, gmask)
+        del latents
         with self._phase("gen_block_backward"), self._autocast():
-            cross = D.prepare_cross_kv(gen, self.cfg, prompt_c, dtype)
-            leaf = D.CrossKV(k=cross.k.detach().requires_grad_(),
-                             v=cross.v.detach().requires_grad_())
-            self._rollout(noise, leaf, d, cotangent=dlat)
-            if leaf.k.grad is not None:
-                torch.autograd.backward([cross.k, cross.v], [leaf.k.grad, leaf.v.grad])
+            self._replay_backward(gen, noise, prompt_c, d.renoise, d.exit_idx, dlat)
         with self._phase("gen_optimizer"):
             gnorm = self._apply_update(self.gen_opt, self.gen_leaves)
         return loss, dict(aux, generator_grad_norm=gnorm)
 
+    def _critic_loss_backward(self, latents, prompt_c, score_t, score_noise):
+        loss, aux = dmd_mod.critic_denoising_loss(
+            self._critic_full(), latents, self.cfg, self.tables, self.sched, self.dcfg,
+            prompt_c, score_t, score_noise)
+        loss.backward()
+        return loss, aux
+
     def _critic_step(self, noise, prompt_c, d: PhaseDraws):
-        gen, dtype = self.state["gen_params"], self._param_dtype()
+        gen, dtype = self._gen_full(), self._param_dtype()
         noise = noise[:, :d.num_blocks * self.rcfg.frame_block]
         with self._phase("critic_rollout"), torch.no_grad(), self._autocast():
-            latents = self._rollout(noise, D.prepare_cross_kv(gen, self.cfg, prompt_c, dtype), d)
+            cross = D.prepare_cross_kv(gen, self.cfg, prompt_c, dtype)
+            latents = self._rollout(gen, noise, cross, d.renoise, d.exit_idx)[0]
         with self._phase("critic_loss_grad"), self._autocast():
-            loss, aux = dmd_mod.critic_denoising_loss(
-                self.state["critic_params"], latents, self.cfg, self.tables, self.sched,
-                self.dcfg, prompt_c, d.score_t, d.score_noise)
-            loss.backward()
+            loss, aux = self._critic_loss_backward(latents, prompt_c, d.score_t, d.score_noise)
         with self._phase("critic_optimizer"):
             gnorm = self._apply_update(self.critic_opt, self.critic_leaves)
         return loss, dict(aux, critic_grad_norm=gnorm)
@@ -381,7 +442,7 @@ class ScoreDistillationTrainer:
         return metrics
 
     def _update_ema(self, step: int):
-        gen = self.state["gen_params"]
+        gen = self.state["gen_lora" if self.use_lora else "gen_params"]
         if step < self.tcfg.ema_start_step:
             self.state["ema_params"] = map_tree(self._host_copy, gen)
             return
@@ -394,11 +455,13 @@ class ScoreDistillationTrainer:
         the training loop's protocol.  Returns no late metrics."""
         return {}
 
+    _TREES = ("gen_params", "critic_params", "gen_lora", "critic_lora")
+
     def state_dict(self) -> Dict[str, Any]:
-        """What a checkpoint holds: parameters, optimiser states, EMA, step."""
+        """What a checkpoint holds: parameters and adapters (None where
+        LoRA is off), optimiser states (over the trained trees), EMA, step."""
         detach = lambda t: t.detach()  # noqa: E731
-        return {"gen_params": map_tree(detach, self.state["gen_params"]),
-                "critic_params": map_tree(detach, self.state["critic_params"]),
+        return {**{key: map_tree(detach, self.state[key]) for key in self._TREES},
                 "gen_opt": self.gen_opt.state_dict(),
                 "critic_opt": self.critic_opt.state_dict(),
                 "ema_params": self.state["ema_params"], "step": int(self.state["step"])}
@@ -407,9 +470,8 @@ class ScoreDistillationTrainer:
         """Restores a ``state_dict`` in place (the optimisers keep their
         parameter references)."""
         with torch.no_grad():
-            for key, leaves in (("gen_params", self.gen_leaves),
-                                ("critic_params", self.critic_leaves)):
-                src = param_leaves(sd[key])
+            for key in self._TREES:
+                leaves, src = param_leaves(self.state[key]), param_leaves(sd.get(key))
                 if len(src) != len(leaves):
                     raise ValueError(f"{key}: {len(src)} tensors in the checkpoint, "
                                      f"{len(leaves)} in the model")

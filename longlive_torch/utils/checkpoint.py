@@ -11,7 +11,8 @@ Covers the artifacts the reference loads:
   sd}``, ``{"model": sd}`` or a raw state dict, keys possibly carrying
   ``_fsdp_wrapped_module.`` / ``module.``) and PEFT LoRA adapters, folded
   into the base weights at load (W += alpha / rank * B @ A), so inference
-  needs no adapter runtime.
+  needs no adapter runtime; ``lora_to_peft_sd`` / ``peft_sd_to_lora``
+  carry the adapters training writes to and from that layout.
 
 The umT5 encoder's converter is ``models.t5.t5_params_from_torch``.  The
 converters give the port's layout directly: DiT blocks as a list of
@@ -75,6 +76,59 @@ def fold_lora_into_dit_sd(sd: dict, lora_sd: dict, alpha_over_rank: float = 1.0)
                  @ torch.as_tensor(a).detach().cpu().float()) * alpha_over_rank
         sd[w_key] = torch.as_tensor(sd[w_key]).detach().cpu().float() + delta
     return sd
+
+
+_PEFT_NAME = {"fc1": "ffn.0", "fc2": "ffn.2"}  # the reference's Sequential indices
+_PEFT_RE = re.compile(r"(?:base_model\.(?:model\.)*)?blocks\.(\d+)\.(.+)\.lora_A"
+                      r"(?:\.default)?\.weight$")
+
+
+def lora_to_peft_sd(lora: list, cfg: DiTConfig, prefix: str = "base_model.model.") -> dict:
+    """The port's adapters (``training.lora``: per layer ``{group: {name:
+    {"lora_a" [r, d_in], "lora_b" [d_out, r]}}}``) -> the reference's PEFT
+    state dict (float32 on the CPU; keys ``{prefix}blocks.{i}.{target}.
+    lora_{A,B}.weight``), which ``fold_lora_into_dit_sd`` and the
+    reference read.  Under the halfsplit layout the self-attention q/k
+    adapters were trained in the permuted channel basis: their B rows go
+    back to the reference's interleaved order here."""
+    inv = None
+    if cfg.rope_layout == "halfsplit":
+        inv = torch.as_tensor(halfsplit_qk_perm(cfg.head_dim, cfg.num_heads)).argsort()
+    out = {}
+    for i, layer in enumerate(lora):
+        for group, lg in layer.items():
+            for name, ab in lg.items():
+                b = ab["lora_b"].detach().cpu().float()
+                if inv is not None and group == "self_attn" and name in ("q", "k"):
+                    b = b[inv]
+                base = f"{prefix}blocks.{i}.{_PEFT_NAME.get(name, f'{group}.{name}')}"
+                out[f"{base}.lora_A.weight"] = ab["lora_a"].detach().cpu().float().clone()
+                out[f"{base}.lora_B.weight"] = b.clone()
+    return out
+
+
+def peft_sd_to_lora(lora_sd: dict, cfg: DiTConfig) -> list:
+    """The inverse of ``lora_to_peft_sd`` (float32 on the CPU), for
+    continued training of released adapters; takes PEFT's ``.default`` key
+    variant too."""
+    lora_sd = clean_state_dict_keys(lora_sd)
+    perm = None
+    if cfg.rope_layout == "halfsplit":
+        perm = torch.as_tensor(halfsplit_qk_perm(cfg.head_dim, cfg.num_heads))
+    names = {"ffn.0": ("ffn", "fc1"), "ffn.2": ("ffn", "fc2")}
+    layers = {}
+    for k, a in lora_sd.items():
+        m = _PEFT_RE.match(k)
+        if not m:
+            continue
+        i, target = int(m.group(1)), m.group(2)
+        group, name = names[target] if target in names else target.rsplit(".", 1)
+        b = torch.as_tensor(lora_sd[k.replace("lora_A", "lora_B")]).detach().cpu().float()
+        if perm is not None and group == "self_attn" and name in ("q", "k"):
+            b = b[perm]
+        layers.setdefault(i, {}).setdefault(group, {})[name] = {
+            "lora_a": torch.as_tensor(a).detach().cpu().float().clone(), "lora_b": b.clone()}
+    return [layers[i] for i in sorted(layers)]
 
 
 # ---------------------------------------------------------------------------

@@ -4,7 +4,8 @@ The JAX trees stack the DiT's per-layer parameters on a leading [L] axis
 and store linears as ``{"kernel": [in, out], "bias"}``.  These converters
 take such a tree with numpy leaves (``jax.tree.map(np.asarray, tree)``) and
 return the port's layout: a list of per-layer dicts and
-``{"weight": [out, in], "bias"}``.  Int8 linears of a tree quantized by the
+``{"weight": [out, in], "bias"}`` (LoRA adapters: per-layer ``{"lora_a":
+[r, in], "lora_b": [out, r]}``).  Int8 linears of a tree quantized by the
 JAX package's ``quantize_dit_params`` (``{"w_int8": [in, out],
 "w_scale": [out], "bias"}``, a fused ``qkv`` included) become
 ``{"w_int8": [out, in] int8, in contiguous, "w_scale": [out] float32,
@@ -67,6 +68,19 @@ def dit_params_from_jax(tree: dict, dtype=None, device="cpu") -> dict:
     out = {k: _convert(v, dtype, device) for k, v in tree.items() if k != "blocks"}
     out["blocks"] = [_convert(_unstack(blocks, i), dtype, device) for i in range(num_layers)]
     return out
+
+
+def lora_params_from_jax(tree: dict, dtype=None, device="cpu") -> list:
+    """JAX LoRA adapters (``training.lora.init_lora``'s tree, numpy leaves:
+    ``{group: {name: {"a": [L, d_in, r], "b": [L, r, d_out]}}}``) -> the
+    port's per-layer adapters (``lora_a`` [r, d_in], ``lora_b`` [d_out,
+    r])."""
+    num_layers = next(np.asarray(ab["a"]).shape[0] for lg in tree.values() for ab in lg.values())
+    return [{group: {name: {"lora_a": _tensor(np.asarray(ab["a"])[i].T, dtype, device),
+                            "lora_b": _tensor(np.asarray(ab["b"])[i].T, dtype, device)}
+                     for name, ab in lg.items()}
+             for group, lg in tree.items()}
+            for i in range(num_layers)]
 
 
 def vae_params_from_jax(tree: dict, dtype=None, device="cpu") -> dict:

@@ -2,7 +2,9 @@
 
 A step's checkpoint is ``<logdir>/checkpoint_model_{step:06d}/`` (the
 reference's naming) holding ``train_state.pt`` (``torch.save`` of the
-trainer's ``state_dict()``: parameters, optimiser states, EMA, step) and
+trainer's ``state_dict()``: parameters, LoRA adapters where they train,
+optimiser states, EMA, step; a streaming trainer's sequence state is not
+saved, so a resumed run starts a new sequence) and
 the loader's position ``loader_state_p{rank}.json``.  Only the newest
 ``max_checkpoints`` are kept.  Restoring reads tensors only
 (``weights_only=True``).

@@ -1,8 +1,9 @@
 """The port's training CLI and its utilities: ``run_train`` with
 ``tiny_debug: true`` on the CPU for 2 steps (metrics JSONL, checkpoints,
-auto-resume), the score models' random init, the refusals of what is not
-ported, the checkpointable loader against the JAX package's, and the
-train-state files."""
+auto-resume), streaming LoRA training for 3 steps with its resume, the
+score models' random init, the refusals of what is not ported, the
+checkpointable loader against the JAX package's, and the train-state
+files."""
 
 import json
 import os
@@ -69,9 +70,52 @@ def test_run_train_tiny_two_steps_and_resume(tmp_path, capsys):
     assert len(open(os.path.join(logdir, "metrics.jsonl")).readlines()) == 2
 
 
-@pytest.mark.parametrize("key,value", [("streaming_training", True),
-                                       ("adapter", {"type": "lora", "rank": 4}),
-                                       ("opt_on_host", True), ("cache_int8", True),
+def test_run_train_tiny_streaming_lora_three_steps_and_resume(tmp_path, capsys):
+    """A streaming YAML with rank-4 adapters on both models: three steps
+    (the generator and the critic on step 0, the prompt switch, a new
+    sequence on step 2), the preview video of the EMA adapters merged into
+    the base, a checkpoint holding the adapters and their AdamW states, and
+    an auto-resume that restores them bit-equal; the resumed run starts a
+    new sequence."""
+    first, second = tmp_path / "a.txt", tmp_path / "b.txt"
+    first.write_text("a cat\na dog\na fox\n")
+    second.write_text("a cat at night\na dog at night\na fox at night\n")
+    cfg = dict(TINY, data_path=str(first), switch_prompt_path=str(second), max_iters=3,
+               log_iters=2, vis_interval=2, vis_video_lengths=[2], streaming_training=True, streaming_chunk_size=3,
+               streaming_max_length=8, streaming_min_new_frame=2, switch_choices=[4],
+               num_training_frames=3, min_num_training_frames=3, slice_last_frames=3,
+               adapter={"type": "lora", "rank": 4, "alpha": 4, "apply_to_critic": True,
+                        "dtype": "float32"})
+    path, logdir = _write(tmp_path, cfg), str(tmp_path / "run")
+    tr = run_train.main(["--config_path", path, "--logdir", logdir, "--no_auto_resume",
+                         "--device", "cpu"])
+    rows = [json.loads(line) for line in open(os.path.join(logdir, "metrics.jsonl"))]
+    assert [r["step"] for r in rows] == [0, 1, 2]
+    assert [r["current_length"] for r in rows] == [5, 7, 5]
+    assert [r["switched"] for r in rows] == [True, False, True]
+    assert "generator_loss" in rows[0] and "generator_loss" not in rows[1]
+    assert {"recache", "reencode", "gen_block_backward"} <= set(rows[0]["phase_ms"])
+    assert train_state.list_checkpoint_steps(logdir) == [2, 3]
+    assert os.path.getsize(os.path.join(logdir, "vis_000002_2f.mp4")) > 0  # EMA adapters merged
+    saved = train_state.restore_train_state(logdir)
+    assert saved["gen_lora"] is not None and saved["critic_lora"] is not None
+    assert len(saved["gen_opt"]["state"]) == len(param_leaves(tr.state["gen_lora"]))
+    for key in ("gen_lora", "critic_lora"):
+        assert _same(saved[key], tr.state[key])
+
+    capsys.readouterr()
+    tr2 = run_train.main(["--config_path", path, "--logdir", logdir, "--device", "cpu"])
+    assert "[resume] restored step 3" in capsys.readouterr().out
+    for key in ("gen_params", "critic_params", "gen_lora", "critic_lora", "ema_params"):
+        assert _same(tr2.state[key], tr.state[key])
+    for a, b in ((tr2.gen_opt, tr.gen_opt), (tr2.critic_opt, tr.critic_opt)):
+        sa, sb = a.state_dict()["state"], b.state_dict()["state"]
+        assert sa.keys() == sb.keys()
+        assert all(torch.equal(sa[i]["exp_avg_sq"], sb[i]["exp_avg_sq"]) for i in sa)
+    assert tr2.seq_state is None  # the loop ended at once; a step would start a new sequence
+
+
+@pytest.mark.parametrize("key,value", [("opt_on_host", True), ("cache_int8", True),
                                        ("gradient_accumulation_steps", 2)])
 def test_unported_options_raise(tmp_path, key, value):
     path = _write(tmp_path, dict(TINY, **{key: value}))

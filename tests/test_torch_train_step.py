@@ -65,6 +65,30 @@ def _leaf_close(tparams, jgrads, tol):
         np.testing.assert_allclose(g, w, rtol=tol, atol=tol * max(np.abs(w).max(), 1e-3))
 
 
+def _by_path(tree, path=""):
+    """{path: tensor} of a parameter tree (the JAX trees' dicts come back
+    with sorted keys, so leaves are matched by path, not by order)."""
+    if isinstance(tree, dict):
+        return {p: t for k, v in tree.items() for p, t in _by_path(v, f"{path}/{k}").items()}
+    if isinstance(tree, list):
+        return {p: t for i, v in enumerate(tree) for p, t in _by_path(v, f"{path}/{i}").items()}
+    return {path: tree}
+
+
+def check_updates(jtr, ttr, trees):
+    """Each trained tree's change over the steps against the JAX trainer's,
+    leaf by leaf within UPDATE_TOL of the change's norm.  ``trees``: (state
+    key, the converter of the JAX tree, the port's tree before the steps)."""
+    for key, convert, before in trees:
+        want = _by_path(convert(jax.tree.map(np.asarray, jtr.state[key])))
+        got, p0 = _by_path(ttr.state[key]), _by_path(before)
+        assert set(got) == set(want) == set(p0)
+        for path, w in want.items():
+            d_got, d_want = got[path].detach() - p0[path], w - p0[path]
+            err = ((d_got - d_want).norm() / d_want.norm()).item()
+            assert err <= UPDATE_TOL, f"{key}{path}: change off by {err:.2e} (relative)"
+
+
 def jax_rollout_draws(rng, num_blocks, exit_idx, block_shape):
     """The re-noise draws ``rollout_trajectory`` makes from ``rng``: per
     block, one split per pre-exit step and one for the commit, the chain
