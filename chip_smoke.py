@@ -17,7 +17,9 @@ Phases, each of which exits non-zero when it fails:
    kinds at the full forwards' shapes, elided bit-equal to unelided, K4's
    forward and its two backward kernels at the four training shapes and at
    the streaming rollout's wrapped ring, K1 bias at the streaming recache's
-   32760 over 32760, K2 at the one-frame decode's and encode's shapes)
+   32760 over 32760, K2 at the one-frame decode's and encode's shapes, K1
+   at the bidirectional samplers' B = 2 shapes: 32760 over 32760 and the
+   image cross-attention's 32760 over 257)
    against its plain PyTorch version on the same
    inputs, with times of the kernel, the plain version, the least time the
    card could take, and one PyTorch library call computing the same
@@ -30,9 +32,11 @@ Phases, each of which exits non-zero when it fails:
    block), the full-sequence forwards (teacher forcing, and a sink-window
    ``FrameMaskSpec``; once more under ``LONGLIVE_CROSS_FLASH=1``), the two
    encoders (umT5 ``encode_prompts``, and ``vae_encode`` at widths where K2
-   takes the res-block convs), one training step, and one streaming step
+   takes the res-block convs), one training step, one streaming step
    with LoRA adapters (bf16 on the GPU, float32 on the CPU; a switch with
-   its recache and a re-encoded overlap frame);
+   its recache and a re-encoded overlap frame), and the bidirectional
+   samplers (text-to-video under UniPC, image-to-video under DPM++ with
+   its CLIP features and first-frame encode);
 5. the paths, at full Wan2.1-1.3B width with random weights, each with
    every kernel's launch count checked against the count derived from the
    model structure:
@@ -88,7 +92,14 @@ Phases, each of which exits non-zero when it fails:
       recache on step 0, a new sequence on step 2), K4, K1 (the recache) and
       K2 (the re-encodes) launches, the phase split, the peak; then one
       streaming step on models with non-zero heads, with non-zero
-      gradients reaching layer 0's ``lora_b`` of both models.
+      gradients reaching layer 0's ``lora_b`` of both models;
+   y. t2v: ``run_t2v.main`` (the vanilla Wan2.1 sampler) at 832x480, 81
+      frames (21 latent frames, 32760 tokens a sample), UniPC for
+      SAMPLER_STEPS steps with the cond and uncond halves in one batch,
+      then the decode and the video;
+   z. i2v: ``run_t2v.generate`` with a seeded 720x1280 image: the i2v DiT,
+      a full-width CLIP ViT-H/14, the 81-frame first-frame encode, DPM++
+      for SAMPLER_STEPS steps, the decode and the video.
 
 The last lines are the ``kernels`` JSON line, the card line, and
 ``{"ok": true, "device": {...}}``.
@@ -799,6 +810,65 @@ def check_attention_cross(torch, A, entry):
                                "library_ms": lib_ms, "bound_ms": t_bound, "bound_by": bound_by})
         # the entry keeps the error and limit of its worst case (the cross
         # outputs are larger, and so are their errors and limits)
+        if err / tol > entry["max_abs_err"] / entry["tolerance"]:
+            entry["max_abs_err"], entry["tolerance"] = err, tol
+        entry["rel_rms_err"] = max(entry["rel_rms_err"], rel)
+        del q, k, v, out, qt, kt, vt
+        torch.cuda.empty_cache()
+
+
+# K1 at the bidirectional samplers' shapes (run_t2v at 832x480, 81 frames:
+# 21 latent frames of 1560 tokens, the cond and uncond halves of CFG in one
+# batch of 2): (label, mode, query tokens, kv tokens).  Every key is valid.
+BIDI_CASES = [
+    ("bias, bidirectional self: both CFG halves (B 2), 32760 over 32760", "bias", 32760, 32760),
+    ("cross, text: both CFG halves (B 2), 32760 over 512", "cross", 32760, 512),
+    ("cross, i2v image: both CFG halves (B 2), 32760 over 257 CLIP tokens", "cross", 32760, 257),
+]
+
+
+def check_attention_bidirectional(torch, A, entry):
+    """K1 at the bidirectional samplers' shapes against its plain version
+    (B = 2, a zero bias; the image cross-attention's 257 keys leave the last
+    128-token tile ragged); the cases join K1's bias entry.
+    ``library_ms`` is SDPA without a mask."""
+    import torch.nn.functional as F
+
+    b, n, d = 2, 12, 128
+    g = torch.Generator(device="cuda").manual_seed(23)
+    for label, mode, sq, s in BIDI_CASES:
+        q = torch.randn((b, sq, n, d), generator=g, device="cuda").to(torch.bfloat16)
+        k, v = (torch.randn((b * n, s, d), generator=g, device="cuda").to(torch.bfloat16)
+                for _ in range(2))
+        bias = torch.zeros((b, s), dtype=torch.float32, device="cuda")
+        cross = mode == "cross"
+        before = A.mode_launches[mode]
+        out = A.flash_attention(q, k, v, bias, cross=cross)
+        if A.mode_launches[mode] != before + 1:
+            fail(f"flash_attention ({label}): not counted as a {mode} launch")
+        ref = A.flash_attention_plain(q, k, v, bias)
+        torch.cuda.synchronize()
+        if not torch.isfinite(out).all():
+            fail(f"flash_attention ({label}): non-finite output")
+        err, tol, rel = agreement(out, ref)
+        del ref
+        ms = cuda_ms(torch, lambda: A.flash_attention(q, k, v, bias, cross=cross), 5)
+        plain_ms = cuda_ms(torch, lambda: A.flash_attention_plain(q, k, v, bias), 1)
+        qt, kt, vt = q.transpose(1, 2), k.view(b, n, s, d), v.view(b, n, s, d)
+        lib_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt), 5)
+        t_bound, bound_by = bound(4.0 * b * n * sq * s * d,
+                                  2 * 2 * q.numel() + 2 * 2 * k.numel() + 4 * b * s)
+        log(f"flash_attention {label}: max_abs_err={err:.3e} tol={tol:.3e} "
+            f"rel_rms_err={rel:.3e} (limit {REL_RMS_LIMIT:.0e}) ms={ms:.4f} "
+            f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} bound_ms={t_bound:.4f} "
+            f"({bound_by}; {t_bound / ms:.1%} of bound)")
+        if not (err <= tol and rel <= REL_RMS_LIMIT):
+            fail(f"flash_attention ({label}) disagrees with its plain version: "
+                 f"max_abs_err {err} (limit {tol}), rel_rms_err {rel} (limit {REL_RMS_LIMIT})")
+        entry["cases"].append({"case": label, "mode": mode, "q": [b, sq, n, d],
+                               "kv": [b * n, s, d], "max_abs_err": err, "tolerance": tol,
+                               "rel_rms_err": rel, "ms": ms, "plain_ms": plain_ms,
+                               "library_ms": lib_ms, "bound_ms": t_bound, "bound_by": bound_by})
         if err / tol > entry["max_abs_err"] / entry["tolerance"]:
             entry["max_abs_err"], entry["tolerance"] = err, tol
         entry["rel_rms_err"] = max(entry["rel_rms_err"], rel)
@@ -2995,6 +3065,192 @@ def run_live_streaming_step(torch, A, VC, card: str) -> dict:
             "lora_b_nonzero_share": moved, "train_launches": got, "launches": serving}
 
 
+# ---------------------------------------------------------------------------
+# phase 4d and 5y/5z: the vanilla Wan samplers (run_t2v, text- and image-to-video)
+
+SAMPLER_STEPS = 4  # of run_t2v's 50: the per-step time gives the rest
+
+
+def _no_train_launches(A, label: str) -> None:
+    if any(A.train_launches.values()):
+        fail(f"{label}: the training attention (K4) launched {dict(A.train_launches)}")
+
+
+def check_small_samplers(torch, A, VC) -> dict:
+    """The bidirectional samplers on small inputs, GPU (bf16, kernels) vs
+    CPU (float32, plain versions): ``Text2VideoPipeline`` under UniPC and
+    ``Image2VideoPipeline`` under DPM++ (3 steps each; head dim 128, 10 x
+    12 latents: 30 tokens a frame, ragged tiles), the i2v conditioning
+    made from a 37 x 53 image resized to 20 x 24: CLIP features (a
+    3-layer CLIP at width 64) and the first-frame encode (the VAE at widths
+    96/192, where K2 takes its convs).  Each GPU sampler launches K1 once
+    per layer and step as the self-attention and once (t2v) or twice (i2v)
+    as the cross-attention, and no K4."""
+    from longlive_torch.config import DiTConfig
+    from longlive_torch.models import clip as C
+    from longlive_torch.models import dit as D
+    from longlive_torch.models import vae as V
+    from longlive_torch.pipeline import Image2VideoPipeline, Text2VideoPipeline
+    from longlive_torch.pipeline.image2video import encode_first_frame_condition
+
+    steps, frames = 3, 5  # pixel frames; 3 latent frames (the VAE's time stride is 2)
+    vcfg = dataclasses.replace(V.tiny_vae_config(), dim=96, z_dim=16)
+    ccfg = C.CLIPVisionConfig(image_size=28, patch_size=14, dim=64, mlp_ratio=2, num_heads=4,
+                              num_layers=3, out_dim=16)
+    base = dict(dim=256, ffn_dim=512, num_heads=2, num_layers=2, out_dim=16, text_dim=64,
+                text_len=16, freq_dim=64, local_attn_size=-1, sink_size=0, rope_max_pos=64)
+    t2v_cfg = DiTConfig(in_dim=16, **base)
+    i2v_cfg = DiTConfig(in_dim=16 + 2 + 16, model_type="i2v", clip_dim=ccfg.dim, **base)
+    t2v32 = D.init_dit_params(t2v_cfg, torch.float32, "cpu", seed=3, zero_head=False)
+    i2v32 = D.init_dit_params(i2v_cfg, torch.float32, "cpu", seed=4, zero_head=False)
+    vp32 = V.init_vae_params(vcfg, torch.float32, "cpu", seed=5)
+    cp32 = C.init_clip_vision_params(ccfg, torch.float32, "cpu", seed=6)
+    g = torch.Generator().manual_seed(24)
+    cond, null = (torch.randn((1, 16, 64), generator=g) for _ in range(2))
+    noise = torch.randn((1, 3, 16, 10, 12), generator=g)
+    img = torch.rand((1, 3, 37, 53), generator=g) * 2 - 1
+    layers = base["num_layers"]
+    out, errs = {}, {}
+    for dev, dt in (("cpu", torch.float32), ("cuda", torch.bfloat16)):
+        r = {}
+        with torch.no_grad():
+            pipe = Text2VideoPipeline(to_dev(t2v32, dev, dt), t2v_cfg, device=dev)
+            reset_counts(A, VC)
+            r["t2v latents"] = pipe.generate_latents(cond, null, noise, sampling_steps=steps,
+                                                     solver="unipc", dtype=dt)
+            r["t2v launches"] = counts(A, VC)
+            _no_train_launches(A, f"small t2v sampler ({dev})")
+            vp = to_dev(vp32, dev, dt)
+            vp = V.pack_fused_weights(vp) if dev == "cuda" else vp32
+            im = C.resize_bicubic(img.to(dev), 20, 24)
+            r["CLIP features"] = C.encode_image(to_dev(cp32, dev, dt), ccfg, im)
+            r["first-frame condition"] = encode_first_frame_condition(vp, vcfg, im.to(dt), frames)
+            pipe = Image2VideoPipeline(to_dev(i2v32, dev, dt), i2v_cfg, device=dev)
+            reset_counts(A, VC)
+            r["i2v latents"] = pipe.generate_latents(cond, null, r["CLIP features"],
+                                                     r["first-frame condition"], noise,
+                                                     sampling_steps=steps, solver="dpm++",
+                                                     dtype=dt)
+            r["i2v launches"] = counts(A, VC)
+            _no_train_launches(A, f"small i2v sampler ({dev})")
+        out[dev] = r
+    check_counts("small t2v sampler, GPU", out["cuda"]["t2v launches"],
+                 expect(bias=layers * steps, cross=layers * steps))
+    check_counts("small i2v sampler, GPU", out["cuda"]["i2v launches"],
+                 expect(bias=layers * steps, cross=2 * layers * steps))
+    for key in ("t2v latents", "CLIP features", "first-frame condition", "i2v latents"):
+        if not torch.isfinite(out["cuda"][key].float()).all():
+            fail(f"small samplers ({key}): non-finite GPU output")
+        errs[key] = rel_err(out["cuda"][key], out["cpu"][key])
+    log("small sampler reference (GPU bf16 kernels vs CPU float32 plain; limit 5e-2): "
+        + ", ".join(f"{k} rel_err={v:.3e}" for k, v in errs.items()))
+    bad = {k: v for k, v in errs.items() if not v <= 5e-2}
+    if bad:
+        fail(f"small sampler reference disagrees (limit 5e-2): {bad}")
+    return errs
+
+
+@contextlib.contextmanager
+def random_base_dit(torch):
+    """``loading.load_base_dit`` giving random weights with non-zero heads
+    (seeded as the loader seeds them): its own random init zeroes the head,
+    and with it every flow prediction."""
+    import unittest.mock
+
+    from longlive_torch.models import dit as D
+    from longlive_torch.utils import loading
+
+    def load(model_dir, cfg, dtype=torch.float32, device="cuda", seed=0, strict=False):
+        return D.init_dit_params(cfg, dtype, device, seed=seed, zero_head=False)
+
+    with unittest.mock.patch.object(loading, "load_base_dit", load):
+        yield
+
+
+def _sampler_path(torch, A, VC, label: str, run, want: dict) -> dict:
+    """Runs ``run()`` (a ``run_t2v`` record) at full width with the counts
+    set to 0 just before it; checks the video's shapes and file, the
+    launches against ``want`` and that K4 never launched."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(A, VC)
+    t0 = time.perf_counter()
+    with random_base_dit(torch):
+        r = run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = counts(A, VC)
+    _no_train_launches(A, label)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    lat, px = r["latents"], r["pixels"]
+    if tuple(lat.shape) != (1, 21, 16, 60, 104) or tuple(px.shape) != (1, 81, 3, 480, 832):
+        fail(f"{label}: shapes latents {tuple(lat.shape)}, pixels {tuple(px.shape)}")
+    if not (torch.isfinite(lat.float()).all() and torch.isfinite(px).all()):
+        fail(f"{label}: non-finite latents or pixels")
+    if lat.float().std().item() == 0 or px.std().item() == 0:
+        fail(f"{label}: constant latents or pixels")
+    if not os.path.exists(r["path"]) or os.path.getsize(r["path"]) == 0:
+        fail(f"{label}: output {r['path']} missing")
+    check_counts(label, got, want)
+    out = {"steps": SAMPLER_STEPS, "ms_per_step": r["ms_per_step"], "sample_s": r["sample_s"],
+           "condition_s": r["condition_s"], "decode_s": r["decode_s"],
+           "projected_50_step_s": r["ms_per_step"] * 50 / 1e3, "wall_s": wall, "peak_gib": peak,
+           "launches": got}
+    log(f"{label}: {wall:.1f} s wall, {SAMPLER_STEPS} steps at {r['ms_per_step']:.1f} ms/step "
+        f"(50 steps: {out['projected_50_step_s']:.1f} s), conditioning "
+        f"{r['condition_s'] * 1e3:.1f} ms, decode of 21 latent frames {r['decode_s'] * 1e3:.1f} "
+        f"ms, peak device memory {peak:.2f} GiB; output {r['path']}")
+    return out
+
+
+def _t2v_argv(solver: str, name: str) -> list:
+    return ["--prompt", "a fox runs through the snow", "--size", "832x480", "--frame_num", "81",
+            "--steps", str(SAMPLER_STEPS), "--solver", solver, "--seed", "0",
+            "--output", os.path.join(ROOT, "build", name), "--device", "cuda"]
+
+
+def run_t2v_path(torch, A, VC) -> dict:
+    """``run_t2v.main`` at Wan2.1-T2V-1.3B width, 832x480, 81 frames (21
+    latent frames, 32760 tokens a sample), UniPC for SAMPLER_STEPS steps:
+    random weights with non-zero heads, a random prompt embedding and a
+    zero negative one (no assets), cond and uncond in one batch of 2; then
+    the decode and the video.  K1: per step 30 self-attentions and 30
+    text cross-attentions; K2: the decode's 28 + 30 x 20."""
+    from longlive_torch import run_t2v
+
+    dv, layers = derived(), 30
+    return _sampler_path(
+        torch, A, VC, "t2v", lambda: run_t2v.main(_t2v_argv("unipc", "chip_smoke_t2v.mp4")),
+        expect(bias=layers * SAMPLER_STEPS, cross=layers * SAMPLER_STEPS, conv=dv["conv"](21)))
+
+
+def run_i2v_path(torch, A, VC) -> dict:
+    """``run_t2v`` in its image-to-video mode at full width: the i2v DiT
+    (in_dim 36), a random full-width CLIP ViT-H/14 (32 layers, dim 1280,
+    257 tokens), a seeded synthetic 720x1280 image (resized to 480x832,
+    and to 224x224 for CLIP), the first-frame condition from an 81-frame
+    encode (21 chunks), DPM++ for SAMPLER_STEPS steps, the decode and the
+    video.  Driven through ``run_t2v.generate`` (the card's machine may
+    have no image reader).  K1: per step 30 self-attentions and 60
+    cross-attentions (text and image); K2: 21 x 20 in the encode and 628 in
+    the decode."""
+    import numpy as np
+
+    from longlive_torch import run_t2v
+
+    dv, layers = derived(), 30
+    rng = np.random.default_rng(25)
+    # a smooth seeded image: a colour gradient with noise
+    yy, xx = np.meshgrid(np.linspace(-1, 1, 720), np.linspace(-1, 1, 1280), indexing="ij")
+    image = np.stack([yy, xx, yy * xx]) * 0.8 + 0.1 * rng.standard_normal((3, 720, 1280))
+    image = np.clip(image, -1, 1).astype(np.float32)[None]
+    args = run_t2v.parse_args(_t2v_argv("dpm++", "chip_smoke_i2v.mp4"))
+    return _sampler_path(
+        torch, A, VC, "i2v", lambda: run_t2v.generate(args, image),
+        expect(bias=layers * SAMPLER_STEPS, cross=2 * layers * SAMPLER_STEPS,
+               conv=dv["enc_conv"](81) + dv["conv"](21)))
+
+
 def main() -> None:
     try:
         import torch
@@ -3038,6 +3294,7 @@ def main() -> None:
                check_conv(torch, VC), check_conv(torch, VC, int8=True),
                check_res_block_pair(torch, VC), check_int8_linear(torch, Q)]
     check_attention_cross(torch, A, k1)
+    check_attention_bidirectional(torch, A, k1)
     check_attention_edges(torch, A, k1)
     entries.append(check_frame_masked(torch, A))
     entries += check_train_attention(torch, A)
@@ -3051,6 +3308,7 @@ def main() -> None:
     encoders_ref = check_small_encoders(torch, VC)
     check_small_training(torch)
     streaming_ref = check_small_streaming(torch)
+    sampler_ref = check_small_samplers(torch, A, VC)
     log(f"small references: {time.perf_counter() - t0:.1f} s")
 
     paths = {}
@@ -3071,7 +3329,8 @@ def main() -> None:
     torch.cuda.empty_cache()
     paths["full forwards"] = run_full_forwards_path(torch, A, VC)
     for label, run in (("text encoder", run_text_encoder_path), ("vae encode", run_vae_encode_path),
-                       ("checkpoint load", run_checkpoint_load_path)):
+                       ("checkpoint load", run_checkpoint_load_path), ("t2v", run_t2v_path),
+                       ("i2v", run_i2v_path)):
         gc.collect()
         torch.cuda.empty_cache()
         paths[label] = run(torch, A, VC)
@@ -3096,6 +3355,7 @@ def main() -> None:
     log("training, non-zero heads: " + json.dumps(live))
     log("streaming, non-zero heads: " + json.dumps(live_stream))
     log("small streaming reference: " + json.dumps(streaming_ref))
+    log("small sampler reference: " + json.dumps(sampler_ref))
 
     # each entry's launches: the count of the path that runs it, read from
     # that path's own run (counts set to 0 just before it)
@@ -3123,6 +3383,8 @@ def main() -> None:
             if name == "flash_attention":  # K1 as the cross-attention, its own count
                 entry["cross_launches_path"] = "full forwards"
                 entry["cross_launches"] = paths["full forwards"]["launches"][key]["cross"]
+                entry["cross_launches_by_path"] = {
+                    label: p["launches"][key]["cross"] for label, p in paths.items()}
         else:
             key = {"flash_attention_train": "fwd", "flash_attention_train_bwd_dq": "bwd_dq",
                    "flash_attention_train_bwd_dkdv": "bwd_dkdv"}[name]

@@ -50,7 +50,8 @@ from ..ops import kv_cache as kvc
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import NEG_INF, attend_train, dense_attention, flash_attention
-from ..ops.attention import flash_attention_frame_masked, flash_attention_train, quantize_k_tokens
+from ..ops.attention import (flash_attention_frame_masked, flash_attention_train,
+                             flash_attention_unmasked, quantize_k_tokens)
 from ..ops.masks import FrameMaskSpec, expand_frame_mask, teacher_forcing_frame_mask
 from ..ops.quant import slice_linear
 from ..ops.embeddings import sinusoidal_embedding_1d
@@ -96,7 +97,9 @@ def init_dit_params(cfg: DiTConfig, dtype=torch.float32, device="cpu",
     """Random init: xavier-uniform linears with zero bias, N(0, 0.02) text
     and time embeddings, modulation N(0, 1/dim), zero head projection
     unless ``zero_head=False``.  Drawn on ``device`` from a generator seeded
-    with ``seed``."""
+    with ``seed``.  ``model_type == "i2v"`` adds each block's image-branch
+    K/V (``k_img``, ``v_img``, ``norm_k_img``) and the ``img_emb``
+    projection of the CLIP features, drawn after the rest."""
     d, ffn = cfg.dim, cfg.ffn_dim
     pt = math.prod(cfg.patch_size)
     gen = torch.Generator(device=device).manual_seed(seed)
@@ -121,11 +124,19 @@ def init_dit_params(cfg: DiTConfig, dtype=torch.float32, device="cpu",
             p["norm_k"] = {"scale": ones(d)}
         return p
 
+    def cross_attn():
+        p = attn()
+        if cfg.model_type == "i2v":  # the image branch's K/V
+            p["k_img"], p["v_img"] = lin(d, d), lin(d, d)
+            if cfg.qk_norm:
+                p["norm_k_img"] = {"scale": ones(d)}
+        return p
+
     blocks = []
     for _ in range(cfg.num_layers):
         blk = {
             "self_attn": attn(),
-            "cross_attn": attn(),
+            "cross_attn": cross_attn(),
             "ffn": {"fc1": lin(d, ffn), "fc2": lin(ffn, d)},
             "modulation": (torch.randn((6, d), generator=gen, device=device)
                            / math.sqrt(d)).to(dtype),
@@ -148,6 +159,13 @@ def init_dit_params(cfg: DiTConfig, dtype=torch.float32, device="cpu",
                            / math.sqrt(d)).to(dtype),
         },
     }
+    if cfg.model_type == "i2v":
+        # the CLIP features' projection: LayerNorm, Linear, GELU, Linear, LayerNorm
+        cd = cfg.clip_dim
+        params["img_emb"] = {
+            "ln1": {"scale": ones(cd), "bias": torch.zeros(cd, dtype=dtype, device=device)},
+            "fc1": lin(cd, cd), "fc2": lin(cd, d),
+            "ln2": {"scale": ones(d), "bias": torch.zeros(d, dtype=dtype, device=device)}}
     return canonicalize_rope_layout(params, cfg)
 
 
@@ -344,13 +362,7 @@ def _cross_attention_layer(layer_p: dict, cfg: DiTConfig, x: torch.Tensor,
     if train:
         out = flash_attention_train(q, ck.to(q.dtype), cv.to(q.dtype))
     elif os.environ.get("LONGLIVE_CROSS_FLASH", "0") == "1":
-        t = ck.shape[1]
-
-        def heads(a):  # [B, T, N, D] -> the kernel's [B*N, T, D]
-            return a.to(q.dtype).transpose(1, 2).contiguous().view(b * n, t, hd)
-
-        bias = torch.zeros((b, t), dtype=torch.float32, device=q.device)
-        out = flash_attention(q.contiguous(), heads(ck), heads(cv), bias, cross=True)
+        out = flash_attention_unmasked(q, ck, cv, cross=True)
     else:
         out = dense_attention(q, ck.to(q.dtype), cv.to(q.dtype))
     return nn.linear(out.reshape(b, s, n * hd), layer_p["o"])

@@ -89,3 +89,15 @@ def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
 
 def silu(x: torch.Tensor) -> torch.Tensor:
     return x * torch.sigmoid(x.float()).to(x.dtype)
+
+
+def gelu_exact(x: torch.Tensor) -> torch.Tensor:
+    """The exact (erf) GELU in float32, rounded to x's dtype: the DiT's
+    image projection (``img_emb``) and the CLIP towers."""
+    return F.gelu(x.float()).to(x.dtype)
+
+
+def quick_gelu(x: torch.Tensor) -> torch.Tensor:
+    """x * sigmoid(1.702 x) in float32, rounded to x's dtype."""
+    xf = x.float()
+    return (xf * torch.sigmoid(1.702 * xf)).to(x.dtype)

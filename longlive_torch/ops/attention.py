@@ -16,7 +16,9 @@
   and takes exp2; ``LONGLIVE_MXU_LSUM=1`` sums each softmax row from P
   rounded to V's dtype (on the tensor cores in the kernel).  The serving
   cross-attention takes it under ``LONGLIVE_CROSS_FLASH=1`` (``cross=True``,
-  counted apart).
+  counted apart).  ``flash_attention_unmasked`` gives it K/V in the
+  [B, S, N, D] layout, every token valid: the bidirectional samplers'
+  self- and cross-attentions.
 - ``flash_attention_frame_masked``: full-sequence self-attention under a
   frame-structured mask computed from token indices (block-causal, sink +
   window, teacher forcing), with the tiles the mask leaves dead skipped
@@ -419,6 +421,20 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     flag_launches["exp2"] += int(exp2)
     flag_launches["mxu_lsum"] += int(mxu_lsum)
     return out
+
+
+def flash_attention_unmasked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                             cross: bool = False) -> torch.Tensor:
+    """``flash_attention`` of q [B, Sq, N, D] over every token of k, v
+    [B, S, N, D] (a zero bias), the K/V moved into its [B*N, S, D] layout
+    for the call."""
+    b, s, n, d = k.shape
+
+    def heads(a):
+        return a.to(q.dtype).transpose(1, 2).contiguous().view(b * n, s, d)
+
+    bias = torch.zeros((b, s), dtype=torch.float32, device=q.device)
+    return flash_attention(q.contiguous(), heads(k), heads(v), bias, cross=cross)
 
 
 _COUNTERS = {}  # (device, stream) -> the kernel's split counters, zero between calls

@@ -4,7 +4,8 @@
   reversed, then shift-warped  sigma' = s*sigma / (1 + (s-1)*sigma);
 - timesteps = sigmas * num_train_timesteps;
 - add_noise: x_t = (1-sigma)*x0 + sigma*noise, sigma at the nearest timestep;
-- flow -> x0: x0 = x_t - sigma_t * flow.
+- flow -> x0: x0 = x_t - sigma_t * flow;
+- the Euler step: x_next = x_t + flow * (sigma_next - sigma_t).
 
 Tables are built in float64 with numpy and kept as float32 tensors; the
 conversions compute in float32.
@@ -108,6 +109,27 @@ def convert_flow_to_x0(sched: FlowMatchSchedule, flow_pred: torch.Tensor,
     sigma = _sigma_for(sched, timestep, xt.ndim)
     x0 = xt.float() - sigma * flow_pred.float()
     return x0.to(flow_pred.dtype)
+
+
+def step(sched: FlowMatchSchedule, model_output: torch.Tensor, timestep,
+         sample: torch.Tensor, to_final: bool = False) -> torch.Tensor:
+    """Euler flow step: sample + flow * (sigma_next - sigma), sigma at the
+    nearest timestep and sigma_next the next entry of the table (0 past its
+    end, or with ``to_final``).  The sigmas are float32 tensors of the
+    samples' rank, so the step computes in float32 at least."""
+    tid = timestep_id(sched, timestep)
+    sigmas = sched.sigmas.to(tid.device)
+    n = sigmas.shape[0]
+    sigma = sigmas[tid]
+    if to_final:
+        sigma_next = torch.zeros_like(sigma)
+    else:
+        sigma_next = torch.where(tid + 1 >= n, torch.zeros_like(sigma),
+                                 sigmas[torch.clamp(tid + 1, max=n - 1)])
+    expand = (1,) * (model_output.ndim - sigma.ndim)
+    sigma = sigma.reshape(sigma.shape + expand)
+    sigma_next = sigma_next.reshape(sigma_next.shape + expand)
+    return sample + model_output * (sigma_next - sigma)
 
 
 def training_weight(sched: FlowMatchSchedule, timestep: torch.Tensor) -> torch.Tensor:

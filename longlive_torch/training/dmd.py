@@ -84,7 +84,7 @@ def _x0_pred_bidirectional(params: dict, cfg: DiTConfig, tables: RopeTables,
                            cross_kv: D.CrossKV, remat_layers: bool = False) -> torch.Tensor:
     """Flow prediction -> x0 (one timestep per sample: t[:, 0])."""
     flow = bidirectional_forward(params, cfg, tables, noisy, t[:, 0], cross_kv,
-                                 remat_layers=remat_layers)
+                                 attn_impl="train_auto", remat_layers=remat_layers)
     b, f = noisy.shape[:2]
     return S.convert_flow_to_x0(
         sched, flow.reshape(b * f, *flow.shape[2:]),

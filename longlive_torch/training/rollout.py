@@ -131,6 +131,7 @@ def rollout_trajectory(params: dict, cfg: DiTConfig, cache_cfg: CacheConfig,
                        exit_idx: int, cotangent: Optional[torch.Tensor] = None,
                        cache_dtype: Optional[torch.dtype] = None,
                        cache: Optional[kvc.KVCache] = None, current_start_frame: int = 0,
+                       initial_latent: Optional[torch.Tensor] = None,
                        ) -> Tuple[torch.Tensor, kvc.KVCache]:
     """Rolls out ``F_total`` frames block by block with the KV cache.
     noise: [B, F_total, C, H, W]; draws: [F_total / fpb, exit_idx + 1, B,
@@ -144,7 +145,11 @@ def rollout_trajectory(params: dict, cfg: DiTConfig, cache_cfg: CacheConfig,
 
     ``cache`` and ``current_start_frame`` continue a sequence (streaming
     long tuning): the blocks start at absolute frame
-    ``current_start_frame`` and are committed into ``cache``, in place."""
+    ``current_start_frame`` and are committed into ``cache``, in place.
+
+    ``initial_latent`` [B, F0, C, H, W]: conditioning frames (an image's
+    latents) committed at t = 0 before the first block, without gradient;
+    the blocks then start F0 frames later."""
     b, f_total = noise.shape[:2]
     fpb = rcfg.frame_block
     if f_total % fpb:
@@ -156,6 +161,12 @@ def rollout_trajectory(params: dict, cfg: DiTConfig, cache_cfg: CacheConfig,
         cache = kvc.init_cache(cache_cfg, cfg.num_layers, b, cfg.num_heads, cfg.head_dim,
                                cache_dtype or params["patch_embedding"]["weight"].dtype,
                                noise.device)
+    if initial_latent is not None:
+        with torch.no_grad():
+            _, cache = _forward(params, cfg, cache_cfg, tables, sched, rcfg, cross_kv,
+                                initial_latent.detach(), 0.0, cache, current_start_frame,
+                                commit=True)
+        current_start_frame += initial_latent.shape[1]
     outputs = []
     for bi, s in enumerate(range(0, f_total, fpb)):
         x0, cache = rollout_block(

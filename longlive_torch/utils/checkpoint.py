@@ -137,11 +137,13 @@ def peft_sd_to_lora(lora_sd: dict, cfg: DiTConfig) -> list:
 
 def dit_params_from_torch(sd: dict, cfg: DiTConfig = DiTConfig(), dtype=torch.bfloat16,
                           device="cpu") -> dict:
-    """``CausalWanModel`` / ``WanModel`` state dict (t2v) -> the port's DiT
-    parameters in ``dtype`` on ``device``."""
-    if cfg.model_type != "t2v":
-        raise NotImplementedError(f"model_type {cfg.model_type!r}: only the t2v keys are "
-                                  "converted; the i2v keys wait for the I2V port")
+    """``CausalWanModel`` / ``WanModel`` state dict -> the port's DiT
+    parameters in ``dtype`` on ``device``.  ``model_type == "i2v"`` also
+    reads each block's image-branch K/V (``cross_attn.k_img``, ``v_img``,
+    ``norm_k_img``) and the ``img_emb`` projection (``img_emb.proj``: LN,
+    Linear, GELU, Linear, LN)."""
+    if cfg.model_type not in ("t2v", "i2v"):
+        raise ValueError(f"model_type {cfg.model_type!r}: t2v or i2v")
     sd = clean_state_dict_keys(sd)
 
     def get(key):
@@ -166,6 +168,11 @@ def dit_params_from_torch(sd: dict, cfg: DiTConfig = DiTConfig(), dtype=torch.bf
         blk = {"self_attn": attn(f"{pre}.self_attn"), "cross_attn": attn(f"{pre}.cross_attn"),
                "ffn": {"fc1": linear(f"{pre}.ffn.0"), "fc2": linear(f"{pre}.ffn.2")},
                "modulation": get(f"{pre}.modulation")[0]}  # stored [1, 6, dim]
+        if cfg.model_type == "i2v":
+            ca = blk["cross_attn"]
+            ca["k_img"], ca["v_img"] = (linear(f"{pre}.cross_attn.{n}") for n in ("k_img", "v_img"))
+            if cfg.qk_norm:
+                ca["norm_k_img"] = {"scale": get(f"{pre}.cross_attn.norm_k_img.weight")}
         if cfg.cross_attn_norm:
             blk["norm3"] = {"scale": get(f"{pre}.norm3.weight"), "bias": get(f"{pre}.norm3.bias")}
         blocks.append(blk)
@@ -179,6 +186,11 @@ def dit_params_from_torch(sd: dict, cfg: DiTConfig = DiTConfig(), dtype=torch.bf
         "blocks": blocks,
         "head": {"head": linear("head.head"), "modulation": get("head.modulation")[0]},
     }
+    if cfg.model_type == "i2v":
+        params["img_emb"] = {
+            "ln1": {"scale": get("img_emb.proj.0.weight"), "bias": get("img_emb.proj.0.bias")},
+            "fc1": linear("img_emb.proj.1"), "fc2": linear("img_emb.proj.3"),
+            "ln2": {"scale": get("img_emb.proj.4.weight"), "bias": get("img_emb.proj.4.bias")}}
     return canonicalize_rope_layout(params, cfg)
 
 
@@ -204,7 +216,10 @@ def dit_state_dict(params: dict, cfg: DiTConfig = DiTConfig()) -> dict:
             perm = inv if group == "self_attn" else None
             for n in ("q", "k", "v", "o"):
                 linear(f"{pre}.{group}.{n}", a[n], perm if n in ("q", "k") else None)
-            for n in ("norm_q", "norm_k"):
+            for n in ("k_img", "v_img"):
+                if n in a:
+                    linear(f"{pre}.{group}.{n}", a[n])
+            for n in ("norm_q", "norm_k", "norm_k_img"):
                 if n in a:
                     s = a[n]["scale"]
                     sd[f"{pre}.{group}.{n}.weight"] = s if perm is None else s[perm.to(s.device)]
@@ -223,6 +238,13 @@ def dit_state_dict(params: dict, cfg: DiTConfig = DiTConfig()) -> dict:
     linear("time_projection.1", params["time_projection"]["fc"])
     linear("head.head", params["head"]["head"])
     sd["head.modulation"] = params["head"]["modulation"][None]
+    if "img_emb" in params:
+        ie = params["img_emb"]
+        for i, ln in ((0, "ln1"), (4, "ln2")):
+            sd[f"img_emb.proj.{i}.weight"] = ie[ln]["scale"]
+            sd[f"img_emb.proj.{i}.bias"] = ie[ln]["bias"]
+        linear("img_emb.proj.1", ie["fc1"])
+        linear("img_emb.proj.3", ie["fc2"])
     return sd
 
 

@@ -20,6 +20,7 @@ from typing import Optional, Tuple
 import torch
 
 from ..config import DiTConfig, PipelineConfig
+from ..models import clip as C
 from ..models import dit as D
 from ..models import t5 as T5
 from ..models import vae as V
@@ -120,6 +121,19 @@ def load_vae_params(config: PipelineConfig, dtype=torch.bfloat16, device="cuda",
         raise FileNotFoundError(f"VAE checkpoint {path!r} not found")
     _warn(f"VAE checkpoint {path!r} not found — using random init")
     return V.init_vae_params(vcfg, dtype, device, seed=0), vcfg
+
+
+def load_clip_vision(config: PipelineConfig, dtype=torch.bfloat16, device="cuda"):
+    """The CLIP vision tower of I2V, ``wan_models/<model_name>/
+    models_clip_open-clip-xlm-roberta-large-vit-huge-14.pth``: (params,
+    config); random init (seed 0) with a warning when absent."""
+    ccfg = C.CLIPVisionConfig()
+    path = os.path.join("wan_models", config.model_name,
+                        "models_clip_open-clip-xlm-roberta-large-vit-huge-14.pth")
+    if os.path.exists(path):
+        return C.clip_vision_params_from_torch(_torch_load(path), ccfg, dtype, device), ccfg
+    _warn(f"CLIP checkpoint {path!r} not found — using random init")
+    return C.init_clip_vision_params(ccfg, dtype, device, seed=0), ccfg
 
 
 def load_text_encoder(config: PipelineConfig, dtype=torch.bfloat16, device="cuda",

@@ -13,7 +13,8 @@ JAX package's ``quantize_dit_params`` (``{"w_int8": [in, out],
 q/k permutation is already applied in a JAX tree
 (``canonicalize_rope_layout`` ran when it was built) and is not applied
 again.  The VAE's conv weights are in the torch layout in both packages
-(encoder and decoder); the umT5 encoder's stacked layers become a list.
+(encoder and decoder); the umT5 encoder's and the CLIP towers' stacked
+layers become lists.
 """
 
 from __future__ import annotations
@@ -61,13 +62,32 @@ def _unstack(node: Any, i: int) -> Any:
     return None if node is None else np.asarray(node)[i]
 
 
-def dit_params_from_jax(tree: dict, dtype=None, device="cpu") -> dict:
-    """JAX DiT params (numpy leaves) -> the port's DiT parameter dict."""
-    blocks = tree["blocks"]
-    num_layers = np.asarray(blocks["modulation"]).shape[0]
-    out = {k: _convert(v, dtype, device) for k, v in tree.items() if k != "blocks"}
-    out["blocks"] = [_convert(_unstack(blocks, i), dtype, device) for i in range(num_layers)]
+def _layered(tree: dict, key: str, num_layers: int, dtype, device) -> dict:
+    """A tree whose ``tree[key]`` stacks its layers on [L] -> the port's
+    layout, ``key`` a list of per-layer dicts."""
+    out = {k: _convert(v, dtype, device) for k, v in tree.items() if k != key}
+    out[key] = [_convert(_unstack(tree[key], i), dtype, device) for i in range(num_layers)]
     return out
+
+
+def dit_params_from_jax(tree: dict, dtype=None, device="cpu") -> dict:
+    """JAX DiT params (numpy leaves) -> the port's DiT parameter dict (an
+    i2v tree's ``k_img`` / ``v_img`` / ``norm_k_img`` and ``img_emb``
+    included)."""
+    num_layers = np.asarray(tree["blocks"]["modulation"]).shape[0]
+    return _layered(tree, "blocks", num_layers, dtype, device)
+
+
+def _clip_params_from_jax(tree: dict, dtype=None, device="cpu") -> dict:
+    """JAX CLIP tower params (numpy leaves; the vision tower or the text
+    tower, XLM-Roberta) -> the port's (``models.clip``)."""
+    num_layers = np.asarray(tree["layers"]["norm1"]["scale"]).shape[0]
+    return _layered(tree, "layers", num_layers, dtype, device)
+
+
+# the two towers share one layout: layers stacked on [L] under "layers"
+clip_vision_params_from_jax = _clip_params_from_jax
+clip_text_params_from_jax = _clip_params_from_jax
 
 
 def lora_params_from_jax(tree: dict, dtype=None, device="cpu") -> list:

@@ -18,7 +18,9 @@ profiles the decode of frame 2, three times: bf16, with the int8 convs
 (``LONGLIVE_VAE_PAIR=1``).  Then the two encoders: the VAE encoder's third
 chunk (pixel frames 5-8 of a 480x832 clip, one latent frame) after chunks
 0-1, and umT5-XXL's ``encode_prompts`` of one prompt of 512 ids (40
-valid).  Then the training step of
+valid).  Then one step of ``run_t2v``'s text-to-video sampler at 832x480,
+81 frames (the cond and uncond halves in one forward of batch 2).  Then
+the training step of
 ``configs/longlive_train_init.yaml`` (21 frames, float32 parameters under
 bf16 autocast): the generator's replay of the last rollout block (exit step
 1: one pre-exit forward, the exit forward with its backward, the commit)
@@ -245,6 +247,33 @@ def t5_prompt(dev, label: str):
     return row
 
 
+@torch.no_grad()
+def sampler_step(dev, label: str):
+    """The profile of one step of ``run_t2v``'s text-to-video sampler at
+    832x480, 81 frames (21 latent frames, 32760 tokens a sample): one
+    bidirectional forward of the cond and uncond halves in one batch of 2
+    (``attn_impl="auto"``: K1 for the self- and cross-attentions), after
+    one unprofiled step."""
+    from longlive_torch.config import DiTConfig
+    from longlive_torch.ops.rope import make_rope_tables
+    from longlive_torch.pipeline.text2video import concat_cross, guided_sampler
+
+    cfg = DiTConfig(local_attn_size=-1, sink_size=0)
+    params = D.init_dit_params(cfg, torch.bfloat16, dev, seed=0, zero_head=False)
+    g = torch.Generator(device=dev).manual_seed(3)
+    pe = torch.randn((1, cfg.text_len, cfg.text_dim), generator=g, device=dev)
+    both = concat_cross(D.prepare_cross_kv(params, cfg, pe),
+                        D.prepare_cross_kv(params, cfg, torch.zeros_like(pe)))
+    tables = make_rope_tables(cfg.head_dim, cfg.rope_max_pos, device=dev)
+    fn = guided_sampler(params, cfg, tables, 5.0, both)
+    x = torch.randn((1, 21, 16, 60, 104), generator=g, device=dev).to(torch.bfloat16)
+    fn(x, 999.0)  # warm-up
+    row = _summary(label, *_profile(lambda: fn(x, 937.0)), per="1 sampler step (B 2)")
+    del params, both
+    torch.cuda.empty_cache()
+    return row
+
+
 def _config(name: str, **changes) -> PipelineConfig:
     pc = load_pipeline_config(os.path.join(ROOT, "configs", name))
     return dataclasses.replace(pc, num_output_frames=15, **changes)
@@ -346,10 +375,11 @@ def main():
                 t5_prompt(dev, "umT5-XXL encode_prompts, one prompt of 512 ids (40 valid)")]
     del vp, lat
     torch.cuda.empty_cache()
+    sampler = sampler_step(dev, "run_t2v sampler step, 832x480 x 81 frames (cond + uncond)")
     with torch.enable_grad():
         train = training_steps(dev)
     result = {"card": card, "torch": torch.__version__,
-              "steps": [dit, int8, options] + vae + encoders + train}
+              "steps": [dit, int8, options] + vae + encoders + [sampler] + train}
     text = json.dumps(result, indent=1)
     print(text)
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)

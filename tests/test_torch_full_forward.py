@@ -160,8 +160,8 @@ def test_cross_flash_matches_jax(monkeypatch, exp2, mxu_lsum):
     ref = np.asarray(JD._cross_attention_layer(jlayer, jcfg, jnp.asarray(x), jcross.k[1],
                                                jcross.v[1], "pallas_interpret"))
     calls = []
-    real = TD.flash_attention
-    monkeypatch.setattr(TD, "flash_attention",
+    real = TA.flash_attention
+    monkeypatch.setattr(TA, "flash_attention",
                         lambda *a, **kw: calls.append(kw.get("cross")) or real(*a, **kw))
     out = TD._cross_attention_layer(tparams["blocks"][1]["cross_attn"], tcfg,
                                     torch.from_numpy(x), tcross.k[1], tcross.v[1])

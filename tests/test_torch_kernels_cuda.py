@@ -597,6 +597,67 @@ def test_flash_attention_cross_kernel_matches_plain(dev):
     _assert_agrees(out, ref)
 
 
+# K1 at the bidirectional samplers' forms, cut small: the self-attention of
+# both CFG halves (B 2, every key valid, ragged tiles), and the image
+# cross-attention over 257 CLIP tokens (a KV length no multiple of the
+# 128-token tile) and the text one over 512, counted as cross
+@pytest.mark.parametrize("sq,s,cross", [(1000, 1000, False), (2000, 2000, False),
+                                        (1000, 257, True), (130, 512, True)])
+def test_flash_attention_bidirectional_shapes_match_plain(dev, sq, s, cross):
+    from longlive_torch.ops import attention as A
+
+    g = torch.Generator(device=dev).manual_seed(21)
+    b, n, d = 2, 12, 128
+    q = torch.randn((b, sq, n, d), generator=g, device=dev).to(torch.bfloat16)
+    k, v = (torch.randn((b * n, s, d), generator=g, device=dev).to(torch.bfloat16)
+            for _ in range(2))
+    bias = torch.zeros((b, s), dtype=torch.float32, device=dev)
+    before = dict(A.mode_launches)
+    out = A.flash_attention(q, k, v, bias, cross=cross)
+    ref = A.flash_attention_plain(q, k, v, bias)
+    torch.cuda.synchronize()
+    mode = "cross" if cross else "bias"
+    assert A.mode_launches[mode] == before[mode] + 1
+    _assert_agrees(out, ref)
+
+
+def test_bidirectional_forward_routes_on_cuda(dev):
+    """An i2v bidirectional forward (head dim 128) on the card: ``"auto"``
+    launches K1 once per layer as the self-attention and twice as the
+    cross-attentions (text, image) and nothing of K4; ``"train_auto"`` K4's
+    forward three times per layer; the two agree."""
+    from longlive_torch.config import DiTConfig
+    from longlive_torch.models import dit as D
+    from longlive_torch.models.dit_bidirectional import bidirectional_forward, prepare_img_cross_kv
+    from longlive_torch.ops import attention as A
+    from longlive_torch.ops.rope import make_rope_tables
+
+    cfg = DiTConfig(dim=256, ffn_dim=512, num_heads=2, num_layers=2, in_dim=36, out_dim=16,
+                    text_dim=64, text_len=16, freq_dim=64, local_attn_size=-1, sink_size=0,
+                    rope_max_pos=64, model_type="i2v", clip_dim=64)
+    params = D.init_dit_params(cfg, torch.bfloat16, dev, seed=1, zero_head=False)
+    g = torch.Generator(device=dev).manual_seed(22)
+    cross = D.prepare_cross_kv(params, cfg, torch.randn((2, 16, 64), generator=g, device=dev))
+    img = prepare_img_cross_kv(params, cfg, torch.randn((2, 257, 64), generator=g, device=dev))
+    tables = make_rope_tables(cfg.head_dim, cfg.rope_max_pos, device=dev)
+    x = torch.randn((2, 3, 36, 10, 12), generator=g, device=dev)
+    t = torch.tensor([800.0, 300.0], device=dev)
+    outs = {}
+    with torch.no_grad():
+        for impl in ("auto", "train_auto"):
+            A.reset_launches()
+            outs[impl] = bidirectional_forward(params, cfg, tables, x, t, cross, attn_impl=impl,
+                                               cross_kv_img=img)
+            torch.cuda.synchronize()
+            if impl == "auto":
+                assert A.mode_launches["bias"] == 2 and A.mode_launches["cross"] == 4
+                assert A.train_launches["fwd"] == 0
+            else:
+                assert A.launches == 0 and A.train_launches["fwd"] == 6
+    a, b = outs["auto"].float(), outs["train_auto"].float()
+    assert torch.isfinite(a).all() and ((a - b).norm() / b.norm()).item() <= 2e-2
+
+
 # (kind, frame_seq, frames, nfb, local, sink, heads): frames cut against the
 # 128 x 128 tiles, a ragged last kv and q tile (S % 128 != 0), a partial
 # last block, and 128-token frames with a one-frame window (each CTA's live

@@ -174,7 +174,7 @@ def test_bidirectional_forward_and_adapter_gradients_match_jax(adapters):
     p = TL.attach_lora(tp, tl, SCALE)
     cross = TD.prepare_cross_kv(p, tcfg, torch.from_numpy(pe), torch.float32)
     flow = bidirectional_forward(p, tcfg, tt, torch.from_numpy(x), torch.from_numpy(t), cross,
-                                 remat_layers=True)
+                                 attn_impl="train_auto", remat_layers=True)
     (flow * torch.from_numpy(w)).sum().backward()
     _close(flow.detach(), jflow)
     want = lora_params_from_jax(jax.tree.map(np.asarray, jg))

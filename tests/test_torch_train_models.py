@@ -173,7 +173,8 @@ def test_bidirectional_forward_and_gradients_match_jax():
     _requires_grad(tparams)
     cross = TD.prepare_cross_kv(tparams, tcfg, torch.from_numpy(pe), torch.float32)
     flow = bidirectional_forward(tparams, tcfg, ttables, torch.from_numpy(x),
-                                 torch.from_numpy(t), cross, remat_layers=True)
+                                 torch.from_numpy(t), cross, attn_impl="train_auto",
+                                 remat_layers=True)
     (flow * torch.from_numpy(w)).sum().backward()
     np.testing.assert_allclose(flow.detach().numpy(), np.asarray(jflow), rtol=RTOL, atol=ATOL)
     _assert_trees_close(_grad_tree(tparams), jg, GRAD_TOL)
