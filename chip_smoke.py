@@ -16,7 +16,8 @@ Phases, each of which exits non-zero when it fails:
    (the int8 pre-pass's operand bit-equal to its plain version), K6, K5, K3 under its three mask
    kinds at the full forwards' shapes, elided bit-equal to unelided, K4's
    forward and its two backward kernels at the four training shapes and at
-   the streaming rollout's wrapped ring, K1 bias at the streaming recache's
+   the streaming rollout's wrapped ring and its forward at the 14B
+   teacher's B 2, 40-head shapes, K1 bias at the streaming recache's
    32760 over 32760, K2 at the one-frame decode's and encode's shapes, K1
    at the bidirectional samplers' B = 2 shapes: 32760 over 32760 and the
    image cross-attention's 32760 over 257)
@@ -34,9 +35,12 @@ Phases, each of which exits non-zero when it fails:
    encoders (umT5 ``encode_prompts``, and ``vae_encode`` at widths where K2
    takes the res-block convs), one training step, one streaming step
    with LoRA adapters (bf16 on the GPU, float32 on the CPU; a switch with
-   its recache and a re-encoded overlap frame), and the bidirectional
+   its recache and a re-encoded overlap frame), the bidirectional
    samplers (text-to-video under UniPC, image-to-video under DPM++ with
-   its CLIP features and first-frame encode);
+   its CLIP features and first-frame encode), and two training steps with
+   the single-card levers (host AdamW with its background critic update,
+   the paged and streamed teacher, the page-out; the int8 rollout cache
+   with 2-step accumulation);
 5. the paths, at full Wan2.1-1.3B width with random weights, each with
    every kernel's launch count checked against the count derived from the
    model structure:
@@ -99,7 +103,20 @@ Phases, each of which exits non-zero when it fails:
       then the decode and the video;
    z. i2v: ``run_t2v.generate`` with a seeded 720x1280 image: the i2v DiT,
       a full-width CLIP ViT-H/14, the 81-frame first-frame encode, DPM++
-      for SAMPLER_STEPS steps, the decode and the video.
+      for SAMPLER_STEPS steps, the decode and the video;
+   l. (run right after phase 3, while the host's memory is free) the
+      streamed teacher at Wan2.1-T2V-14B's width on 4 of its layers,
+      bit-equal to the resident pass, both timed;
+   m. (likewise) 14B teacher: ``run_train`` on
+      ``configs/longlive_train_init.yaml`` with ``real_name:
+      Wan2.1-T2V-14B`` streamed from pinned host memory,
+      ``page_generator``, ``cache_int8`` and 2-step accumulation, 2
+      micro-steps on non-zero heads (the host's memory checked first, and
+      its least during the run printed);
+   n. host optimiser: the streaming path's config and cut with
+      ``opt_on_host`` and ``opt_async``, 3 steps;
+   o. t2v offload: ``run_t2v --offload_blocks``, 2 steps and the decode,
+      its latents bit-equal to a resident run's.
 
 The last lines are the ``kernels`` JSON line, the card line, and
 ``{"ok": true, "device": {...}}``.
@@ -2650,21 +2667,25 @@ def check_small_training(torch):
 # phase 5e: the training path at full width
 
 
-def derived_train_launches(layers: int, blocks: int, gen_exit, critic_exits) -> dict:
+def derived_train_launches(layers: int, blocks: int, gen_exit, critic_exits,
+                           teacher_layers: int = 0) -> dict:
     """K4 launches of ``run_train`` steps, from the model: a rollout block
     runs (exit + 1) forwards of every layer's self- and cross-attention and
     a commit over all but the last layer; the DMD loss runs the critic and
-    the (cond + uncond batched) teacher once each; the generator's replay
+    the (cond + uncond batched) teacher once each, the teacher over its own
+    ``teacher_layers`` (default: the generator's); the generator's replay
     reruns the rollout, and its exit forwards are recomputed under
-    checkpointing and differentiated; the critic's loss forward likewise."""
-    L, nb = layers, blocks
+    checkpointing and differentiated; the critic's loss forward likewise.
+    ``gen_exit``: None, an exit, or a list of them (one generator update
+    per micro-step)."""
+    L, nb, TL = layers, blocks, teacher_layers or layers
 
     def rollout(e):
         return nb * (2 * L * (e + 1) + 2 * (L - 1))
 
     fwd = bwd = 0
-    if gen_exit is not None:
-        fwd += rollout(gen_exit) + 4 * L + nb * (2 * L * gen_exit + 4 * L + 2 * (L - 1))
+    for e in ([] if gen_exit is None else gen_exit if isinstance(gen_exit, list) else [gen_exit]):
+        fwd += rollout(e) + 2 * L + 2 * TL + nb * (2 * L * e + 4 * L + 2 * (L - 1))
         bwd += nb * 2 * L
     for e in critic_exits:
         fwd += rollout(e) + 4 * L
@@ -2677,36 +2698,13 @@ def run_training_path(torch, A, VC, card: str) -> dict:
     (21 frames, 7 blocks) for 2 steps: step 0 trains the generator and the
     critic, step 1 the critic.  ``phase_ledger`` is switched on in a copy
     of the config for the phase split; no checkpoint is written."""
-    import shutil
-
-    import yaml
-
-    from longlive_torch import run_train
     from longlive_torch.config import DiTConfig
 
-    with open(os.path.join(ROOT, "configs", "longlive_train_init.yaml")) as f:
-        raw = yaml.safe_load(f)
-    raw["phase_ledger"] = True
-    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
-    path = os.path.join(ROOT, "build", "chip_smoke_train.yaml")
-    with open(path, "w") as f:
-        yaml.safe_dump(raw, f)
-    logdir = os.path.join(ROOT, "build", "chip_smoke_train")
-    shutil.rmtree(logdir, ignore_errors=True)
-
-    torch.cuda.reset_peak_memory_stats()
-    reset_counts(A, VC)
-    t0 = time.perf_counter()
-    run_captured(lambda: run_train.main([
-        "--config_path", path, "--logdir", logdir, "--allow_random_weights", "--max_iters", "2",
-        "--no_auto_resume", "--no_save", "--device", "cuda"]))
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    got = dict(A.train_launches)
-    serving = counts(A, VC)
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    with open(os.path.join(logdir, "metrics.jsonl")) as f:
-        rows = [json.loads(line) for line in f]
+    path, raw = _train_yaml("chip_smoke_train.yaml", "longlive_train_init.yaml",
+                            phase_ledger=True)
+    trainer, rows, wall, got, serving, peak = _run_train_rows(
+        torch, A, VC, path, os.path.join(ROOT, "build", "chip_smoke_train"), 2)
+    del trainer
     if [r["step"] for r in rows] != [0, 1]:
         fail(f"training: logged steps {[r['step'] for r in rows]}, expected [0, 1]")
     if "generator_loss" not in rows[0] or "generator_loss" in rows[1]:
@@ -2921,41 +2919,18 @@ def run_streaming_path(torch, A, VC, card: str) -> dict:
     writes K/V only); step 1 the critic on 18 more; step 2 the critic on a
     new sequence's first chunk.  K4's launches are derived from the logged
     exits; K1 and K2 counted exactly; no other serving kernel."""
-    import shutil
-
-    import yaml
-
-    from longlive_torch import run_train
     from longlive_torch.config import DiTConfig
     from longlive_torch.training.trainer import param_leaves
 
-    with open(os.path.join(ROOT, "configs", "longlive_train_long.yaml")) as f:
-        raw = yaml.safe_load(f)
-    raw.update(streaming_max_length=60, switch_choices=[21], phase_ledger=True)
-    path = os.path.join(ROOT, "build", "chip_smoke_train_long.yaml")
-    with open(path, "w") as f:
-        yaml.safe_dump(raw, f)
-    logdir = os.path.join(ROOT, "build", "chip_smoke_train_long")
-    shutil.rmtree(logdir, ignore_errors=True)
+    path, raw = _train_yaml("chip_smoke_train_long.yaml", "longlive_train_long.yaml",
+                            streaming_max_length=60, switch_choices=[21], phase_ledger=True)
     log("streaming: configs/longlive_train_long.yaml cut to streaming_max_length 60 (of 240) "
         "and switch_choices [21] (the first of 11), 3 steps, no checkpoint")
-
-    torch.cuda.reset_peak_memory_stats()
-    reset_counts(A, VC)
-    t0 = time.perf_counter()
-    trainer, _ = run_captured(lambda: run_train.main([
-        "--config_path", path, "--logdir", logdir, "--allow_random_weights", "--max_iters", "3",
-        "--no_auto_resume", "--no_save", "--device", "cuda"]))
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    got = dict(A.train_launches)
-    serving = counts(A, VC)
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    trainer, rows, wall, got, serving, peak = _run_train_rows(
+        torch, A, VC, path, os.path.join(ROOT, "build", "chip_smoke_train_long"), 3)
     lora_params = sum(t.numel() for k in ("gen_lora", "critic_lora")
                       for t in param_leaves(trainer.state[k]))
     del trainer
-    with open(os.path.join(logdir, "metrics.jsonl")) as f:
-        rows = [json.loads(line) for line in f]
     state = [(r.get("gen_current_length"), r.get("gen_overlap"), r.get("gen_switched"),
               r["current_length"], r["overlap"], r["switched"]) for r in rows]
     want_state = [(21, 0, False, 39, 3, True), (None, None, None, 57, 3, False),
@@ -3152,25 +3127,26 @@ def check_small_samplers(torch, A, VC) -> dict:
 
 @contextlib.contextmanager
 def random_base_dit(torch):
-    """``loading.load_base_dit`` giving random weights with non-zero heads
-    (seeded as the loader seeds them): its own random init zeroes the head,
-    and with it every flow prediction."""
+    """``loading.load_base_dit``'s random init (seeded as the loader seeds
+    it, resident or ``on_host``) with non-zero heads: its own zeroes the
+    head, and with it every flow prediction."""
     import unittest.mock
 
     from longlive_torch.models import dit as D
-    from longlive_torch.utils import loading
 
-    def load(model_dir, cfg, dtype=torch.float32, device="cuda", seed=0, strict=False):
-        return D.init_dit_params(cfg, dtype, device, seed=seed, zero_head=False)
-
-    with unittest.mock.patch.object(loading, "load_base_dit", load):
+    init = D.init_dit_params
+    with unittest.mock.patch.object(D, "init_dit_params",
+                                    lambda *a, **k: init(*a, **{**k, "zero_head": False})):
         yield
 
 
-def _sampler_path(torch, A, VC, label: str, run, want: dict) -> dict:
-    """Runs ``run()`` (a ``run_t2v`` record) at full width with the counts
-    set to 0 just before it; checks the video's shapes and file, the
-    launches against ``want`` and that K4 never launched."""
+def _sampler_path(torch, A, VC, label: str, run, want: dict, steps: int = SAMPLER_STEPS,
+                  keep_latents: bool = False) -> dict:
+    """Runs ``run()`` (a ``run_t2v`` record of ``steps`` steps) at full
+    width with the counts set to 0 just before it; checks the video's
+    shapes and file, the launches against ``want`` and that K4 never
+    launched.  ``keep_latents``: the latents (on the host) in the record as
+    ``latents_cpu``."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts(A, VC)
@@ -3192,20 +3168,22 @@ def _sampler_path(torch, A, VC, label: str, run, want: dict) -> dict:
     if not os.path.exists(r["path"]) or os.path.getsize(r["path"]) == 0:
         fail(f"{label}: output {r['path']} missing")
     check_counts(label, got, want)
-    out = {"steps": SAMPLER_STEPS, "ms_per_step": r["ms_per_step"], "sample_s": r["sample_s"],
+    out = {"steps": steps, "ms_per_step": r["ms_per_step"], "sample_s": r["sample_s"],
            "condition_s": r["condition_s"], "decode_s": r["decode_s"],
            "projected_50_step_s": r["ms_per_step"] * 50 / 1e3, "wall_s": wall, "peak_gib": peak,
            "launches": got}
-    log(f"{label}: {wall:.1f} s wall, {SAMPLER_STEPS} steps at {r['ms_per_step']:.1f} ms/step "
+    if keep_latents:
+        out["latents_cpu"] = lat.cpu()
+    log(f"{label}: {wall:.1f} s wall, {steps} steps at {r['ms_per_step']:.1f} ms/step "
         f"(50 steps: {out['projected_50_step_s']:.1f} s), conditioning "
         f"{r['condition_s'] * 1e3:.1f} ms, decode of 21 latent frames {r['decode_s'] * 1e3:.1f} "
         f"ms, peak device memory {peak:.2f} GiB; output {r['path']}")
     return out
 
 
-def _t2v_argv(solver: str, name: str) -> list:
+def _t2v_argv(solver: str, name: str, steps: int = SAMPLER_STEPS) -> list:
     return ["--prompt", "a fox runs through the snow", "--size", "832x480", "--frame_num", "81",
-            "--steps", str(SAMPLER_STEPS), "--solver", solver, "--seed", "0",
+            "--steps", str(steps), "--solver", solver, "--seed", "0",
             "--output", os.path.join(ROOT, "build", name), "--device", "cuda"]
 
 
@@ -3249,6 +3227,539 @@ def run_i2v_path(torch, A, VC) -> dict:
         torch, A, VC, "i2v", lambda: run_t2v.generate(args, image),
         expect(bias=layers * SAMPLER_STEPS, cross=2 * layers * SAMPLER_STEPS,
                conv=dv["enc_conv"](81) + dv["conv"](21)))
+
+
+# ---------------------------------------------------------------------------
+# phase 3 (K4 at the 14B teacher's shapes), 4e and 5l-5o: the single-card
+# training levers, the host-streamed Wan2.1-T2V-14B teacher, t2v offload
+
+TEACHER_14B = "Wan2.1-T2V-14B"
+
+
+def check_train_attention_14b(torch, A, fwd_entry: dict) -> None:
+    """K4's forward at the streamed 14B teacher's shapes (cond and uncond in
+    a batch of 2, 40 heads of 128, 21 frames of 1560 tokens): its
+    self-attention (32760 over 32760) and its cross-attention (32760 over
+    512 text tokens), against the plain version, with the kernel's, the
+    plain version's and ``scaled_dot_product_attention``'s times and the
+    bound.  The teacher runs without gradient: forward only.  The cases
+    join the forward entry's."""
+    import torch.nn.functional as F
+
+    from longlive_torch.config import WAN_MODEL_CONFIGS
+
+    b, n, d, bf = 2, WAN_MODEL_CONFIGS[TEACHER_14B]["num_heads"], 128, torch.bfloat16
+    g = torch.Generator(device="cuda").manual_seed(19)
+    for label, sq, skv in (("14B teacher self: 2 x 21 frames over 21 frames, 40 heads",
+                            21 * 1560, 21 * 1560),
+                           ("14B teacher cross: 2 x 21 frames over 512 text tokens, 40 heads",
+                            21 * 1560, 512)):
+        q, k, v = (torch.randn((b, s, n, d), generator=g, device="cuda").to(bf)
+                   for s in (sq, skv, skv))
+        out, lse = A.flash_attention_train_forward(q, k, v, None)
+        (ref, ref_lse), plain_ms = timed_once(torch, lambda: A.flash_attention_train_plain(
+            q, k, v, None))
+        if not torch.isfinite(out).all():
+            fail(f"flash_attention_train ({label}): non-finite output")
+        err, tol, rel = agreement(out, ref)
+        lse_err = (lse - ref_lse).abs().max().item()
+        del ref, ref_lse
+        ms = cuda_ms(torch, lambda: A.flash_attention_train_forward(q, k, v, None), 3)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        lib_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt), 3)
+        tb, by = train_attention_bounds(b, sq, skv, n, d, skv)[0]
+        log(f"flash_attention_train {label}: forward max_abs_err={err:.3e} tol={tol:.3e} "
+            f"rel_rms_err={rel:.3e} lse max_abs_err={lse_err:.3e}; ms={ms:.4f} plain={plain_ms:.2f} "
+            f"library={lib_ms:.4f} bound={tb:.4f} ({by})")
+        if not (err <= tol and rel <= REL_RMS_LIMIT and lse_err <= 1e-2):
+            fail(f"flash_attention_train forward ({label}) disagrees with its plain version: "
+                 f"max_abs_err {err} (limit {tol}), rel_rms_err {rel}, lse {lse_err}")
+        fwd_entry["cases"].append({"case": label, "q": [b, sq, n, d], "kv": [b, skv, n, d],
+                                   "valid_tokens": skv, "max_abs_err": err, "tolerance": tol,
+                                   "rel_rms_err": rel, "ms": ms, "plain_ms": plain_ms,
+                                   "library_ms": lib_ms, "bound_ms": tb, "bound_by": by})
+        del q, k, v, out, lse, qt, kt, vt
+        torch.cuda.empty_cache()
+    worst = max(fwd_entry["cases"], key=lambda c: c["max_abs_err"] / c["tolerance"])
+    fwd_entry.update(max_abs_err=worst["max_abs_err"], tolerance=worst["tolerance"],
+                     worst_case=worst["case"],
+                     rel_rms_err=max(c["rel_rms_err"] for c in fwd_entry["cases"]))
+
+
+LEVER_RUNS = {
+    "host optimiser, paged and streamed teacher": dict(
+        opt_on_host=True, opt_async=True, staged_phases=True, teacher_stream=True,
+        page_generator=True),
+    "int8 rollout cache, 2-step accumulation": dict(cache_int8=True,
+                                                    gradient_accumulation_steps=2),
+}
+
+
+def check_small_levers(torch) -> dict:
+    """Two steps of a small model's trainer with the single-card levers on
+    the GPU (bf16 autocast, kernels; pinned host copies, the copy stream,
+    the background critic update) against the CPU (float32, plain
+    versions), the same draws: the losses and grad norms within 5e-2
+    relative (where the step reports them) and the change of the
+    parameters within UPDATE_LIMIT, as ``check_small_training``."""
+    from longlive_torch.config import DiTConfig, LatentGeometry
+    from longlive_torch.models import dit as D
+    from longlive_torch.training.trainer import (ScoreDistillationTrainer, TrainerConfig,
+                                                 map_tree, param_leaves)
+
+    cfg = DiTConfig(dim=256, ffn_dim=512, num_heads=2, num_layers=2, in_dim=16, out_dim=16,
+                    text_dim=64, text_len=16, freq_dim=64, local_attn_size=2, sink_size=1,
+                    num_frame_per_block=1, rope_max_pos=64)
+    geom = LatentGeometry(height=10, width=12)
+    g = torch.Generator().manual_seed(9)
+    noise = torch.randn((1, 3, 16, geom.height, geom.width), generator=g)
+    pc, pu = (torch.randn((1, cfg.text_len, cfg.text_dim), generator=g) for _ in range(2))
+    models = [D.init_dit_params(cfg, torch.float32, "cpu", seed=s, zero_head=False)
+              for s in (3, 4, 5)]
+    flat = lambda tree: torch.cat([t.detach().flatten().cpu() for t in param_leaves(tree)])  # noqa: E731
+    out = {}
+    for label, options in LEVER_RUNS.items():
+        tcfg = TrainerConfig(num_frame_per_block=1, num_training_frames=3,
+                             min_num_training_frames=3, slice_last_frames=3,
+                             dfake_gen_update_ratio=1, lr=1e-4, lr_critic=3e-5, **options)
+        runs, draws = {}, None
+        for dev in ("cpu", "cuda"):
+            copies = (map_tree(lambda t: t.detach().to(dev, copy=True), m) for m in models)
+            tr = ScoreDistillationTrainer(tcfg, cfg, geom, *copies, device=dev)
+            draws = draws or [tr.sample_draws(noise.shape, i) for i in range(2)]
+            ms = [tr.train_step(noise, pc, pu, d) for d in draws]
+            ms[-1].update(tr.finish_pending())
+            runs[dev] = (ms, tr)
+        (mc, tc), (mg, tg) = runs["cpu"], runs["cuda"]
+        errs = {f"step {i} {k}": abs(g_[k] - c_[k]) / max(abs(c_[k]), 1e-12)
+                for i, (g_, c_) in enumerate(zip(mg, mc))
+                for k in ("generator_loss", "critic_loss", "generator_grad_norm",
+                          "critic_grad_norm") if k in c_}
+        for key, p0 in (("gen_params", models[0]), ("critic_params", models[1])):
+            d_gpu, d_cpu = flat(tg.state[key]) - flat(p0), flat(tc.state[key]) - flat(p0)
+            errs[f"{key} change"] = ((d_gpu - d_cpu).norm() / d_cpu.norm()).item()
+        log(f"small lever reference ({label}; GPU bf16 kernels vs CPU float32 plain; limits "
+            f"5e-2, {UPDATE_LIMIT} for the parameters' change): "
+            + ", ".join(f"{k} rel_err={v:.3e}" for k, v in errs.items()))
+        bad = {k: v for k, v in errs.items()
+               if not v <= (UPDATE_LIMIT if k.endswith("change") else 5e-2)}
+        if bad:
+            fail(f"small lever reference ({label}) disagrees: {bad}")
+        out[label] = errs
+    return out
+
+
+def host_available_gib() -> float:
+    """The host's available memory (``/proc/meminfo`` MemAvailable), GiB."""
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) / 2 ** 20
+    fail("/proc/meminfo has no MemAvailable line")
+
+
+@contextlib.contextmanager
+def host_memory_watch(period_s: float = 0.1):
+    """Yields a dict whose ``min_gib`` is the least host memory available
+    (``/proc/meminfo`` MemAvailable) seen while the block runs, sampled
+    every ``period_s`` on a thread of its own."""
+    import threading
+
+    seen = {"min_gib": host_available_gib()}
+    stop = threading.Event()
+
+    def sample():
+        while not stop.wait(period_s):
+            seen["min_gib"] = min(seen["min_gib"], host_available_gib())
+
+    thread = threading.Thread(target=sample, daemon=True)
+    thread.start()
+    try:
+        yield seen
+    finally:
+        stop.set()
+        thread.join()
+        seen["min_gib"] = min(seen["min_gib"], host_available_gib())
+
+
+def float32_tree_gib(torch, cfg) -> tuple:
+    """(one block, everything but the blocks) of a DiT tree at ``cfg``'s
+    widths in float32, GiB, from a one-layer build on the card."""
+    from longlive_torch.models import dit as D
+    from longlive_torch.utils import memory as M
+
+    one = D.init_dit_params(dataclasses.replace(cfg, num_layers=1), torch.float32, "cuda")
+    block = M.hbm_bytes(one["blocks"]) / 2 ** 30
+    rest = M.hbm_bytes({k: v for k, v in one.items() if k != "blocks"}) / 2 ** 30
+    del one
+    torch.cuda.empty_cache()
+    return block, rest
+
+
+# Host memory the 14B teacher's run takes beyond its trees (the arena's
+# last, partly filled slab and the run's own host tensors): 2.34 GiB
+# measured on an H100 host with 96 GiB; the run prints what it measured.
+HOST_SLACK_GIB = 3.0
+
+
+def empty_host_cache(torch) -> None:
+    """Returns the pinned memory PyTorch's caching host allocator holds to
+    the host (earlier paths pinned weights; the 14B teacher needs the
+    room)."""
+    for name in ("_host_emptyCache", "_accelerator_emptyHostCache"):
+        fn = getattr(torch._C, name, None)
+        if fn is not None:
+            fn()
+            return
+
+
+def teacher_14b_config(num_layers=None):
+    from longlive_torch.config import WAN_MODEL_CONFIGS, DiTConfig
+
+    geo = dict(WAN_MODEL_CONFIGS[TEACHER_14B])
+    if num_layers is not None:
+        geo["num_layers"] = num_layers
+    return dataclasses.replace(DiTConfig(), **geo)
+
+
+def check_streamed_teacher(torch, card: str) -> dict:
+    """The streamed teacher pass at the 14B's width on 4 of its 40 layers:
+    ``teacher_real_x0(streamed=True)`` (blocks in pinned host memory, one
+    layer copied ahead of its compute) bit-equal to the resident pass on
+    the same tree, under the trainer's autocast, with both wall times (the
+    copies should hide behind the compute) and the peaks."""
+    from longlive_torch.config import LatentGeometry
+    from longlive_torch.ops import scheduler as S
+    from longlive_torch.ops.rope import make_rope_tables
+    from longlive_torch.training import dmd
+    from longlive_torch.utils import loading
+    from longlive_torch.utils import memory as M
+
+    cfg = teacher_14b_config(num_layers=4)
+    geom = LatentGeometry()
+    host = loading.load_base_dit("wan_models/none", cfg, torch.float32, "cuda", seed=7,
+                                 on_host=True)
+    # a non-zero head (the random init zeroes it) so that every output element moves
+    host["head"]["head"]["weight"].normal_(0.0, 0.02)
+    streamed_tree = M.blocks_to_host(host, "cuda")
+    sched = S.make_schedule(1000, shift=5.0, sigma_min=0.0, extra_one_step=True, training=True)
+    tables = make_rope_tables(cfg.head_dim, cfg.rope_max_pos, device="cuda")
+    g = torch.Generator().manual_seed(21)
+    lat = torch.randn((1, 21, geom.channels, geom.height, geom.width), generator=g).cuda()
+    pc, pu = (torch.randn((1, cfg.text_len, cfg.text_dim), generator=g).cuda() for _ in range(2))
+    st, sn = torch.tensor([600]), torch.randn(lat.shape, generator=g)
+    dcfg = dmd.DMDConfig()
+    auto = lambda: torch.autocast("cuda", dtype=torch.bfloat16, cache_enabled=False)  # noqa: E731
+    out, times, peaks = {}, {}, {}
+    for name in ("streamed", "resident", "streamed again"):
+        tree = streamed_tree if name.startswith("streamed") else M.fetch_from_host(host, "cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        with auto():
+            out[name] = dmd.teacher_real_x0(tree, cfg, tables, sched, dcfg, lat, pc, pu, st, sn,
+                                            streamed=name.startswith("streamed"))
+        torch.cuda.synchronize()
+        times[name] = (time.perf_counter() - t0) * 1e3
+        peaks[name] = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+        del tree
+    equal = torch.equal(out["streamed again"], out["resident"])
+    layer_gib = M.hbm_bytes(host["blocks"][0]) / 2 ** 30
+    log(f"streamed 14B-width teacher (4 of 40 layers, {layer_gib:.3f} GiB a layer in float32) on "
+        f"{card}: bit-equal to the resident pass: {equal}; wall ms streamed {times['streamed']:.1f} "
+        f"(first call) / {times['streamed again']:.1f}, resident {times['resident']:.1f}; peak "
+        f"above the inputs GiB streamed {peaks['streamed again']:.2f}, resident "
+        f"{peaks['resident']:.2f}")
+    if not torch.isfinite(out["resident"]).all() or out["resident"].std().item() == 0:
+        fail("streamed 14B-width teacher: the resident pass is non-finite or constant")
+    if not equal:
+        diff = (out["streamed again"] - out["resident"]).abs().max().item()
+        fail(f"streamed 14B-width teacher: differs from the resident pass by {diff}")
+    return {"layers": 4, "layer_gib": layer_gib, "streamed_ms": times["streamed again"],
+            "streamed_first_ms": times["streamed"], "resident_ms": times["resident"],
+            "peak_gib": peaks, "bit_equal": equal}
+
+
+def _train_yaml(name: str, base: str, **overrides):
+    """(path, config): ``configs/<base>`` with ``overrides``, written to
+    ``build/<name>``."""
+    import yaml
+
+    with open(os.path.join(ROOT, "configs", base)) as f:
+        raw = yaml.safe_load(f)
+    raw.update(overrides)
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    path = os.path.join(ROOT, "build", name)
+    with open(path, "w") as f:
+        yaml.safe_dump(raw, f)
+    return path, raw
+
+
+def _run_train_rows(torch, A, VC, path: str, logdir: str, steps: int):
+    """``run_train.main`` for ``steps`` steps with the counts set to 0 just
+    before; (trainer, logged rows, wall s, K4 launches, serving launches,
+    device peak GiB)."""
+    import shutil
+
+    from longlive_torch import run_train
+
+    shutil.rmtree(logdir, ignore_errors=True)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(A, VC)
+    t0 = time.perf_counter()
+    trainer, _ = run_captured(lambda: run_train.main([
+        "--config_path", path, "--logdir", logdir, "--allow_random_weights", "--max_iters",
+        str(steps), "--no_auto_resume", "--no_save", "--device", "cuda"]))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got, serving = dict(A.train_launches), counts(A, VC)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    with open(os.path.join(logdir, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    return trainer, rows, wall, got, serving, peak
+
+
+def run_teacher_14b_path(torch, A, VC, card: str) -> dict:
+    """``run_train`` on ``configs/longlive_train_init.yaml`` (21 frames,
+    generator and critic at 1.3B) with the teacher its own comment names,
+    ``real_name: Wan2.1-T2V-14B`` (dim 5120, 40 heads, 40 layers), streamed
+    from pinned host memory (``teacher_stream``, ``staged_phases``), the
+    generator paged out during the DMD loss (``page_generator``), the int8
+    rollout cache and 2-step gradient accumulation, for 2 micro-steps: one
+    optimiser update, both micro-steps training the generator and the
+    critic.  Random weights (``--allow_random_weights``) with non-zero
+    heads, so that the teacher's x0 depends on every streamed layer: each
+    streamed pass's flow must be finite and not constant.  Fails with a
+    clear message when the host lacks the memory of the run's host trees
+    (the teacher's blocks, 52.4 GiB in float32, and the generator's EMA
+    and page-out copies) and HOST_SLACK_GIB beside them; prints the host
+    memory before and after the teacher is built and at its least during
+    the run, the phases, the peak, the page-out's freed bytes against the
+    generator's, and the K4 launches against the derived counts (the
+    teacher's share 40 self- plus 40 cross-attention forwards per
+    pass)."""
+    import unittest.mock
+
+    from longlive_torch.config import DiTConfig
+    from longlive_torch.training import dmd
+    from longlive_torch.utils import loading
+    from longlive_torch.utils import memory as M
+
+    cfg14 = teacher_14b_config()
+    block14, _ = float32_tree_gib(torch, cfg14)
+    block13, rest13 = float32_tree_gib(torch, DiTConfig())
+    trees = {"teacher blocks": block14 * cfg14.num_layers,
+             "generator EMA": block13 * DiTConfig().num_layers + rest13}
+    trees["generator page-out"] = trees["generator EMA"]
+    need = sum(trees.values()) + HOST_SLACK_GIB
+    empty_host_cache(torch)
+    avail = host_available_gib()
+    log(f"14B teacher: host memory available {avail:.2f} GiB; the run's host trees in float32 "
+        + ", ".join(f"{k} {v:.2f}" for k, v in trees.items())
+        + f" GiB, with {HOST_SLACK_GIB} GiB beside them {need:.2f} GiB in all")
+    if avail < need:
+        fail(f"14B teacher: the host has {avail:.2f} GiB available, the streamed 14B teacher "
+             f"needs {need:.2f} GiB of host memory")
+    host_mem = {}
+    real_load = loading.load_base_dit
+
+    def load(model_dir, cfg, *args, **kw):
+        if kw.get("on_host"):
+            host_mem["before_gib"] = host_available_gib()
+            t0 = time.perf_counter()
+            out = real_load(model_dir, cfg, *args, **kw)
+            host_mem["build_s"] = time.perf_counter() - t0
+            host_mem["after_gib"] = host_available_gib()
+            host_mem["blocks_gib"] = M.hbm_bytes(out["blocks"]) / 2 ** 30
+            return out
+        return real_load(model_dir, cfg, *args, **kw)
+
+    path, _ = _train_yaml("chip_smoke_teacher_14b.yaml", "longlive_train_init.yaml",
+                       real_name=TEACHER_14B, teacher_stream=True, staged_phases=True,
+                       page_generator=True, cache_int8=True, gradient_accumulation_steps=2,
+                       phase_ledger=True)
+    log("14B teacher: configs/longlive_train_init.yaml with real_name Wan2.1-T2V-14B, "
+        "teacher_stream, staged_phases, page_generator, cache_int8, "
+        "gradient_accumulation_steps 2; 2 micro-steps (one optimiser update), no checkpoint")
+    flows = []
+    real_streamed = dmd.bidirectional_forward_streamed
+
+    def streamed(*args, **kw):
+        out = real_streamed(*args, **kw)
+        flows.append({"finite": bool(torch.isfinite(out).all()), "std": out.float().std().item()})
+        return out
+
+    # non-zero heads: the random init's zero heads make the teacher's flow
+    # zero, and its x0 independent of the 40 streamed layers
+    with unittest.mock.patch.object(loading, "load_base_dit", load), \
+            unittest.mock.patch.object(dmd, "bidirectional_forward_streamed", streamed), \
+            random_base_dit(torch), host_memory_watch() as watch:
+        trainer, rows, wall, got, serving, peak = _run_train_rows(
+            torch, A, VC, path, os.path.join(ROOT, "build", "chip_smoke_teacher_14b"), 2)
+    if trainer.teacher_cfg.dim != cfg14.dim or trainer.teacher_cfg.num_layers != cfg14.num_layers:
+        fail(f"14B teacher: the trainer's teacher is {trainer.teacher_cfg}")
+    on_host = trainer.teacher_params["blocks"][0]["ffn"]["fc1"]["weight"]
+    if on_host.device.type != "cpu" or not on_host.is_pinned():
+        fail("14B teacher: the teacher's blocks are not in pinned host memory")
+    gen_bytes = M.hbm_bytes(trainer.state["gen_params"])
+    del trainer, on_host
+    gc.collect()
+    empty_host_cache(torch)
+    host_mem["min_gib"] = watch["min_gib"]
+    host_mem["peak_use_gib"] = host_mem["before_gib"] - watch["min_gib"]
+    host_mem["trees_gib"] = sum(trees.values())
+    log(f"14B teacher: host memory available {host_mem['before_gib']:.2f} GiB before the "
+        f"teacher, {watch['min_gib']:.2f} at the least (sampled every 0.1 s): the run took "
+        f"{host_mem['peak_use_gib']:.2f} GiB at its peak, its trees {host_mem['trees_gib']:.2f}")
+    log(f"14B teacher: the streamed passes' flow {json.dumps(flows)}")
+    if len(flows) != 2 or not all(f["finite"] and f["std"] > 0 for f in flows):
+        fail(f"14B teacher: want one finite, non-constant streamed flow per micro-step: {flows}")
+    if [r["step"] for r in rows] != [0, 1] or [r["opt_step"] for r in rows] != [0, 0]:
+        fail(f"14B teacher: steps {[(r['step'], r['opt_step']) for r in rows]}")
+    if not all("generator_loss" in r for r in rows):
+        fail("14B teacher: both micro-steps must train the generator (optimiser step 0)")
+    losses = {f"step {r['step']} {k}": r[k] for r in rows
+              for k in ("generator_loss", "critic_loss", "generator_grad_norm",
+                        "critic_grad_norm") if k in r}
+    if not all(math.isfinite(v) for v in losses.values()):
+        fail(f"14B teacher: non-finite losses {losses}")
+    if not all(r["generator_loss"] > 0 for r in rows):
+        fail(f"14B teacher: the DMD loss is zero with non-zero heads: {losses}")
+    for r in rows:
+        missing = {"teacher_x0_streamed", "gen_page_out", "gen_page_in", "dmd_loss_grad",
+                   "opt_generator", "opt_critic"} - set(r["phase_ms"])
+        if missing:
+            fail(f"14B teacher: step {r['step']} lacks the phases {sorted(missing)}")
+        freed, paged = r["gen_page_freed_bytes"], r["gen_page_bytes"]
+        if not paged == freed == gen_bytes:
+            fail(f"14B teacher: the page-out freed {freed} device bytes (as requested of the "
+                 f"allocator) for a {paged}-byte generator ({gen_bytes} expected)")
+    fpb = 3
+    want = derived_train_launches(DiTConfig().num_layers, 21 // fpb,
+                                  [r["exit_idx"] for r in rows],
+                                  [r["critic_exit_idx"] for r in rows],
+                                  teacher_layers=cfg14.num_layers)
+    log(f"14B teacher: K4 launches {json.dumps(got)} (want {json.dumps(want)}; exits: generator "
+        f"{[r['exit_idx'] for r in rows]}, critic {[r['critic_exit_idx'] for r in rows]}; the "
+        f"teacher's share {2 * cfg14.num_layers} forwards per pass)")
+    if got != want:
+        fail(f"14B teacher: K4 launch counts {got} != {want}")
+    check_counts("14B teacher", serving, expect())
+    if peak >= 80:
+        fail(f"14B teacher: peak device memory {peak:.2f} GiB")
+    steps = [{"step_s": sum(r["phase_ms"].values()) / 1e3, "phase_ms": r["phase_ms"],
+              "gen_page_bytes": r["gen_page_bytes"],
+              "gen_page_freed_bytes": r["gen_page_freed_bytes"]} for r in rows]
+    for r, s_ in zip(rows, steps):
+        log(f"14B teacher step {r['step']}: {s_['step_s']:.2f} s "
+            f"({', '.join(f'{k} {v:.0f} ms' for k, v in s_['phase_ms'].items())}); page-out "
+            f"freed {s_['gen_page_freed_bytes']} of {s_['gen_page_bytes']} bytes")
+    log(f"14B teacher on {card}: {wall:.1f} s wall for set-up and 2 micro-steps, peak device "
+        f"memory {peak:.2f} GiB; host memory available {host_mem.get('before_gib', 0):.1f} GiB "
+        f"before the teacher, {host_mem.get('after_gib', 0):.1f} after (its blocks "
+        f"{host_mem.get('blocks_gib', 0):.2f} GiB, built in {host_mem.get('build_s', 0):.1f} s); "
+        + ", ".join(f"{k} {v:.6g}" for k, v in losses.items()))
+    return {"wall_s": wall, "peak_gib": peak, "steps": steps, "losses": losses,
+            "launches": got, "host_memory": host_mem}
+
+
+def run_host_optimiser_path(torch, A, VC, card: str) -> dict:
+    """``run_train`` on ``configs/longlive_train_long.yaml`` with the levers
+    its own comment lists, ``opt_on_host`` and ``opt_async`` (AdamW of the
+    rank-256 adapters on the host, the critic's update in the background),
+    cut as the "streaming" path (``streaming_max_length`` 60,
+    ``switch_choices`` [21]) for the same 3 steps, so the two read side by
+    side: the chunk state, K4, K1 and K2 as there; the ``opt_*`` phases,
+    the critic's grad norm a step late, the step times."""
+    from longlive_torch.config import DiTConfig
+
+    path, _ = _train_yaml("chip_smoke_host_opt.yaml", "longlive_train_long.yaml",
+                       streaming_max_length=60, switch_choices=[21], phase_ledger=True,
+                       opt_on_host=True, opt_async=True)
+    trainer, rows, wall, got, serving, peak = _run_train_rows(
+        torch, A, VC, path, os.path.join(ROOT, "build", "chip_smoke_host_opt"), 3)
+    # the host AdamW's float32 master, m and v of both models' adapters
+    host_state_gib = sum(t.numel() for t in trainer.gen_leaves + trainer.critic_leaves) * 12 / 2**30
+    del trainer
+    gc.collect()
+    state = [(r.get("gen_current_length"), r.get("gen_overlap"), r.get("gen_switched"),
+              r["current_length"], r["overlap"], r["switched"]) for r in rows[:3]]
+    want_state = [(21, 0, False, 39, 3, True), (None, None, None, 57, 3, False),
+                  (None, None, None, 21, 0, False)]
+    if [r["step"] for r in rows[:3]] != [0, 1, 2] or state != want_state:
+        fail(f"host optimiser: steps {[r['step'] for r in rows]}, chunk state {state}, "
+             f"expected {want_state}")
+    if "critic_grad_norm" in rows[0] or not all("critic_grad_norm" in r for r in rows[1:]):
+        fail("host optimiser: the critic's grad norm must come one step late "
+             f"({[sorted(r) for r in rows]})")
+    losses = {f"step {r['step']} {k}": r[k] for r in rows[:3]
+              for k in ("generator_loss", "critic_loss", "gen_generator_grad_norm",
+                        "critic_grad_norm") if k in r}
+    if not all(math.isfinite(v) for v in losses.values()):
+        fail(f"host optimiser: non-finite losses {losses}")
+    want = derived_streaming_launches(DiTConfig().num_layers, _stream_chunks(rows[:3], 3))
+    log(f"host optimiser: K4 launches {json.dumps(got)} (want {json.dumps(want)})")
+    if got != want:
+        fail(f"host optimiser: K4 launch counts {got} != {want}")
+    check_counts("host optimiser", serving,
+                 expect(bias=DiTConfig().num_layers - 1, conv=2 * (28 + 20)))
+    if peak >= 80:
+        fail(f"host optimiser: peak device memory {peak:.2f} GiB")
+    steps = [{"step_s": sum(r["phase_ms"].values()) / 1e3, "phase_ms": r["phase_ms"]}
+             for r in rows[:3]]
+    for r, s_ in zip(rows, steps):
+        log(f"host optimiser step {r['step']}: {s_['step_s']:.2f} s "
+            f"({', '.join(f'{k} {v:.0f} ms' for k, v in s_['phase_ms'].items())})")
+    log(f"host optimiser on {card}: {wall:.1f} s wall for set-up and 3 steps, peak device memory "
+        f"{peak:.2f} GiB, host AdamW state {host_state_gib:.2f} GiB; "
+        + ", ".join(f"{k} {v:.6g}" for k, v in losses.items()))
+    return {"wall_s": wall, "peak_gib": peak, "steps": steps, "losses": losses,
+            "chunk_state": state, "train_launches": got, "launches": serving,
+            "host_state_gib": host_state_gib}
+
+
+OFFLOAD_STEPS = 2
+
+
+def run_t2v_offload_path(torch, A, VC) -> dict:
+    """``run_t2v`` with ``--offload_blocks`` at the t2v path's shape
+    (832x480, 81 frames), OFFLOAD_STEPS UniPC steps and the decode: the
+    DiT's blocks built in pinned host memory and streamed per layer.  Its
+    latents must be bit-equal to the resident run's with the same seed (run
+    first, same steps).  K1: per step 30 self- and 30 cross-attentions (the
+    prompts' K/V are computed once, before the steps); K2: the decode's
+    628."""
+    from longlive_torch import run_t2v
+
+    dv, layers = derived(), 30
+    def argv(name):
+        return _t2v_argv("unipc", name, steps=OFFLOAD_STEPS)
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with random_base_dit(torch):
+        resident = run_t2v.main(argv("chip_smoke_t2v_resident.mp4"))
+    torch.cuda.synchronize()
+    resident_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    resident = {"latents": resident["latents"].cpu(), "ms_per_step": resident["ms_per_step"]}
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = _sampler_path(torch, A, VC, "t2v offload",
+                        lambda: run_t2v.main(argv("chip_smoke_t2v_offload.mp4")
+                                             + ["--offload_blocks"]),
+                        expect(bias=layers * OFFLOAD_STEPS, cross=layers * OFFLOAD_STEPS,
+                               conv=dv["conv"](21)), steps=OFFLOAD_STEPS, keep_latents=True)
+    equal = torch.equal(out.pop("latents_cpu"), resident["latents"])
+    log(f"t2v offload: latents bit-equal to the resident run: {equal}; ms/step offload "
+        f"{out['ms_per_step']:.1f}, resident {resident['ms_per_step']:.1f}; peak GiB offload "
+        f"{out['peak_gib']:.2f}, resident {resident_peak:.2f}")
+    if not equal:
+        fail("t2v offload: the latents differ from the resident run's")
+    out.update(resident_ms_per_step=resident["ms_per_step"], resident_peak_gib=resident_peak,
+               bit_equal=equal)
+    return out
 
 
 def main() -> None:
@@ -3298,7 +3809,19 @@ def main() -> None:
     check_attention_edges(torch, A, k1)
     entries.append(check_frame_masked(torch, A))
     entries += check_train_attention(torch, A)
+    check_train_attention_14b(torch, A, entries[-3])
     log(f"kernel checks: {time.perf_counter() - t0:.1f} s")
+
+    # the 14B teacher's paths first, right after the kernel checks: the
+    # teacher's blocks and the generator's two host copies take ~63 GiB of
+    # host memory, and the later paths leave less of it available (on a
+    # 101 GiB H100 host: 96.3 GiB available here, 67.1 after them)
+    streamed_teacher = check_streamed_teacher(torch, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    teacher_14b = run_teacher_14b_path(torch, A, VC, card)
+    gc.collect()
+    torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
     check_small_reference(torch)
@@ -3309,6 +3832,7 @@ def main() -> None:
     check_small_training(torch)
     streaming_ref = check_small_streaming(torch)
     sampler_ref = check_small_samplers(torch, A, VC)
+    levers_ref = check_small_levers(torch)
     log(f"small references: {time.perf_counter() - t0:.1f} s")
 
     paths = {}
@@ -3346,6 +3870,12 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     live_stream = run_live_streaming_step(torch, A, VC, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    host_opt = run_host_optimiser_path(torch, A, VC, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths["t2v offload"] = run_t2v_offload_path(torch, A, VC)
     log("paths: " + json.dumps(paths))
     log("small int8 reference: " + json.dumps(int8_ref))
     log("small serving-options reference: " + json.dumps(options_ref))
@@ -3356,6 +3886,10 @@ def main() -> None:
     log("streaming, non-zero heads: " + json.dumps(live_stream))
     log("small streaming reference: " + json.dumps(streaming_ref))
     log("small sampler reference: " + json.dumps(sampler_ref))
+    log("small lever reference: " + json.dumps(levers_ref))
+    log("streamed 14B-width teacher: " + json.dumps(streamed_teacher))
+    log("14B teacher: " + json.dumps(teacher_14b))
+    log("host optimiser: " + json.dumps(host_opt))
 
     # each entry's launches: the count of the path that runs it, read from
     # that path's own run (counts set to 0 just before it)
@@ -3394,7 +3928,9 @@ def main() -> None:
                 "training": training["launches"][key],
                 "training, non-zero heads": live["launches"][key],
                 "streaming": paths["streaming"]["train_launches"][key],
-                "streaming, non-zero heads": live_stream["train_launches"][key]}
+                "streaming, non-zero heads": live_stream["train_launches"][key],
+                "14B teacher": teacher_14b["launches"][key],
+                "host optimiser": host_opt["train_launches"][key]}
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": entries}), flush=True)
     print(card, flush=True)

@@ -105,7 +105,8 @@
 // 2-4 CTAs along the tile list (ops/attention.py::split_plan picks the
 // split); each such CTA keeps its unnormalised O, running max and sum in a
 // workspace, and the last to finish (an atomic count per item) merges them
-// as the online softmax merges tiles.
+// as the online softmax merges tiles, every share in share order, so the
+// bits do not depend on which share finished last.
 // The registers bound the tiles: ptxas gives a 384-thread CTA's consumers
 // about 168 registers, and one 64 x 128 S beside one 64 x 128 O accumulator
 // take 128 of them, so a warpgroup waits on each product before the next
@@ -631,18 +632,14 @@ serving_attention_kernel(const __grid_constant__ CUtensorMap qmap,
       mx0 = fmaxf(mx0, __ldcg(all + p * PART + BM * D + 2 * tr0));
       mx1 = fmaxf(mx1, __ldcg(all + p * PART + BM * D + 2 * (tr0 + 8)));
     }
-    const float a0 = softmax_exp<EXP2>(m0 - mx0), a1 = softmax_exp<EXP2>(m1 - mx1);
-    l0 *= a0;
-    l1 *= a1;
+    // every share, this one's too (read back), summed in share order: the
+    // bits do not depend on which share finished last
+    l0 = l1 = 0.f;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
-      o[4 * j] *= a0;
-      o[4 * j + 1] *= a0;
-      o[4 * j + 2] *= a1;
-      o[4 * j + 3] *= a1;
+      o[4 * j] = o[4 * j + 1] = o[4 * j + 2] = o[4 * j + 3] = 0.f;
     }
     for (int p = 0; p < nshares; ++p) {
-      if (p == share) continue;
       const float* other = all + p * PART;
       const float2 ml0 = __ldcg(reinterpret_cast<const float2*>(other + BM * D + 2 * tr0));
       const float2 ml1 =

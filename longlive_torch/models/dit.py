@@ -41,7 +41,7 @@ from __future__ import annotations
 import dataclasses
 import math
 import os
-from typing import List, NamedTuple, Optional, Tuple
+from typing import Callable, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -51,7 +51,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import NEG_INF, attend_train, dense_attention, flash_attention
 from ..ops.attention import (flash_attention_frame_masked, flash_attention_train,
-                             flash_attention_unmasked, quantize_k_tokens)
+                             dequantize_k, flash_attention_unmasked, quantize_k_tokens)
 from ..ops.masks import FrameMaskSpec, expand_frame_mask, teacher_forcing_frame_mask
 from ..ops.quant import slice_linear
 from ..ops.embeddings import sinusoidal_embedding_1d
@@ -75,31 +75,41 @@ def canonicalize_rope_layout(params: dict, cfg: DiTConfig) -> dict:
     q/k OUTPUT features (weight rows, bias, qk-norm scale) so each head's
     complex pairs are stored (re half ++ im half).  Attention is invariant
     to a consistent q/k channel permutation; apply exactly once."""
-    if cfg.rope_layout != "halfsplit":
-        return params
-    perm = torch.as_tensor(halfsplit_qk_perm(cfg.head_dim, cfg.num_heads))
     for blk in params["blocks"]:
-        sa = blk["self_attn"]
-        for name in ("q", "k"):
-            p = sa[name]
-            idx = perm.to(p["weight"].device)
-            p["weight"] = p["weight"][idx].contiguous()
-            if p.get("bias") is not None:
-                p["bias"] = p["bias"][idx].contiguous()
-        for name in ("norm_q", "norm_k"):
-            if name in sa:
-                sa[name]["scale"] = sa[name]["scale"][perm.to(sa[name]["scale"].device)]
+        _canonicalize_block(blk, cfg)
     return params
 
 
+def _canonicalize_block(blk: dict, cfg: DiTConfig) -> dict:
+    """``canonicalize_rope_layout`` of one block, in place."""
+    if cfg.rope_layout != "halfsplit":
+        return blk
+    perm = torch.as_tensor(halfsplit_qk_perm(cfg.head_dim, cfg.num_heads))
+    sa = blk["self_attn"]
+    for name in ("q", "k"):
+        p = sa[name]
+        idx = perm.to(p["weight"].device)
+        p["weight"] = p["weight"][idx].contiguous()
+        if p.get("bias") is not None:
+            p["bias"] = p["bias"][idx].contiguous()
+    for name in ("norm_q", "norm_k"):
+        if name in sa:
+            sa[name]["scale"] = sa[name]["scale"][perm.to(sa[name]["scale"].device)]
+    return blk
+
+
 def init_dit_params(cfg: DiTConfig, dtype=torch.float32, device="cpu",
-                    seed: int = 0, zero_head: bool = True) -> dict:
+                    seed: int = 0, zero_head: bool = True,
+                    place_block: Optional[Callable[[dict], dict]] = None) -> dict:
     """Random init: xavier-uniform linears with zero bias, N(0, 0.02) text
     and time embeddings, modulation N(0, 1/dim), zero head projection
     unless ``zero_head=False``.  Drawn on ``device`` from a generator seeded
     with ``seed``.  ``model_type == "i2v"`` adds each block's image-branch
     K/V (``k_img``, ``v_img``, ``norm_k_img``) and the ``img_emb``
-    projection of the CLIP features, drawn after the rest."""
+    projection of the CLIP features, drawn after the rest.
+    ``place_block`` takes each block as soon as it is drawn (the host-resident
+    init moves it to pinned host memory, so ``device`` holds one block at a
+    time); the draws are the same."""
     d, ffn = cfg.dim, cfg.ffn_dim
     pt = math.prod(cfg.patch_size)
     gen = torch.Generator(device=device).manual_seed(seed)
@@ -144,7 +154,8 @@ def init_dit_params(cfg: DiTConfig, dtype=torch.float32, device="cpu",
         if cfg.cross_attn_norm:
             blk["norm3"] = {"scale": ones(d),
                             "bias": torch.zeros(d, dtype=dtype, device=device)}
-        blocks.append(blk)
+        _canonicalize_block(blk, cfg)
+        blocks.append(blk if place_block is None else place_block(blk))
     params = {
         "patch_embedding": lin(cfg.in_dim * pt, d),
         "text_embedding": {"fc1": lin(cfg.text_dim, d, "normal"),
@@ -166,7 +177,7 @@ def init_dit_params(cfg: DiTConfig, dtype=torch.float32, device="cpu",
             "ln1": {"scale": ones(cd), "bias": torch.zeros(cd, dtype=dtype, device=device)},
             "fc1": lin(cd, cd), "fc2": lin(cd, d),
             "ln2": {"scale": ones(d), "bias": torch.zeros(d, dtype=dtype, device=device)}}
-    return canonicalize_rope_layout(params, cfg)
+    return params
 
 
 # ---------------------------------------------------------------------------
@@ -220,17 +231,20 @@ def prepare_cross_kv(params: dict, cfg: DiTConfig, prompt_embeds: torch.Tensor,
                      dtype=torch.bfloat16) -> CrossKV:
     """Per-layer cross-attention K/V for a prompt, computed once."""
     ctx = embed_text(params, prompt_embeds, dtype)
+    ks, vs = zip(*(layer_cross_kv(blk["cross_attn"], cfg, ctx) for blk in params["blocks"]))
+    return CrossKV(k=torch.stack(ks), v=torch.stack(vs))
+
+
+def layer_cross_kv(cross_p: dict, cfg: DiTConfig,
+                   ctx: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One layer's cross-attention K/V [B, text_len, N, D] from the embedded
+    text ``ctx`` (``embed_text``) and the layer's ``cross_attn`` weights."""
     n, hd = cfg.num_heads, cfg.head_dim
     b, s, _ = ctx.shape
-    ks, vs = [], []
-    for blk in params["blocks"]:
-        p = blk["cross_attn"]
-        k = nn.linear(ctx, p["k"])
-        if cfg.qk_norm:
-            k = nn.rms_norm(k, p["norm_k"]["scale"], cfg.eps)
-        ks.append(k.reshape(b, s, n, hd))
-        vs.append(nn.linear(ctx, p["v"]).reshape(b, s, n, hd))
-    return CrossKV(k=torch.stack(ks), v=torch.stack(vs))
+    k = nn.linear(ctx, cross_p["k"])
+    if cfg.qk_norm:
+        k = nn.rms_norm(k, cross_p["norm_k"]["scale"], cfg.eps)
+    return k.reshape(b, s, n, hd), nn.linear(ctx, cross_p["v"]).reshape(b, s, n, hd)
 
 
 # ---------------------------------------------------------------------------
@@ -417,11 +431,16 @@ def _block_tail(cfg: DiTConfig, f: int, x: torch.Tensor, y: torch.Tensor, layer_
 def _block_body_train(cfg: DiTConfig, f: int, x: torch.Tensor, layer_p: dict,
                       cache_k: torch.Tensor, cache_v: torch.Tensor, cross_k: torch.Tensor,
                       cross_v: torch.Tensor, e0: torch.Tensor, rope_cos, rope_sin,
-                      kv_valid: torch.Tensor, kv_only: bool = False):
+                      kv_valid: torch.Tensor, kv_only: bool = False,
+                      k_scale: Optional[torch.Tensor] = None,
+                      v_scale: Optional[torch.Tensor] = None):
     """One causal block in the training form: the queries attend [this
     layer's read-only cache rows ``cache_k``/``cache_v`` ([B, S, N, D])
     under ``kv_valid`` ++ the block's own K/V].  Returns (x, block K, block
-    V); ``kv_only`` computes the K/V and leaves x as it is."""
+    V); ``kv_only`` computes the K/V and leaves x as it is.  An int8 cache
+    (``k_scale``, ``v_scale`` [B, S, N]) is dequantized here, in q's dtype,
+    so that under checkpointing the layer keeps the int8 rows, not a
+    dequantized copy."""
     b, s, _ = x.shape
     n, hd = cfg.num_heads, cfg.head_dim
     e = layer_p["modulation"][None, None].to(e0.dtype) + e0
@@ -435,6 +454,9 @@ def _block_body_train(cfg: DiTConfig, f: int, x: torch.Tensor, layer_p: dict,
     q_pre = nn.rms_scale(q, sa["norm_q"]["scale"], cfg.eps) if cfg.qk_norm else None
     q = apply_rotary(q.reshape(b, s, n, hd), rope_cos, rope_sin, premul=q_pre,
                      layout=cfg.rope_layout)
+    if k_scale is not None:
+        cache_k, cache_v = (dequantize_k(c, sc, q.dtype)
+                            for c, sc in ((cache_k, k_scale), (cache_v, v_scale)))
     y = attend_train(q, cache_k.to(q.dtype), cache_v.to(q.dtype), kv_valid, k2=k, v2=v)
     y = nn.linear(y.reshape(b, s, n * hd), sa["o"])
     return _block_tail(cfg, f, x, y, layer_p, cross_k, cross_v, e_, train=True), k, v
@@ -494,12 +516,13 @@ def dit_forward_cached(
 
     ``two_segment`` selects the training form (``_dit_forward_train``),
     which takes the standard plumbing only, plus ``remat_layers``,
-    ``window_frames`` and ``commit_writes`` as above."""
+    ``window_frames`` and ``commit_writes`` as above, on a bf16 cache or on
+    the rollout's int8 K and V cache (``cache_int8``)."""
     if two_segment:
         if (kv_valid is not None or offsets is not None or write_frames is not None
-                or fused_rope or qk_int8 or cache.k_scale is not None):
-            raise ValueError("the training form takes no explicit cache plumbing, "
-                             "no fused_rope and no int8 attention")
+                or fused_rope or qk_int8 or (cache.k_scale is None) != (cache.v_scale is None)):
+            raise ValueError("the training form takes no explicit cache plumbing, no "
+                             "fused_rope, no int8 attention and no int8 K without int8 V")
         return _dit_forward_train(params, cfg, cache_cfg, tables, x, t, cross_kv, cache,
                                   start_frame, advance_counters=advance_counters,
                                   kv_only=kv_only, remat_layers=remat_layers,
@@ -573,10 +596,15 @@ def _dit_forward_train(
     ``remat_layers`` and gradients enabled each layer runs under
     ``torch.utils.checkpoint`` (non-reentrant): backward keeps each layer's
     input and recomputes the rest.  ``kv_only``: the last layer computes
-    only its K/V and the flow is zeros."""
+    only its K/V and the flow is zeros.
+
+    An int8 K and V cache (the rollout's ``cache_int8``) is dequantized by
+    each layer as it reads it, and the block's K and V are quantized once,
+    at the commit (one float32 scale per token and head)."""
     b, f, c, h, w = x.shape
     dtype = params["patch_embedding"]["weight"].dtype
     offsets = kvc.block_write_offsets(cache_cfg, cache, start_frame, f)
+    int8 = cache.v_scale is not None
     kv_valid = kvc.validity_mask(cache_cfg, cache, start_frame, f, window_frames=window_frames,
                                  device=x.device, exclude_block=True)
     tokens = nn.linear(patchify(x.to(dtype), cfg), params["patch_embedding"]).to(dtype)
@@ -590,6 +618,8 @@ def _dit_forward_train(
         args = (cfg, f, tokens, layer_p, cache.k[li].transpose(1, 2), cache.v[li].transpose(1, 2),
                 cross_kv.k[li], cross_kv.v[li], e0, rope_cos, rope_sin, kv_valid,
                 kv_only and li == len(blocks) - 1)
+        if int8:
+            args += (cache.k_scale[li].transpose(1, 2), cache.v_scale[li].transpose(1, 2))
         if remat:
             tokens, k_blk, v_blk = checkpoint(_block_body_train, *args, use_reentrant=False)
         else:
@@ -603,7 +633,12 @@ def _dit_forward_train(
     if commit_writes:
         with torch.no_grad():
             for li, (k_blk, v_blk) in enumerate(block_kv):
-                kvc.write_block_kv(cache_cfg, cache, li, k_blk, v_blk, offsets)
+                if int8:
+                    (k_blk, k_sc), (v_blk, v_sc) = quantize_k_tokens(k_blk), quantize_k_tokens(v_blk)
+                    kvc.write_block_kv(cache_cfg, cache, li, k_blk, v_blk, offsets,
+                                       new_k_scale=k_sc, new_v_scale=v_sc)
+                else:
+                    kvc.write_block_kv(cache_cfg, cache, li, k_blk, v_blk, offsets)
     if advance_counters:
         cache = kvc.advance(cache_cfg, cache, start_frame, f)
     return flow, dataclasses.replace(cache)

@@ -33,7 +33,7 @@ from ..ops.attention import flash_attention_train, flash_attention_unmasked
 from ..ops.embeddings import sinusoidal_embedding_1d
 from ..ops.rope import RopeTables, apply_rotary, rope_multipliers
 from . import nn
-from .dit import CrossKV, patchify, unpatchify
+from .dit import CrossKV, embed_text, layer_cross_kv, patchify, unpatchify
 
 ATTN_IMPLS = ("auto", "train_auto")
 
@@ -115,16 +115,11 @@ def _bidi_block(x: torch.Tensor, layer_p: dict, ck: torch.Tensor, cv: torch.Tens
     return x + y * e_[5]
 
 
-def bidirectional_forward(params: dict, cfg: DiTConfig, tables: RopeTables, x: torch.Tensor,
-                          t: torch.Tensor, cross_kv: CrossKV, attn_impl: str = "auto",
-                          cross_kv_img: Optional[CrossKV] = None,
-                          remat_layers: bool = False) -> torch.Tensor:
-    """Flow prediction [B, F, C, H, W] (float32) for latents x [B, F, C, H, W]
-    at one timestep per sample, t [B].  The residual stream stays in the
-    parameter dtype.  ``cross_kv_img`` (``prepare_img_cross_kv``; an i2v
-    model) adds each block's attention over the CLIP image tokens."""
-    if attn_impl not in ATTN_IMPLS:
-        raise ValueError(f"attn_impl {attn_impl!r}: one of {ATTN_IMPLS}")
+def _bidi_prologue(params: dict, cfg: DiTConfig, tables: RopeTables, x: torch.Tensor,
+                   t: torch.Tensor):
+    """(tokens [B, S, dim], e [B, dim], e0 [B, 6, dim], rope_cos, rope_sin)
+    of a forward: the patch and time embeddings, from the tree's
+    ``patch_embedding``, ``time_embedding`` and ``time_projection``."""
     b, f, c, h, w = x.shape
     dtype = params["patch_embedding"]["weight"].dtype
     tokens = nn.linear(patchify(x.to(dtype), cfg), params["patch_embedding"]).to(dtype)
@@ -134,6 +129,34 @@ def bidirectional_forward(params: dict, cfg: DiTConfig, tables: RopeTables, x: t
     e0 = nn.linear(nn.silu(e), params["time_projection"]["fc"]).reshape(b, 6, cfg.dim).to(dtype)
     hp, wp = h // cfg.patch_size[1], w // cfg.patch_size[2]
     rope_cos, rope_sin = rope_multipliers(tables, f, hp, wp, 0)
+    return tokens, e, e0, rope_cos, rope_sin
+
+
+def _bidi_head(head_p: dict, cfg: DiTConfig, tokens: torch.Tensor, e: torch.Tensor,
+               shape) -> torch.Tensor:
+    """The head's flow prediction [B, F, C, H, W] (float32); ``shape`` the
+    input latents' shape."""
+    b, f, c, h, w = shape
+    em = head_p["modulation"][None].to(e.dtype) + e[:, None]  # [B, 2, dim]
+    y = nn.layer_norm(tokens, cfg.eps) * (1 + em[:, 1][:, None]) + em[:, 0][:, None]
+    return unpatchify(nn.linear(y, head_p["head"]).float(), cfg, f, h, w)
+
+
+def _check_impl(attn_impl: str) -> None:
+    if attn_impl not in ATTN_IMPLS:
+        raise ValueError(f"attn_impl {attn_impl!r}: one of {ATTN_IMPLS}")
+
+
+def bidirectional_forward(params: dict, cfg: DiTConfig, tables: RopeTables, x: torch.Tensor,
+                          t: torch.Tensor, cross_kv: CrossKV, attn_impl: str = "auto",
+                          cross_kv_img: Optional[CrossKV] = None,
+                          remat_layers: bool = False) -> torch.Tensor:
+    """Flow prediction [B, F, C, H, W] (float32) for latents x [B, F, C, H, W]
+    at one timestep per sample, t [B].  The residual stream stays in the
+    parameter dtype.  ``cross_kv_img`` (``prepare_img_cross_kv``; an i2v
+    model) adds each block's attention over the CLIP image tokens."""
+    _check_impl(attn_impl)
+    tokens, e, e0, rope_cos, rope_sin = _bidi_prologue(params, cfg, tables, x, t)
     remat = remat_layers and torch.is_grad_enabled()
     for li, layer_p in enumerate(params["blocks"]):
         img = (None, None) if cross_kv_img is None else (cross_kv_img.k[li], cross_kv_img.v[li])
@@ -141,14 +164,46 @@ def bidirectional_forward(params: dict, cfg: DiTConfig, tables: RopeTables, x: t
                 attn_impl) + img
         tokens = (checkpoint(_bidi_block, *args, use_reentrant=False) if remat
                   else _bidi_block(*args))
-    hd_p = params["head"]
-    em = hd_p["modulation"][None].to(e.dtype) + e[:, None]  # [B, 2, dim]
-    y = nn.layer_norm(tokens, cfg.eps) * (1 + em[:, 1][:, None]) + em[:, 0][:, None]
-    out = nn.linear(y, hd_p["head"])
-    return unpatchify(out.float(), cfg, f, h, w)
+    return _bidi_head(params["head"], cfg, tokens, e, x.shape)
 
 
-def bidirectional_forward_streamed(*args, **kwargs):
-    raise NotImplementedError("the host-streamed bidirectional forward (a teacher larger "
-                              "than the card, --offload_blocks) is not ported yet: ROADMAP "
-                              "queue 1, item 7")
+def bidirectional_forward_streamed(params: dict, cfg: DiTConfig, tables: RopeTables,
+                                   x: torch.Tensor, t: torch.Tensor,
+                                   cross_kv: Optional[CrossKV] = None, attn_impl: str = "auto",
+                                   context: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``bidirectional_forward`` with the layer stack in the host's memory
+    (``utils.memory.blocks_to_host``): each layer is copied to x's device
+    one layer ahead of its compute (``utils.memory.stream_scan``), so the
+    device holds the embeddings, the head and two layers.  The same
+    per-layer arithmetic as the resident forward, so the same bits.  No
+    gradient flows through the copies: inference and the teacher only.
+
+    Pass EITHER ``cross_kv`` (per-layer K/V [L, ...], on the device or
+    streamed beside the blocks) OR ``context``: raw text features [B,
+    text_len, text_dim] (``embed_text`` in the parameters' dtype), from
+    which each layer derives its cross K/V with its own streamed weights
+    (``layer_cross_kv``), so no [L, ...] cross K/V exist: the 14B
+    teacher's form."""
+    from ..utils.memory import stream_scan
+
+    _check_impl(attn_impl)
+    if (cross_kv is None) == (context is None):
+        raise ValueError("bidirectional_forward_streamed needs either cross_kv (per-layer "
+                         "K/V) or context (text features), not both")
+    tokens, e, e0, rope_cos, rope_sin = _bidi_prologue(params, cfg, tables, x, t)
+    blocks = params["blocks"]
+    if context is not None:
+        ctx = embed_text(params, context, params["patch_embedding"]["weight"].dtype)
+
+        def step(carry, layer_p):
+            ck, cv = layer_cross_kv(layer_p["cross_attn"], cfg, ctx)
+            return _bidi_block(carry, layer_p, ck, cv, e0, rope_cos, rope_sin, cfg, attn_impl)
+
+        tokens = stream_scan(step, tokens, blocks, x.device)
+    else:
+        def step(carry, xs):
+            layer_p, ck, cv = xs
+            return _bidi_block(carry, layer_p, ck, cv, e0, rope_cos, rope_sin, cfg, attn_impl)
+
+        tokens = stream_scan(step, tokens, list(zip(blocks, cross_kv.k, cross_kv.v)), x.device)
+    return _bidi_head(params["head"], cfg, tokens, e, x.shape)

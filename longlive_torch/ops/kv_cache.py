@@ -20,7 +20,9 @@ the old contents clones first.
 
 The int8 K cache (``init_cache(k_int8=True)``, the ``kv_int8`` serving
 mode) stores K as int8 with one float32 scale per token and head in
-``k_scale`` [L, B, N, S]; V stays in the cache dtype.
+``k_scale`` [L, B, N, S]; V stays in the cache dtype.  The training
+rollout's int8 cache (``cache_int8``: ``k_int8`` and ``v_int8``) stores V
+so too, with ``v_scale``.
 """
 
 from __future__ import annotations
@@ -36,7 +38,7 @@ from ..config import CacheConfig
 @dataclasses.dataclass
 class KVCache:
     """k, v: [L, B, N, S, D] roped keys / values; counters are host ints;
-    k_scale: [L, B, N, S] float32 when k is int8, else None."""
+    k_scale / v_scale: [L, B, N, S] float32 when k / v is int8, else None."""
 
     k: torch.Tensor
     v: torch.Tensor
@@ -44,19 +46,28 @@ class KVCache:
     sink_filled: int = 0
     ring_filled: int = 0
     k_scale: Optional[torch.Tensor] = None
+    v_scale: Optional[torch.Tensor] = None
 
 
 def init_cache(cfg: CacheConfig, num_layers: int, batch: int, num_heads: int,
                head_dim: int, dtype=torch.bfloat16, device="cpu",
-               k_int8: bool = False) -> KVCache:
+               k_int8: bool = False, v_int8: bool = False) -> KVCache:
     shape = (num_layers, batch, num_heads, cfg.size_tokens, head_dim)
+
+    def scales(on):
+        return torch.zeros(shape[:-1], dtype=torch.float32, device=device) if on else None
+
     return KVCache(
         k=torch.zeros(shape, dtype=torch.int8 if k_int8 else dtype, device=device),
-        v=torch.zeros(shape, dtype=dtype, device=device),
-        ring_base=cfg.sink_frames,
-        k_scale=(torch.zeros(shape[:-1], dtype=torch.float32, device=device)
-                 if k_int8 else None),
-    )
+        v=torch.zeros(shape, dtype=torch.int8 if v_int8 else dtype, device=device),
+        ring_base=cfg.sink_frames, k_scale=scales(k_int8), v_scale=scales(v_int8))
+
+
+def clone_cache(cache: KVCache) -> KVCache:
+    """A copy of the cache's buffers (the counters are host ints)."""
+    return dataclasses.replace(
+        cache, **{n: None if getattr(cache, n) is None else getattr(cache, n).clone()
+                  for n in ("k", "v", "k_scale", "v_scale")})
 
 
 def to_standard_layout(cache: KVCache):
@@ -81,11 +92,13 @@ def block_write_offsets(cfg: CacheConfig, cache: KVCache, start_frame: int,
 def write_block_kv(cfg: CacheConfig, cache: KVCache, layer: int, new_k: torch.Tensor,
                    new_v: torch.Tensor, offsets: Sequence[int],
                    write_frames: Optional[Sequence[int]] = None,
-                   new_k_scale: Optional[torch.Tensor] = None) -> None:
+                   new_k_scale: Optional[torch.Tensor] = None,
+                   new_v_scale: Optional[torch.Tensor] = None) -> None:
     """Writes frames ``write_frames`` (default all) of a block's roped K/V
     ``new_k``/``new_v`` [B, F*frame_seq, N, D] into layer ``layer`` of the
     cache, frame ``i`` at token offset ``offsets[i]``; an int8 cache also
-    takes the block's K scales ``new_k_scale`` [B, F*frame_seq, N].  Frames may land in
+    takes the block's scales ``new_k_scale`` / ``new_v_scale`` [B,
+    F*frame_seq, N].  Frames may land in
     slots that are not consecutive (a sink or ring that is no multiple of
     the block, or a ring base moved by an odd recache): each run of frames
     whose slots do follow each other is one copy, so a block in consecutive
@@ -105,6 +118,8 @@ def write_block_kv(cfg: CacheConfig, cache: KVCache, layer: int, new_k: torch.Te
         cache.v[layer, :, :, off:off + nf * fs].copy_(new_v[:, src].transpose(1, 2))
         if cache.k_scale is not None:
             cache.k_scale[layer, :, :, off:off + nf * fs].copy_(new_k_scale[:, src].transpose(1, 2))
+        if cache.v_scale is not None:
+            cache.v_scale[layer, :, :, off:off + nf * fs].copy_(new_v_scale[:, src].transpose(1, 2))
 
 
 def advance(cfg: CacheConfig, cache: KVCache, start_frame: int,
@@ -169,8 +184,9 @@ def zero_cache(cache: KVCache) -> KVCache:
     clears the K/V but not the fill state; ``recache_state`` resets it)."""
     cache.k.zero_()
     cache.v.zero_()
-    if cache.k_scale is not None:
-        cache.k_scale.zero_()
+    for sc in (cache.k_scale, cache.v_scale):
+        if sc is not None:
+            sc.zero_()
     return dataclasses.replace(cache)
 
 

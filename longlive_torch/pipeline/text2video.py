@@ -16,10 +16,11 @@ import torch
 from ..config import DiTConfig
 from ..models import nn
 from ..models.dit import CrossKV, prepare_cross_kv
-from ..models.dit_bidirectional import bidirectional_forward
+from ..models.dit_bidirectional import bidirectional_forward, bidirectional_forward_streamed
 from ..ops import solvers as SV
 from ..ops.rope import make_rope_tables
 from ..utils.device import resolve_device
+from ..utils.memory import blocks_to_host, fetch_from_host
 
 # The default negative prompt of the Wan configs (``sample_neg_prompt``).
 DEFAULT_NEGATIVE_PROMPT = (
@@ -73,11 +74,13 @@ def prepare_condition(params: dict, cfg: DiTConfig, prompt_embeds: torch.Tensor,
 
 def guided_sampler(params: dict, cfg: DiTConfig, tables, guide_scale: float,
                    cross_both: CrossKV, cross_img: Optional[CrossKV] = None,
-                   cond_latents: Optional[torch.Tensor] = None):
+                   cond_latents: Optional[torch.Tensor] = None, streamed: bool = False):
     """``model_fn(x, t)`` for ``sample_flow``: x [B, ...] twice in one batch
     (cond then uncond, ``cross_both`` holding both prompts' K/V), with
     ``cond_latents`` [2B, F, C', H, W] appended on the channel axis (i2v),
-    combined as uncond + guide_scale * (cond - uncond)."""
+    combined as uncond + guide_scale * (cond - uncond).  ``streamed``: the
+    blocks live on the host (``bidirectional_forward_streamed``; t2v
+    only)."""
 
     def model_fn(x: torch.Tensor, t: float) -> torch.Tensor:
         b = x.shape[0]
@@ -85,8 +88,11 @@ def guided_sampler(params: dict, cfg: DiTConfig, tables, guide_scale: float,
         if cond_latents is not None:
             xx = torch.cat([xx, cond_latents.to(xx.dtype)], dim=2)
         tt = torch.full((2 * b,), t, dtype=torch.float32, device=x.device)
-        out = bidirectional_forward(params, cfg, tables, xx, tt, cross_both,
-                                    cross_kv_img=cross_img)
+        if streamed:
+            out = bidirectional_forward_streamed(params, cfg, tables, xx, tt, cross_both)
+        else:
+            out = bidirectional_forward(params, cfg, tables, xx, tt, cross_both,
+                                        cross_kv_img=cross_img)
         cond, uncond = out[:b], out[b:]
         return uncond + guide_scale * (cond - uncond)
 
@@ -101,25 +107,35 @@ def concat_cross(a: CrossKV, b: CrossKV) -> CrossKV:
 class Text2VideoPipeline:
     """Drives the bidirectional Wan model with a multistep flow solver.
 
-    ``mesh`` (sequence parallelism) and ``offload_blocks`` (per-layer weight
-    streaming from the host) are not ported: ROADMAP queue 1, items 8 and
-    7."""
+    ``offload_blocks``: the DiT's blocks live in pinned host memory
+    (``utils.memory.blocks_to_host``) and come to the card one layer ahead
+    of their compute (``bidirectional_forward_streamed``); the prompts'
+    cross-attention K/V are computed once by the same arithmetic as the
+    resident sampler's, so the latents are the same bits.  ``mesh`` (sequence parallelism) is not ported: ROADMAP
+    queue 1, item 8."""
 
-    def __init__(self, params: dict, cfg: DiTConfig, mesh=None, offload_blocks: bool = False, device="cuda"):
+    def __init__(self, params: dict, cfg: DiTConfig, mesh=None, offload_blocks: bool = False,
+                 device="cuda"):
         if mesh is not None:
             raise NotImplementedError("sequence parallelism (mesh / --sp > 1) is not ported "
                                       "yet: ROADMAP queue 1, item 8")
-        if offload_blocks:
-            raise NotImplementedError("offload_blocks (weights streamed from the host per "
-                                      "layer) is not ported yet: ROADMAP queue 1, item 7")
-        self.params = params
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.offload_blocks = offload_blocks
+        self.params = blocks_to_host(params, self.device) if offload_blocks else params
         self.tables = make_rope_tables(cfg.head_dim, cfg.rope_max_pos, device=self.device)
 
     def prepare_condition(self, prompt_embeds: torch.Tensor) -> CrossKV:
-        """The prompt's cross-attention K/V (``prepare_condition``)."""
-        return prepare_condition(self.params, self.cfg, prompt_embeds.to(self.device))
+        """The prompt's cross-attention K/V (``prepare_condition``).  With
+        ``offload_blocks`` the layers' k, v and norm_k come to the card
+        once for it (0.28 GB in bf16 at the 1.3B widths)."""
+        params = self.params
+        if self.offload_blocks:
+            cross = [{n: w for n, w in blk["cross_attn"].items() if n in ("k", "v", "norm_k")}
+                     for blk in params["blocks"]]
+            params = {**params, "blocks": [{"cross_attn": c}
+                                           for c in fetch_from_host(cross, self.device)]}
+        return prepare_condition(params, self.cfg, prompt_embeds.to(self.device))
 
     @torch.no_grad()
     def prepare_sampler(self, cond_embeds: torch.Tensor, null_embeds: torch.Tensor, *,
@@ -129,7 +145,8 @@ class Text2VideoPipeline:
         model over both prompts' K/V and the solver's coefficients."""
         both = concat_cross(self.prepare_condition(cond_embeds),
                             self.prepare_condition(null_embeds))
-        return (guided_sampler(self.params, self.cfg, self.tables, guide_scale, both),
+        return (guided_sampler(self.params, self.cfg, self.tables, guide_scale, both,
+                               streamed=self.offload_blocks),
                 SV.make_coefficients(solver, sampling_steps, shift))
 
     @torch.no_grad()

@@ -55,9 +55,9 @@ def main(argv=None):
     except RuntimeError as e:
         sys.exit(f"error: {e}")
     if args.sp > 1:
-        raise NotImplementedError("--sp > 1 is not ported yet: ROADMAP queue 1, item 14")
+        raise NotImplementedError("--sp > 1 is not ported yet: ROADMAP queue 1, item 8")
     if args.decode_device is not None:
-        raise NotImplementedError("--decode_device is not ported yet: ROADMAP queue 1, item 14")
+        raise NotImplementedError("--decode_device is not ported yet: ROADMAP queue 1, item 8")
 
     config = load_pipeline_config(args.config_path)
     if args.num_output_frames:

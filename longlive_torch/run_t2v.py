@@ -14,6 +14,10 @@ prompt embedding is random (the negative prompt's is zero).
 ``--tiny_debug`` runs the tiny random-weight model (smoke runs).  The DiT
 takes the Wan2.1-1.3B widths whatever ``--model_name`` says, as the JAX
 package's CLI does.  ``--image`` switches to image-to-video.
+``--offload_blocks`` (text-to-video) keeps the DiT's blocks in pinned host
+memory, built there, and streams them to the card one layer ahead of their
+compute: a model larger than the card; the same latents as the resident
+run.
 """
 
 from __future__ import annotations
@@ -68,7 +72,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--sp", type=int, default=1,
                     help="sequence-parallel degree (t2v only; not ported)")
     ap.add_argument("--offload_blocks", action="store_true",
-                    help="stream DiT block weights from the host per layer (not ported)")
+                    help="keep the DiT's blocks in host memory and stream them to the "
+                         "device per layer (text-to-video)")
     ap.add_argument("--tiny_debug", action="store_true",
                     help="tiny random-weight model (smoke runs)")
     ap.add_argument("--device", default="cuda", help="torch device to run on (default cuda)")
@@ -89,11 +94,12 @@ def generate(args: argparse.Namespace, image: Optional[np.ndarray] = None) -> di
     device = resolve_device(args.device)
     if args.sp > 1:
         raise NotImplementedError("--sp > 1 is not ported yet: ROADMAP queue 1, item 8")
-    if args.offload_blocks:
-        raise NotImplementedError("--offload_blocks is not ported yet: ROADMAP queue 1, item 7")
     dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
     w, h = (int(x) for x in args.size.split("x"))
     i2v = image is not None
+    if i2v and args.offload_blocks:
+        raise NotImplementedError("--offload_blocks streams the text-to-video sampler only, as "
+                                  "in the JAX package")
 
     config = PipelineConfig(model_name=args.model_name, seed=args.seed)
     if args.tiny_debug:
@@ -125,7 +131,8 @@ def generate(args: argparse.Namespace, image: Optional[np.ndarray] = None) -> di
             cfg = DiTConfig(local_attn_size=-1, sink_size=0, model_type="i2v",
                             in_dim=16 + stride_t + vcfg.z_dim)
         params = loading.load_base_dit(os.path.join("wan_models", args.model_name), cfg,
-                                       dtype, device, seed=args.seed)
+                                       dtype, device, seed=args.seed,
+                                       on_host=args.offload_blocks)
         text_encoder = loading.load_text_encoder(config, dtype, device)
 
     neg = args.negative_prompt or DEFAULT_NEGATIVE_PROMPT
@@ -152,7 +159,8 @@ def generate(args: argparse.Namespace, image: Optional[np.ndarray] = None) -> di
         pipe = Image2VideoPipeline(params, cfg, device=device)
         model_fn, coeffs = pipe.prepare_sampler(cond, null, clip_fea, y, **sampling)
     else:
-        pipe = Text2VideoPipeline(params, cfg, device=device)
+        pipe = Text2VideoPipeline(params, cfg, device=device, offload_blocks=args.offload_blocks)
+        del params  # with offload_blocks the pipeline holds the blocks on the host
         model_fn, coeffs = pipe.prepare_sampler(cond, null, **sampling)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     noise = initial_noise(None, gen, (1, f_lat, vcfg.z_dim, lat_h, lat_w), device)

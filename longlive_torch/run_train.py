@@ -97,7 +97,13 @@ def resolve_score_models(raw: dict, dit_cfg, tcfg: TrainerConfig, device="cuda",
     weights named by ``real_name`` / ``fake_name``, never copies of the
     generator.  Random init uses seeds ``seed + 1`` (teacher) and
     ``seed + 2`` (critic).  Returns (teacher_params, teacher_cfg,
-    critic_params), float32."""
+    critic_params), float32.
+
+    The teacher may be larger than the generator (``real_name:
+    Wan2.1-T2V-14B``, its released widths with the run's latent and text
+    geometry); that needs ``teacher_stream``.  With ``teacher_stream`` the
+    teacher is built in the host's memory (``load_base_dit(on_host=True)``),
+    never whole on the card."""
     real_name = raw.get("real_name", "Wan2.1-T2V-1.3B")
     fake_name = raw.get("fake_name", "Wan2.1-T2V-1.3B")
     seed = int(raw.get("seed", 0))
@@ -111,13 +117,14 @@ def resolve_score_models(raw: dict, dit_cfg, tcfg: TrainerConfig, device="cuda",
     if tgeom is None:
         raise KeyError(f"real_name {real_name!r} unknown; known: {list(WAN_MODEL_CONFIGS)}")
     teacher_cfg = dataclasses.replace(dit_cfg, **tgeom)
-    if teacher_cfg.dim != dit_cfg.dim or teacher_cfg.num_layers != dit_cfg.num_layers:
-        raise NotImplementedError(
-            f"real_name {real_name!r} is a larger teacher; it needs the host-streamed "
-            "teacher (teacher_stream), not ported yet: ROADMAP queue 1, item 12 "
-            "(single-chip training levers)")
+    big = teacher_cfg.dim != dit_cfg.dim or teacher_cfg.num_layers != dit_cfg.num_layers
+    if big and not tcfg.teacher_stream:
+        raise ValueError(
+            f"real_name {real_name!r} is a larger teacher (dim {teacher_cfg.dim}); set "
+            "teacher_stream: true (and staged_phases: true) so it streams from host memory")
     teacher = loading.load_base_dit(os.path.join("wan_models", real_name), teacher_cfg,
-                                    torch.float32, device, seed=seed + 1, strict=strict)
+                                    torch.float32, device, seed=seed + 1, strict=strict,
+                                    on_host=tcfg.teacher_stream)
     fgeom = WAN_MODEL_CONFIGS.get(fake_name)
     if fgeom is None:
         raise KeyError(f"fake_name {fake_name!r} unknown; known: {list(WAN_MODEL_CONFIGS)}")
@@ -159,7 +166,7 @@ def main(argv=None):
         sys.exit(f"error: {e}")
     if int(os.environ.get("WORLD_SIZE", "1")) > 1:
         raise NotImplementedError("multi-process training is not ported yet: "
-                                  "ROADMAP queue 1, item 14")
+                                  "ROADMAP queue 1, item 8")
     with open(args.config_path) as f:
         raw = yaml.safe_load(f)
     warn_unknown_keys(raw, source=args.config_path)

@@ -23,7 +23,7 @@ import torch
 
 from ..config import DiTConfig
 from ..models import dit as D
-from ..models.dit_bidirectional import bidirectional_forward
+from ..models.dit_bidirectional import bidirectional_forward, bidirectional_forward_streamed
 from ..ops import scheduler as S
 from ..ops.rope import RopeTables
 
@@ -85,6 +85,11 @@ def _x0_pred_bidirectional(params: dict, cfg: DiTConfig, tables: RopeTables,
     """Flow prediction -> x0 (one timestep per sample: t[:, 0])."""
     flow = bidirectional_forward(params, cfg, tables, noisy, t[:, 0], cross_kv,
                                  attn_impl="train_auto", remat_layers=remat_layers)
+    return _x0_from_flow(sched, flow, noisy, t)
+
+
+def _x0_from_flow(sched: S.FlowMatchSchedule, flow: torch.Tensor, noisy: torch.Tensor,
+                  t: torch.Tensor) -> torch.Tensor:
     b, f = noisy.shape[:2]
     return S.convert_flow_to_x0(
         sched, flow.reshape(b * f, *flow.shape[2:]),
@@ -98,21 +103,31 @@ def _param_dtype(params: dict) -> torch.dtype:
 def teacher_real_x0(teacher_params: dict, teacher_cfg: DiTConfig, tables: RopeTables,
                     sched: S.FlowMatchSchedule, dcfg: DMDConfig, gen_latents: torch.Tensor,
                     prompt_cond: torch.Tensor, prompt_uncond: torch.Tensor,
-                    score_t: torch.Tensor, score_noise: torch.Tensor) -> torch.Tensor:
+                    score_t: torch.Tensor, score_noise: torch.Tensor,
+                    streamed: bool = False) -> torch.Tensor:
     """The teacher's CFG-combined x0 prediction as a pass of its own, with
     no gradient: the same (noisy, t) the loss samples, cond and uncond
     batched in one forward.  Returns real_c + (real_c - real_u) * scale in
-    float32."""
+    float32.  ``streamed``: the teacher's blocks live in the host's memory
+    (``utils.memory.blocks_to_host``) and come over one layer at a time,
+    each deriving its cross K/V from the raw prompt features
+    (``bidirectional_forward_streamed``'s ``context`` form): the path of a
+    teacher larger than the card (Wan2.1-T2V-14B)."""
     with torch.no_grad():
         x = gen_latents.detach()
         b, f = x.shape[:2]
         noisy, t = _score_noisy(score_t, score_noise, dcfg, sched, x)
         noisy2, t2 = torch.cat([noisy, noisy]), torch.cat([t, t])
         prompts2 = torch.cat([prompt_cond, prompt_uncond])
-        ckv = D.prepare_cross_kv(teacher_params, teacher_cfg, prompts2,
-                                 _param_dtype(teacher_params))
-        x02 = _x0_pred_bidirectional(teacher_params, teacher_cfg, tables, sched, noisy2, t2,
-                                     ckv)
+        if streamed:
+            x02 = _x0_from_flow(sched, bidirectional_forward_streamed(
+                teacher_params, teacher_cfg, tables, noisy2, t2[:, 0], attn_impl="train_auto",
+                context=prompts2), noisy2, t2)
+        else:
+            ckv = D.prepare_cross_kv(teacher_params, teacher_cfg, prompts2,
+                                     _param_dtype(teacher_params))
+            x02 = _x0_pred_bidirectional(teacher_params, teacher_cfg, tables, sched, noisy2,
+                                         t2, ckv)
         real_c, real_u = x02[:b], x02[b:]
         return (real_c + (real_c - real_u) * dcfg.real_guidance_scale).float()
 

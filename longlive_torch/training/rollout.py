@@ -45,6 +45,11 @@ class RolloutConfig:
     # The training cache holds min(local + slice, num_training) frames but
     # attends local_attn_size of them.
     window_frames: Optional[int] = None
+    # store the rollout's K/V cache int8 (K and V, one float32 scale per
+    # token and head): a memory lever only, the cache is context without
+    # gradient.  Each block is quantized once, at its commit; the denoise
+    # forwards attend the fresh block unquantized.
+    cache_int8: bool = False
 
 
 def denoised_timestep_bounds(sched: S.FlowMatchSchedule, rcfg: RolloutConfig,
@@ -141,7 +146,8 @@ def rollout_trajectory(params: dict, cfg: DiTConfig, cache_cfg: CacheConfig,
     ``cotangent`` [B, F_total, C, H, W]: the gradient form (module
     docstring); the parameters (and ``cross_kv``, where it is a leaf that
     requires grad) gather d(sum(latents * cotangent)) in ``.grad``.  A new
-    cache is in ``cache_dtype`` (default: the parameters').
+    cache is in ``cache_dtype`` (default: the parameters'), or int8 with
+    ``rcfg.cache_int8``.
 
     ``cache`` and ``current_start_frame`` continue a sequence (streaming
     long tuning): the blocks start at absolute frame
@@ -160,7 +166,7 @@ def rollout_trajectory(params: dict, cfg: DiTConfig, cache_cfg: CacheConfig,
     if cache is None:
         cache = kvc.init_cache(cache_cfg, cfg.num_layers, b, cfg.num_heads, cfg.head_dim,
                                cache_dtype or params["patch_embedding"]["weight"].dtype,
-                               noise.device)
+                               noise.device, k_int8=rcfg.cache_int8, v_int8=rcfg.cache_int8)
     if initial_latent is not None:
         with torch.no_grad():
             _, cache = _forward(params, cfg, cache_cfg, tables, sched, rcfg, cross_kv,

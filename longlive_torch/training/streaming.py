@@ -138,7 +138,8 @@ class StreamingTrainer(ScoreDistillationTrainer):
             "prompt_switch": dev(prompt_switch), "switch_frame_index": switch_idx,
             "cache": kvc.init_cache(self.cache_cfg, self.cfg.num_layers, prompt_c.shape[0],
                                     self.cfg.num_heads, self.cfg.head_dim, self.cache_dtype,
-                                    self.device),
+                                    self.device, k_int8=self.rcfg.cache_int8,
+                                    v_int8=self.rcfg.cache_int8),
         }
 
     def can_generate_more(self) -> bool:
@@ -208,26 +209,25 @@ class StreamingTrainer(ScoreDistillationTrainer):
         with self._phase("gen_rollout"), torch.no_grad(), self._autocast():
             # the rollout commits into the cache in place; the replay
             # continues this copy from the chunk's start
-            start_cache = dataclasses.replace(s["cache"], k=s["cache"].k.clone(),
-                                              v=s["cache"].v.clone())
+            start_cache = kvc.clone_cache(s["cache"])
             cross = D.prepare_cross_kv(gen, self.cfg, prompt, self._param_dtype())
             new_chunk, s["cache"] = self._rollout(gen, noise, cross, renoise, exit_idx,
                                                   cache=s["cache"], start=cur)
+            del cross
         full, s["previous_frames"] = self._assemble(prev_overlap, new_chunk)
         gmask = None
         if overlap > 0:  # the overlap frames are context: no gradient
             gmask = (torch.arange(full.shape[1], device=self.device)[None] >= overlap
                      ).expand(full.shape[:2])
-        with self._phase("dmd_loss_grad"), self._autocast():
-            loss, aux, dlat = self._dmd_cotangent(full, prompt, s["prompt_u"], score_t,
-                                                  score_noise, gmask)
+        loss, aux, dlat = self._dmd_cotangent(full, prompt, s["prompt_u"], score_t, score_noise,
+                                              gmask)
         del full
         with self._phase("gen_block_backward"), self._autocast():
             self._replay_backward(gen, noise, prompt, renoise, exit_idx, dlat[:, overlap:],
                                   cache=start_cache, start=cur)
         del start_cache
-        with self._phase("gen_optimizer"):
-            gnorm = self._apply_update(self.gen_opt, self.gen_leaves)
+        with self._phase("opt_generator"):
+            gnorm = self._apply_update("gen")
         return loss, dict(aux, generator_grad_norm=gnorm)
 
     def _critic_chunk(self, prompt, noise, renoise, exit_idx, prev_overlap, score_t,
@@ -239,11 +239,12 @@ class StreamingTrainer(ScoreDistillationTrainer):
             new_chunk, s["cache"] = self._rollout(gen, noise, cross, renoise, exit_idx,
                                                   cache=s["cache"], start=s["current_length"])
         full, s["previous_frames"] = self._assemble(prev_overlap, new_chunk)
+        self._join_pending()  # after the rollout's launches, which read no critic
         with self._phase("critic_loss_grad"), self._autocast():
             loss, aux = self._critic_loss_backward(full, prompt, score_t, score_noise)
-        with self._phase("critic_optimizer"):
-            gnorm = self._apply_update(self.critic_opt, self.critic_leaves)
-        return loss, dict(aux, critic_grad_norm=gnorm)
+        with self._phase("opt_critic"):
+            gnorm = self._apply_update("critic")
+        return loss, dict(aux, **self._critic_norm(gnorm))
 
     def _one_streaming_fwdbwd(self, train_generator: bool, d: ChunkDraws) -> Dict[str, Any]:
         """Generates the sequence's next chunk with the persistent cache and
@@ -303,35 +304,35 @@ class StreamingTrainer(ScoreDistillationTrainer):
     # -- the step ------------------------------------------------------------------
 
     def sample_stream_draws(self, step: int) -> StreamStepDraws:
-        """The draws of step ``step``: one CPU generator seeded by (seed,
-        step), the generator's update (when it trains) drawing first."""
+        """The draws of micro-step ``step``: one CPU generator seeded by
+        (seed, step), the generator's update (when it trains) drawing
+        first."""
         g = torch.Generator().manual_seed((self.tcfg.seed << 32) + step)
-        train_gen = step % self.tcfg.dfake_gen_update_ratio == 0
-        return StreamStepDraws(generator=ChunkDraws(g) if train_gen else None,
+        return StreamStepDraws(generator=ChunkDraws(g) if self.trains_generator(step) else None,
                                critic=ChunkDraws(g))
 
     def streaming_train_step(self, draws: Optional[StreamStepDraws] = None,
                              new_sequence_cb: Optional[Callable[[], None]] = None
                              ) -> Dict[str, Any]:
-        """One step with the batch trainer's cadence: on every
-        ``dfake_gen_update_ratio``-th step the generator trains on the next
-        chunk, then (after ``new_sequence_cb`` when that exhausted the
-        sequence) the critic on the chunk after it.  The generator's chunk
-        state is in the metrics with a ``gen_`` prefix; ``switched`` and
-        ``new_frames`` cover both updates."""
+        """One micro-step with the batch trainer's cadence: on every
+        ``dfake_gen_update_ratio``-th optimiser step the generator trains on
+        the next chunk, then (after ``new_sequence_cb`` when that exhausted
+        the sequence) the critic on the chunk after it.  The generator's
+        chunk state is in the metrics with a ``gen_`` prefix; ``switched``
+        and ``new_frames`` cover both updates."""
         step = int(self.state["step"])
-        train_generator = step % self.tcfg.dfake_gen_update_ratio == 0
+        train_generator = self.trains_generator(step)
         if draws is None:
             draws = self.sample_stream_draws(step)
         if train_generator != (draws.generator is not None):
             raise ValueError(f"step {step} {'trains' if train_generator else 'skips'} the "
                              "generator; the draws say otherwise")
         self.phase_ms = {}
-        metrics: Dict[str, Any] = {"step": step, "opt_step": step}
+        metrics: Dict[str, Any] = {"step": step, "opt_step": self._opt_step(step)}
         gen_m: Dict[str, Any] = {}
         if train_generator:
             gen_m = self._one_streaming_fwdbwd(True, draws.generator)
-            self._update_ema(step)
+            self._after_generator_update(step)
             if not self.can_generate_more():
                 if new_sequence_cb is None:
                     raise RuntimeError("sequence exhausted mid-step; pass new_sequence_cb")
@@ -343,7 +344,5 @@ class StreamingTrainer(ScoreDistillationTrainer):
         metrics.update(crit_m)
         metrics["switched"] = bool(gen_m.get("switched", False)) or bool(crit_m["switched"])
         metrics["new_frames"] = gen_m.get("new_frames", 0) + crit_m["new_frames"]
-        if self.tcfg.phase_ledger:
-            metrics["phase_ms"] = dict(self.phase_ms)
-        self.state["step"] = step + 1
+        self._close_step(metrics, step)
         return metrics

@@ -36,6 +36,29 @@ are what AdamW, the gradient clip and the EMA see; with
 in full.  The models run with their adapters attached (``_gen_full``,
 ``_critic_full``), so no merged copy of either exists.
 
+The single-card memory levers (all exact: the same results, other
+residency):
+
+- ``staged_phases``: the teacher, and under the critic's LoRA its frozen
+  base, live in pinned host memory and come to the card for the phase that
+  reads them;
+- ``teacher_stream`` (needs ``staged_phases``): the teacher's blocks stay
+  on the host and stream one layer at a time through its x0 pass
+  (``teacher_x0_streamed``): a teacher larger than the card (14B);
+- ``page_generator`` (needs ``staged_phases``): the generator's trees go to
+  pinned host memory while the teacher and critic run (each leaf's
+  ``.data`` swapped, so the optimiser's references hold);
+- ``cache_int8``: the rollout's K/V cache int8 (``RolloutConfig``);
+- ``opt_on_host``: AdamW on the host (``host_adamw_step``: pinned float32
+  master, m and v; the card holds the trained parameters only);
+  ``opt_async`` runs the critic's host update on a worker thread, landed
+  before the critic's next read, so its grad norm is reported one step
+  late;
+- ``gradient_accumulation_steps`` = k: ``optax.MultiSteps``' semantics, the
+  running mean of k micro-steps' gradients, one clip and AdamW update on
+  the k-th; the generator trains on optimiser steps ``micro // k`` that are
+  multiples of ``dfake_gen_update_ratio``.
+
 Random draws: ``train_step`` takes a ``StepDraws`` (the tests replay the
 JAX package's draws through it) or, by default, draws one from a
 ``torch.Generator`` seeded by (seed, step) on the CPU, so a step's draws do
@@ -46,6 +69,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import threading
 import time
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -54,12 +78,13 @@ import torch
 from ..config import CacheConfig, DiTConfig, LatentGeometry
 from ..models import dit as D
 from ..ops import scheduler as S
+from ..ops.quant import _div
 from ..ops.rope import make_rope_tables
+from ..utils import memory as mem
+from ..utils.memory import map_tree, param_leaves
 from . import dmd as dmd_mod
 from . import lora as lora_mod
 from . import rollout as ro
-
-_LEVERS = "ROADMAP queue 1, item 12 (single-chip training levers)"
 
 
 @dataclasses.dataclass
@@ -100,16 +125,16 @@ class TrainerConfig:
     lora_alpha: float = 256.0
     lora_apply_to_critic: bool = True
     lora_dtype: str = "bfloat16"
-    # single-chip levers of the JAX package, not ported (raise)
+    # the single-card levers (module docstring)
     opt_on_host: bool = False
-    opt_async: bool = False
+    opt_async: bool = False  # needs opt_on_host
     cache_int8: bool = False
-    teacher_stream: bool = False
-    page_generator: bool = False
-    gradient_accumulation_steps: int = 1
-    # the staged per-block generator step is the only form here; the two
-    # keys are accepted and change nothing
+    teacher_stream: bool = False  # needs staged_phases
+    page_generator: bool = False  # needs staged_phases
+    gradient_accumulation_steps: int = 1  # not with opt_on_host
     staged_phases: bool = False
+    # the per-block generator replay is the only form here: accepted, and
+    # like the JAX package's it needs staged_phases
     block_vjp: bool = False
     # synchronise the device around each phase and report ``phase_ms``
     phase_ledger: bool = False
@@ -132,38 +157,125 @@ class StepDraws:
     critic: PhaseDraws
 
 
-def param_leaves(tree: Any) -> List[torch.Tensor]:
-    """The tensors of a parameter tree, in a fixed order."""
-    if isinstance(tree, dict):
-        return [t for k in tree for t in param_leaves(tree[k])]
-    if isinstance(tree, (list, tuple)):
-        return [t for v in tree for t in param_leaves(v)]
-    return [] if tree is None else [tree]
+# -- host AdamW (opt_on_host) -------------------------------------------------
 
 
-def map_tree(fn, tree):
-    """``fn`` applied to every tensor of a parameter tree, same structure."""
-    if isinstance(tree, dict):
-        return {k: map_tree(fn, v) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [map_tree(fn, v) for v in tree]
-    return None if tree is None else fn(tree)
+def host_adamw_init(trained: List[torch.Tensor]) -> Dict[str, Any]:
+    """The host AdamW state of the trained tensors: pinned float32 master
+    copies and zero moments m and v (lists in the tensors' order), and the
+    update count ``t``."""
+    arena = mem.HostArena()
+
+    def zeros(p):
+        return arena.empty(p.shape, torch.float32).zero_()
+
+    return {"m": [zeros(p) for p in trained], "v": [zeros(p) for p in trained],
+            "master": [arena.empty(p.shape, torch.float32).copy_(p.detach()) for p in trained],
+            "t": 0}
+
+
+def host_adamw_step(st: Dict[str, Any], grads: List[torch.Tensor], *, lr: float, b1: float,
+                    b2: float, eps: float = 1e-8, weight_decay: float = 0.0,
+                    clip: float = 0.0) -> float:
+    """One AdamW update of the host state ``st`` in place from host
+    gradients, after a clip of their global norm to ``clip`` (0: none);
+    returns the norm (before the clip).  The JAX package's numpy update, op
+    for op, in in-place float32 torch ops on the host (which spread over
+    its cores): the norm in float64, eps outside the square root, the
+    decay decoupled, the bias corrections in Python floats."""
+    g32 = [g.float() for g in grads]
+    gn = float(sum(float(g.double().square().sum()) for g in g32) ** 0.5)
+    scale = 1.0 if (clip <= 0.0 or gn <= clip) else clip / gn
+    st["t"] += 1
+    t = st["t"]
+    bc1, bc2 = 1.0 - b1 ** t, 1.0 - b2 ** t
+    for g, m, v, p in zip(g32, st["m"], st["v"], st["master"]):
+        if scale != 1.0:
+            g = g * scale
+        m.mul_(b1).add_(g * (1.0 - b1))
+        v.mul_(b2).add_(g.square().mul_(1.0 - b2))
+        upd = (m / bc1).div_((v / bc2).sqrt_().add_(eps))
+        if weight_decay:
+            upd.add_(p * weight_decay)
+        p.sub_(upd.mul_(lr))
+    return gn
+
+
+def _grads_to_host(leaves: List[torch.Tensor]):
+    """(pinned host copies of the leaves' gradients, an event after the
+    copies or None off the card).  The copies are enqueued without a host
+    wait."""
+    arena = mem.HostArena()
+    host = [arena.empty(p.grad.shape, p.grad.dtype).copy_(p.grad, non_blocking=True)
+            for p in leaves]
+    if leaves[0].device.type != "cuda":
+        return host, None
+    ready = torch.cuda.Event()
+    ready.record()
+    return host, ready
+
+
+def _host_update(st: Dict[str, Any], leaves: List[torch.Tensor], host_grads, ready,
+                 kwargs: dict, stream=None) -> float:
+    """``host_adamw_step`` once the gradients are on the host, then the new
+    master copied into the leaves (on ``stream``, waited for, when given)."""
+    if ready is not None:
+        ready.synchronize()
+    gn = host_adamw_step(st, host_grads, **kwargs)
+    with torch.no_grad(), (torch.cuda.stream(stream) if stream is not None
+                           else contextlib.nullcontext()):
+        for p, m in zip(leaves, st["master"]):
+            p.copy_(m, non_blocking=stream is not None)
+    if stream is not None:
+        stream.synchronize()
+    return gn
+
+
+class _AsyncHostUpdate:
+    """One host AdamW update on a worker thread (``opt_async``): the
+    gradients' copies to the host are enqueued on the caller's thread; the
+    worker waits for them, runs ``host_adamw_step`` and copies the new
+    parameters to the card on a stream of its own, waited for before it
+    ends.  ``join`` returns the grad norm and re-raises the worker's error.
+    Nothing reads the parameters until the join."""
+
+    def __init__(self, st: Dict[str, Any], leaves: List[torch.Tensor], kwargs: dict):
+        host, ready = _grads_to_host(leaves)
+        stream = torch.cuda.Stream(leaves[0].device) if ready is not None else None
+        self._box: Dict[str, Any] = {}
+
+        def run():
+            try:
+                self._box["norm"] = _host_update(st, leaves, host, ready, kwargs, stream)
+            except BaseException as e:  # noqa: BLE001 — re-raised by join
+                self._box["err"] = e
+
+        self._thread = threading.Thread(target=run, daemon=True)
+        self._thread.start()
+
+    def join(self) -> float:
+        self._thread.join()
+        if "err" in self._box:
+            raise self._box["err"]
+        return self._box["norm"]
 
 
 class ScoreDistillationTrainer:
     def __init__(self, tcfg: TrainerConfig, dit_cfg: DiTConfig, geometry: LatentGeometry,
                  gen_params: dict, critic_params: dict, teacher_params: dict,
                  teacher_cfg: Optional[DiTConfig] = None, device=None):
-        for name, why in (("opt_on_host", _LEVERS), ("opt_async", _LEVERS),
-                          ("teacher_stream", _LEVERS), ("page_generator", _LEVERS),
-                          ("cache_int8", _LEVERS)):
-            if getattr(tcfg, name):
-                raise NotImplementedError(f"{name} is not ported yet: {why}")
-        if tcfg.gradient_accumulation_steps > 1:
-            raise NotImplementedError(f"gradient accumulation is not ported yet: {_LEVERS}")
         if tcfg.attn_impl != "train_auto":
             raise ValueError(f"attn_impl {tcfg.attn_impl!r}: the port's training attention is "
                              "the train_auto route only")
+        if tcfg.opt_on_host and tcfg.gradient_accumulation_steps > 1:
+            raise NotImplementedError("opt_on_host does not compose with gradient accumulation "
+                                      "(the JAX package's optax.MultiSteps); accumulate by "
+                                      "batching instead")
+        if tcfg.opt_async and not tcfg.opt_on_host:
+            raise ValueError("opt_async requires opt_on_host")
+        for name in ("teacher_stream", "page_generator", "block_vjp"):
+            if getattr(tcfg, name) and not tcfg.staged_phases:
+                raise ValueError(f"{name} requires staged_phases")
         self.tcfg, self.cfg, self.geom = tcfg, dit_cfg, geometry
         self.teacher_cfg = teacher_cfg or dit_cfg
         self.device = torch.device(device) if device is not None else (
@@ -177,7 +289,8 @@ class ScoreDistillationTrainer:
         self.rcfg = ro.RolloutConfig(denoise_timesteps=tuple(float(x) for x in steps),
                                      context_noise=tcfg.context_noise,
                                      frame_block=tcfg.num_frame_per_block,
-                                     last_step_only=tcfg.last_step_only, window_frames=window)
+                                     last_step_only=tcfg.last_step_only, window_frames=window,
+                                     cache_int8=tcfg.cache_int8)
         self.dcfg = dmd_mod.DMDConfig(num_train_timestep=tcfg.num_train_timestep,
                                       timestep_shift=tcfg.timestep_shift,
                                       real_guidance_scale=tcfg.guidance_scale,
@@ -198,7 +311,6 @@ class ScoreDistillationTrainer:
         self.cache_dtype = (torch.bfloat16 if self.device.type == "cuda"
                             else gen_params["patch_embedding"]["weight"].dtype)
 
-        self.teacher_params = teacher_params
         self.use_lora = tcfg.lora_rank > 0
         self.critic_lora_on = self.use_lora and tcfg.lora_apply_to_critic
         self.lora_scale = tcfg.lora_alpha / tcfg.lora_rank if self.use_lora else 1.0
@@ -220,20 +332,48 @@ class ScoreDistillationTrainer:
             t.requires_grad_(False)
         self.gen_leaves = [t.requires_grad_(True) for t in param_leaves(gen_trained)]
         self.critic_leaves = [t.requires_grad_(True) for t in param_leaves(critic_trained)]
-        # eps outside the square root and decoupled decay, as optax.adamw
-        self.gen_opt = torch.optim.AdamW(self.gen_leaves, lr=tcfg.lr,
-                                         betas=(tcfg.beta1, tcfg.beta2), eps=1e-8,
-                                         weight_decay=tcfg.weight_decay)
-        self.critic_opt = torch.optim.AdamW(self.critic_leaves, lr=tcfg.lr_critic,
-                                            betas=(tcfg.beta1_critic, tcfg.beta2_critic),
-                                            eps=1e-8, weight_decay=tcfg.weight_decay)
+        if tcfg.opt_on_host:
+            gen_opt, critic_opt = (host_adamw_init(self.gen_leaves),
+                                   host_adamw_init(self.critic_leaves))
+        else:
+            # eps outside the square root and decoupled decay, as optax.adamw
+            gen_opt = torch.optim.AdamW(self.gen_leaves, lr=tcfg.lr,
+                                        betas=(tcfg.beta1, tcfg.beta2), eps=1e-8,
+                                        weight_decay=tcfg.weight_decay)
+            critic_opt = torch.optim.AdamW(self.critic_leaves, lr=tcfg.lr_critic,
+                                           betas=(tcfg.beta1_critic, tcfg.beta2_critic),
+                                           eps=1e-8, weight_decay=tcfg.weight_decay)
+        if tcfg.staged_phases:
+            # the frozen trees leave the card: the teacher (whole, or with
+            # teacher_stream its blocks), and the critic's base under LoRA
+            teacher_params = (mem.blocks_to_host(teacher_params, self.device)
+                              if tcfg.teacher_stream else mem.offload_to_host(teacher_params))
+            if self.critic_lora_on:
+                critic_params = mem.offload_to_host(critic_params)
+        self.teacher_params = teacher_params
         self.state: Dict[str, Any] = {
             "gen_params": gen_params, "critic_params": critic_params,
             "gen_lora": gen_lora, "critic_lora": critic_lora,
-            "gen_opt": self.gen_opt, "critic_opt": self.critic_opt,
+            "gen_opt": gen_opt, "critic_opt": critic_opt,
             # the EMA follows the trained tree: the adapters under LoRA
             "ema_params": map_tree(self._host_copy, gen_trained), "step": 0}
+        # gradient accumulation: the running mean of the micro-steps'
+        # gradients and the micro-steps gathered, per model
+        self._accum: Dict[str, list] = {}
+        self._pending: Optional[_AsyncHostUpdate] = None  # the critic's (opt_async)
+        self._late_norm: Optional[float] = None  # its grad norm, landed, not yet reported
         self.phase_ms: Dict[str, float] = {}
+        self.page_bytes: Dict[str, int] = {}
+
+    @property
+    def gen_opt(self):
+        """The generator's optimiser state: a ``torch.optim.AdamW``, or the
+        host AdamW's (``host_adamw_init``) under ``opt_on_host``."""
+        return self.state["gen_opt"]
+
+    @property
+    def critic_opt(self):
+        return self.state["critic_opt"]
 
     # -- helpers -------------------------------------------------------------
 
@@ -271,10 +411,15 @@ class ScoreDistillationTrainer:
         return self.state["gen_params"]
 
     def _critic_full(self) -> dict:
-        if self.critic_lora_on:
-            return lora_mod.attach_lora(self.state["critic_params"], self.state["critic_lora"],
-                                        self.lora_scale)
-        return self.state["critic_params"]
+        """The critic as it runs, on the card: its adapters attached under
+        LoRA, over its base fetched from the host under ``staged_phases``
+        (the copy lives as long as the returned tree)."""
+        if not self.critic_lora_on:
+            return self.state["critic_params"]
+        base = self.state["critic_params"]
+        if self.tcfg.staged_phases:
+            base = mem.fetch_from_host(base, self.device)
+        return lora_mod.attach_lora(base, self.state["critic_lora"], self.lora_scale)
 
     def _rollout(self, gen: dict, noise, cross, renoise: torch.Tensor, exit_idx: int,
                  cotangent=None, cache=None, start: int = 0):
@@ -285,19 +430,96 @@ class ScoreDistillationTrainer:
             renoise.to(self.device), exit_idx, cotangent=cotangent,
             cache_dtype=self.cache_dtype, cache=cache, current_start_frame=start)
 
-    def _apply_update(self, opt: torch.optim.Optimizer, leaves: List[torch.Tensor]) -> float:
-        """clip_by_global_norm then AdamW; returns the pre-clip global norm.
-        A parameter without gradient gets zeros, as in the JAX update (its
-        moments decay and the weight decay still applies)."""
+    # -- the optimiser updates -----------------------------------------------
+
+    def _apply_update(self, which: str) -> Optional[float]:
+        """Clip of the global gradient norm, then AdamW, for the generator's
+        (``"gen"``) or the critic's trained tensors, from their ``.grad``;
+        the gradients are cleared.  A tensor without gradient gets zeros, as
+        in the JAX update (its moments decay and the weight decay still
+        applies).  Returns this micro-step's gradient norm (before the
+        clip), or None where the update runs in the background
+        (``opt_async``, the critic's: ``_join_pending`` lands it).
+
+        With ``gradient_accumulation_steps`` = k the gradient joins the
+        running mean of the micro-steps (optax.MultiSteps: acc + (g - acc)
+        / (n + 1)); the k-th clips and applies the mean and starts over."""
+        tc = self.tcfg
+        leaves = self.gen_leaves if which == "gen" else self.critic_leaves
         for p in leaves:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
-        norm = torch.nn.utils.clip_grad_norm_(leaves, self.tcfg.grad_clip_norm)
-        opt.step()
+        opt = self.state[which + "_opt"]
+        if tc.opt_on_host:
+            gen = which == "gen"
+            kwargs = dict(lr=tc.lr if gen else tc.lr_critic, b1=tc.beta1 if gen else tc.beta1_critic,
+                          b2=tc.beta2 if gen else tc.beta2_critic,
+                          weight_decay=tc.weight_decay, clip=tc.grad_clip_norm)
+            if tc.opt_async and not gen:
+                if self._pending is not None:
+                    raise RuntimeError("one background critic update at a time")
+                self._pending = _AsyncHostUpdate(opt, leaves, kwargs)
+                norm = None
+            else:
+                norm = _host_update(opt, leaves, *_grads_to_host(leaves), kwargs)
+            for p in leaves:
+                p.grad = None
+            return norm
+        k = tc.gradient_accumulation_steps
+        if k == 1:
+            norm = torch.nn.utils.clip_grad_norm_(leaves, tc.grad_clip_norm)
+            opt.step()
+            opt.zero_grad(set_to_none=True)
+            return float(norm)
+        norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(p.grad)
+                                                     for p in leaves]))
+        acc = self._accum.setdefault(which, [[torch.zeros_like(p) for p in leaves], 0])
+        for a, p in zip(acc[0], leaves):
+            a.add_(_div(p.grad - a, acc[1] + 1))
+        acc[1] += 1
+        if acc[1] == k:
+            for a, p in zip(acc[0], leaves):
+                p.grad = a  # the clip scales it in place; zeroed below
+            torch.nn.utils.clip_grad_norm_(leaves, tc.grad_clip_norm)
+            opt.step()
+            for a in acc[0]:
+                a.zero_()
+            acc[1] = 0
         opt.zero_grad(set_to_none=True)
         return float(norm)
 
+    def _join_pending(self) -> None:
+        """Lands the critic's background update (``opt_async``) and keeps
+        its grad norm for the next metrics; a no-op when none runs.  Every
+        read of the critic's parameters comes after it."""
+        if self._pending is None:
+            return
+        fut, self._pending = self._pending, None
+        self._late_norm = fut.join()
+
+    def _critic_norm(self, norm: Optional[float]) -> Dict[str, float]:
+        """The critic's grad norm for this step's metrics: this update's, or
+        under ``opt_async`` the last landed one (none on the first step)."""
+        if norm is None:
+            norm, self._late_norm = self._late_norm, None
+        return {} if norm is None else {"critic_grad_norm": norm}
+
+    def finish_pending(self) -> Dict[str, float]:
+        """Lands any background update (before reading ``state`` directly:
+        a checkpoint, the end of training) and returns the grad norm that
+        landed but no step's metrics reported yet."""
+        self._join_pending()
+        return self._critic_norm(None)
+
     # -- draws ---------------------------------------------------------------
+
+    def _opt_step(self, micro: int) -> int:
+        return micro // max(1, self.tcfg.gradient_accumulation_steps)
+
+    def trains_generator(self, micro: int) -> bool:
+        """Whether micro-step ``micro`` trains the generator: its optimiser
+        step is a multiple of ``dfake_gen_update_ratio``."""
+        return self._opt_step(micro) % self.tcfg.dfake_gen_update_ratio == 0
 
     def _block_range(self, frames: int) -> Tuple[int, int]:
         """(min, max) rollout length in blocks for ``frames`` frames of noise."""
@@ -328,27 +550,78 @@ class ScoreDistillationTrainer:
             score_noise=torch.randn((b, nb * fpb) + rest, generator=g))
 
     def sample_draws(self, noise_shape, step: int) -> StepDraws:
-        """The draws of step ``step``, from a CPU generator seeded by (seed,
-        step)."""
+        """The draws of micro-step ``step``, from a CPU generator seeded by
+        (seed, step)."""
         g = torch.Generator().manual_seed((self.tcfg.seed << 32) + step)
-        train_gen = step % self.tcfg.dfake_gen_update_ratio == 0
-        gen = self._phase_draws(g, noise_shape) if train_gen else None
+        gen = self._phase_draws(g, noise_shape) if self.trains_generator(step) else None
         return StepDraws(generator=gen, critic=self._phase_draws(g, noise_shape))
 
     # -- the two updates -----------------------------------------------------
 
+    @contextlib.contextmanager
+    def _generator_paged_out(self):
+        """``page_generator``: the generator's trees (its base and adapters)
+        in pinned host memory for the enclosed phases, each leaf's ``.data``
+        swapped for its host copy and back, so every reference (the
+        optimiser's too) follows.  ``page_bytes`` records the tree's bytes
+        and the device bytes the swap freed (as requested of the caching
+        allocator, whose blocks may be larger)."""
+        if not self.tcfg.page_generator:
+            yield
+            return
+        leaves = param_leaves(self.state["gen_params"]) + param_leaves(self.state["gen_lora"])
+        on_card = self.device.type == "cuda"
+
+        def requested():
+            return (torch.cuda.memory_stats(self.device)["requested_bytes.all.current"]
+                    if on_card else 0)
+
+        with self._phase("gen_page_out"):
+            before = requested()
+            host = mem.offload_to_host([p.data for p in leaves])
+            for p, h in zip(leaves, host):
+                p.data = h
+            freed = before - requested()
+        self.page_bytes = {"gen_page_bytes": mem.hbm_bytes(host), "gen_page_freed_bytes": freed}
+        try:
+            yield
+        finally:
+            with self._phase("gen_page_in"):
+                for p, h in zip(leaves, host):
+                    p.data = h.to(self.device, non_blocking=True)
+
     def _dmd_cotangent(self, latents, prompt_c, prompt_u, score_t, score_noise, gmask):
         """(loss, aux, dL/dlatents) of the DMD loss, the critic and the
-        teacher run without gradient."""
-        real_x0 = dmd_mod.teacher_real_x0(
-            self.teacher_params, self.teacher_cfg, self.tables, self.sched, self.dcfg,
-            latents, prompt_c, prompt_u, score_t, score_noise)
-        lat = latents.detach().requires_grad_()
-        loss, aux = dmd_mod.distribution_matching_loss(
-            lat, self._critic_full(), None, self.cfg, self.tables, self.sched, self.dcfg,
-            prompt_c, prompt_u, score_t, score_noise, gradient_mask=gmask,
-            teacher_cfg=self.teacher_cfg, real_x0=real_x0)
-        (dlat,) = torch.autograd.grad(loss, lat)
+        teacher run without gradient: the teacher resident, fetched from
+        the host (``staged_phases``) or streamed per layer
+        (``teacher_stream``); the generator paged out meanwhile
+        (``page_generator``); the critic's background update landed
+        first."""
+        tc = self.tcfg
+        with self._generator_paged_out():
+            teacher = self.teacher_params
+            real_x0 = None
+            if tc.teacher_stream:
+                with self._phase("teacher_x0_streamed"), self._autocast():
+                    real_x0 = dmd_mod.teacher_real_x0(
+                        teacher, self.teacher_cfg, self.tables, self.sched, self.dcfg, latents,
+                        prompt_c, prompt_u, score_t, score_noise, streamed=True)
+            elif tc.staged_phases:
+                with self._phase("teacher_fetch"):
+                    teacher = mem.fetch_from_host(teacher, self.device)
+            self._join_pending()
+            with self._phase("dmd_loss_grad"), self._autocast():
+                if real_x0 is None:
+                    real_x0 = dmd_mod.teacher_real_x0(
+                        teacher, self.teacher_cfg, self.tables, self.sched, self.dcfg, latents,
+                        prompt_c, prompt_u, score_t, score_noise)
+                del teacher
+                lat = latents.detach().requires_grad_()
+                loss, aux = dmd_mod.distribution_matching_loss(
+                    lat, self._critic_full(), None, self.cfg, self.tables, self.sched,
+                    self.dcfg, prompt_c, prompt_u, score_t, score_noise, gradient_mask=gmask,
+                    teacher_cfg=self.teacher_cfg, real_x0=real_x0)
+                (dlat,) = torch.autograd.grad(loss, lat)
         return loss, aux, dlat
 
     def _replay_backward(self, gen: dict, noise, prompt_c, renoise, exit_idx, dlat,
@@ -372,18 +645,18 @@ class ScoreDistillationTrainer:
         with self._phase("gen_rollout"), torch.no_grad(), self._autocast():
             cross = D.prepare_cross_kv(gen, self.cfg, prompt_c, dtype)
             latents = self._rollout(gen, noise, cross, d.renoise, d.exit_idx)[0]
+            del cross
         gmask = None
         if use_mask:  # the DMD loss skips the first block of a shortened rollout
             gmask = (torch.arange(latents.shape[1], device=self.device)[None] >= fpb
                      ).expand(latents.shape[:2])
-        with self._phase("dmd_loss_grad"), self._autocast():
-            loss, aux, dlat = self._dmd_cotangent(latents, prompt_c, prompt_u, d.score_t,
-                                                  d.score_noise, gmask)
+        loss, aux, dlat = self._dmd_cotangent(latents, prompt_c, prompt_u, d.score_t,
+                                              d.score_noise, gmask)
         del latents
         with self._phase("gen_block_backward"), self._autocast():
             self._replay_backward(gen, noise, prompt_c, d.renoise, d.exit_idx, dlat)
-        with self._phase("gen_optimizer"):
-            gnorm = self._apply_update(self.gen_opt, self.gen_leaves)
+        with self._phase("opt_generator"):
+            gnorm = self._apply_update("gen")
         return loss, dict(aux, generator_grad_norm=gnorm)
 
     def _critic_loss_backward(self, latents, prompt_c, score_t, score_noise):
@@ -399,22 +672,26 @@ class ScoreDistillationTrainer:
         with self._phase("critic_rollout"), torch.no_grad(), self._autocast():
             cross = D.prepare_cross_kv(gen, self.cfg, prompt_c, dtype)
             latents = self._rollout(gen, noise, cross, d.renoise, d.exit_idx)[0]
+        self._join_pending()  # after the rollout's launches, which read no critic
         with self._phase("critic_loss_grad"), self._autocast():
             loss, aux = self._critic_loss_backward(latents, prompt_c, d.score_t, d.score_noise)
-        with self._phase("critic_optimizer"):
-            gnorm = self._apply_update(self.critic_opt, self.critic_leaves)
-        return loss, dict(aux, critic_grad_norm=gnorm)
+        with self._phase("opt_critic"):
+            gnorm = self._apply_update("critic")
+        return loss, dict(aux, **self._critic_norm(gnorm))
 
     # -- public API ----------------------------------------------------------
 
     def train_step(self, noise: torch.Tensor, prompt_c: torch.Tensor, prompt_u: torch.Tensor,
                    draws: Optional[StepDraws] = None) -> Dict[str, Any]:
-        """One step with the reference cadence: the critic trains on every
-        step; the generator in addition on every ``dfake_gen_update_ratio``-th
-        optimiser step (before the critic, on its own rollout).  noise:
-        [B, F, C, H, W]; prompt embeddings [B, text_len, text_dim]."""
+        """One micro-step with the reference cadence: the critic trains on
+        every step; the generator in addition on every
+        ``dfake_gen_update_ratio``-th optimiser step (before the critic, on
+        its own rollout).  With ``gradient_accumulation_steps`` = k the
+        updates apply on every k-th micro-step.  noise: [B, F, C, H, W];
+        prompt embeddings [B, text_len, text_dim]."""
         step = int(self.state["step"])
-        train_generator = step % self.tcfg.dfake_gen_update_ratio == 0
+        opt_step = self._opt_step(step)
+        train_generator = self.trains_generator(step)
         if draws is None:
             draws = self.sample_draws(noise.shape, step)
         if train_generator != (draws.generator is not None):
@@ -423,7 +700,7 @@ class ScoreDistillationTrainer:
         noise, prompt_c, prompt_u = (x.to(self.device, torch.float32)
                                      for x in (noise, prompt_c, prompt_u))
         self.phase_ms = {}
-        metrics: Dict[str, Any] = {"step": step, "opt_step": step}
+        metrics: Dict[str, Any] = {"step": step, "opt_step": opt_step}
         fpb = self.rcfg.frame_block
         if train_generator:
             d = draws.generator
@@ -431,44 +708,59 @@ class ScoreDistillationTrainer:
             metrics.update({"generator_loss": loss.item(), "exit_idx": d.exit_idx,
                             "rollout_frames": d.num_blocks * fpb,
                             **{k: float(v) for k, v in aux.items()}})
-            self._update_ema(step)
+            self._after_generator_update(step)
         d = draws.critic
         loss, aux = self._critic_step(noise, prompt_c, d)
         metrics.update({"critic_loss": loss.item(), "critic_exit_idx": d.exit_idx,
                         **{k: float(v) for k, v in aux.items()}})
-        if self.tcfg.phase_ledger:
-            metrics["phase_ms"] = dict(self.phase_ms)
-        self.state["step"] = step + 1
+        self._close_step(metrics, step)
         return metrics
 
+    def _after_generator_update(self, step: int) -> None:
+        """The EMA after the generator's update of micro-step ``step``, on
+        the last micro-step of its optimiser step."""
+        if (step + 1) % max(1, self.tcfg.gradient_accumulation_steps) == 0:
+            self._update_ema(self._opt_step(step))
+
+    def _close_step(self, metrics: Dict[str, Any], step: int) -> None:
+        if self.tcfg.phase_ledger:
+            metrics["phase_ms"] = dict(self.phase_ms)
+            metrics.update(self.page_bytes)
+        self.page_bytes = {}
+        self.state["step"] = step + 1
+
     def _update_ema(self, step: int):
+        """Before ``ema_start_step`` the EMA is the trained tree, copied
+        into the EMA's own tensors (a new copy would hold two EMAs in host
+        memory at once); after it, the running average."""
         gen = self.state["gen_lora" if self.use_lora else "gen_params"]
-        if step < self.tcfg.ema_start_step:
-            self.state["ema_params"] = map_tree(self._host_copy, gen)
-            return
         w = self.tcfg.ema_weight
         for e, p in zip(param_leaves(self.state["ema_params"]), param_leaves(gen)):
-            e.mul_(w).add_(self._host_copy(p), alpha=1 - w)
-
-    def finish_pending(self) -> Dict[str, float]:
-        """Nothing runs in the background here (no ``opt_async``); kept for
-        the training loop's protocol.  Returns no late metrics."""
-        return {}
+            if step < self.tcfg.ema_start_step:
+                e.copy_(p.detach())
+            else:
+                e.mul_(w).add_(self._host_copy(p), alpha=1 - w)
 
     _TREES = ("gen_params", "critic_params", "gen_lora", "critic_lora")
 
     def state_dict(self) -> Dict[str, Any]:
         """What a checkpoint holds: parameters and adapters (None where
-        LoRA is off), optimiser states (over the trained trees), EMA, step."""
+        LoRA is off), optimiser states (over the trained trees: torch
+        AdamW's, or the host AdamW's tensors), the accumulated gradients
+        mid-way through an optimiser step, EMA, step.  A background update
+        lands first."""
+        self._join_pending()
         detach = lambda t: t.detach()  # noqa: E731
-        return {**{key: map_tree(detach, self.state[key]) for key in self._TREES},
-                "gen_opt": self.gen_opt.state_dict(),
-                "critic_opt": self.critic_opt.state_dict(),
+        opts = {key: (self.state[key] if self.tcfg.opt_on_host else self.state[key].state_dict())
+                for key in ("gen_opt", "critic_opt")}
+        return {**{key: map_tree(detach, self.state[key]) for key in self._TREES}, **opts,
+                "accum": {w: [list(a[0]), a[1]] for w, a in self._accum.items()},
                 "ema_params": self.state["ema_params"], "step": int(self.state["step"])}
 
     def load_state_dict(self, sd: Dict[str, Any]) -> None:
         """Restores a ``state_dict`` in place (the optimisers keep their
         parameter references)."""
+        self._join_pending()
         with torch.no_grad():
             for key in self._TREES:
                 leaves, src = param_leaves(self.state[key]), param_leaves(sd.get(key))
@@ -477,7 +769,18 @@ class ScoreDistillationTrainer:
                                      f"{len(leaves)} in the model")
                 for dst, s in zip(leaves, src):
                     dst.copy_(s)
-        self.gen_opt.load_state_dict(sd["gen_opt"])
-        self.critic_opt.load_state_dict(sd["critic_opt"])
-        self.state["ema_params"] = sd["ema_params"]
+            for key in ("gen_opt", "critic_opt"):
+                if self.tcfg.opt_on_host:
+                    st, src = self.state[key], sd[key]
+                    for name in ("m", "v", "master"):
+                        for dst, s in zip(st[name], src[name]):
+                            dst.copy_(s)
+                    st["t"] = int(src["t"])
+                else:
+                    self.state[key].load_state_dict(sd[key])
+            self._accum = {w: [[a.to(self.device) for a in acc], int(n)]
+                           for w, (acc, n) in (sd.get("accum") or {}).items()}
+            for dst, s in zip(param_leaves(self.state["ema_params"]),
+                              param_leaves(sd["ema_params"])):
+                dst.copy_(s)
         self.state["step"] = int(sd["step"])

@@ -25,6 +25,7 @@ from ..models import dit as D
 from ..models import t5 as T5
 from ..models import vae as V
 from . import checkpoint as ckpt
+from . import memory as mem
 
 
 def _warn(msg: str):
@@ -87,24 +88,45 @@ def _load_safetensors_dir(model_dir: str) -> Optional[dict]:
 
 
 def load_base_dit(model_dir: str, cfg: DiTConfig, dtype=torch.float32, device="cuda",
-                  seed: int = 0, strict: bool = False) -> dict:
+                  seed: int = 0, strict: bool = False, on_host: bool = False) -> dict:
     """Base Wan DiT weights (teacher / critic) from ``wan_models/<name>/``:
     a safetensors directory, or a ``.pth`` state dict at ``model_dir``.
     Random init (seeded by ``seed``, zero head like the JAX package's
     default init) with a warning when absent, FileNotFoundError instead
-    when ``strict``."""
+    when ``strict``.
+
+    ``on_host``: the whole tree in the host's memory, its blocks pinned
+    (``utils.memory.HostArena``), for a model streamed layer by layer (a 14B
+    teacher, ``--offload_blocks``) that must never be whole on the card.  A
+    checkpoint is converted on the host; the random init draws on
+    ``device`` as the resident init does (the same values), and each block
+    goes to pinned memory as soon as it is drawn, so the card holds one
+    block at a time.  The blocks are pinned one by one: pinning the whole
+    tree (``Tensor.pin_memory``) would hold it twice."""
+    arena = mem.HostArena() if on_host else None
     sd = _load_safetensors_dir(model_dir) if os.path.isdir(model_dir) else None
     if sd is None and os.path.isfile(model_dir):
         sd = _torch_load(model_dir)
     if sd is not None:
-        return ckpt.dit_params_from_torch(sd, cfg, dtype, device)
+        params = ckpt.dit_params_from_torch(sd, cfg, dtype, "cpu" if on_host else device)
+        del sd
+        if on_host:
+            blocks = params["blocks"]
+            for i in range(len(blocks)):
+                blocks[i] = mem.offload_to_host(blocks[i], arena)
+        return params
     if strict:
         raise FileNotFoundError(
             f"base DiT weights not found under {model_dir!r}: distilling against a "
             "random teacher/critic silently ruins a run; pass --allow_random_weights "
             "to override")
     _warn(f"base DiT weights not found under {model_dir!r} — using random init")
-    return D.init_dit_params(cfg, dtype, device, seed=seed)
+    if not on_host:
+        return D.init_dit_params(cfg, dtype, device, seed=seed)
+    params = D.init_dit_params(cfg, dtype, device, seed=seed,
+                               place_block=lambda blk: mem.offload_to_host(blk, arena))
+    return {k: v if k == "blocks" else mem.fetch_from_host(v, "cpu", non_blocking=False)
+            for k, v in params.items()}
 
 
 def load_vae_params(config: PipelineConfig, dtype=torch.bfloat16, device="cuda",

@@ -19,13 +19,19 @@ profiles the decode of frame 2, three times: bf16, with the int8 convs
 chunk (pixel frames 5-8 of a 480x832 clip, one latent frame) after chunks
 0-1, and umT5-XXL's ``encode_prompts`` of one prompt of 512 ids (40
 valid).  Then one step of ``run_t2v``'s text-to-video sampler at 832x480,
-81 frames (the cond and uncond halves in one forward of batch 2).  Then
+81 frames (the cond and uncond halves in one forward of batch 2), resident
+and with ``--offload_blocks``.  Then
 the training step of
 ``configs/longlive_train_init.yaml`` (21 frames, float32 parameters under
 bf16 autocast): the generator's replay of the last rollout block (exit step
 1: one pre-exit forward, the exit forward with its backward, the commit)
 after six blocks unprofiled, and the critic's denoising loss with its
-backward.  Device kernel time is grouped into the port's kernels, matrix
+backward.  Then the streamed teacher: ``teacher_real_x0(streamed=True)`` at
+Wan2.1-T2V-14B's width on 4 of its 40 layers (blocks in pinned host
+memory, each copied to the card one layer ahead of its compute; cond and
+uncond at 21 frames), with the compute stream's idle share (1 - the union
+of its kernels' intervals over the profiled call's span) and the share of
+the host-to-device copies' time that overlaps a kernel.  Device kernel time is grouped into the port's kernels, matrix
 products, library convolutions and the rest ("other", whose largest
 kernels are also listed on their own: ``other_top_kernels``); K2 (``fused_causal_conv``)
 counts all its kernels, the input pass (norm + SiLU, the new cache) and the
@@ -248,15 +254,18 @@ def t5_prompt(dev, label: str):
 
 
 @torch.no_grad()
-def sampler_step(dev, label: str):
+def sampler_step(dev, label: str, offload: bool = False):
     """The profile of one step of ``run_t2v``'s text-to-video sampler at
     832x480, 81 frames (21 latent frames, 32760 tokens a sample): one
     bidirectional forward of the cond and uncond halves in one batch of 2
     (``attn_impl="auto"``: K1 for the self- and cross-attentions), after
-    one unprofiled step."""
+    one unprofiled step.  ``offload``: the blocks in pinned host memory,
+    streamed per layer (``--offload_blocks``); the row adds the compute
+    stream's idle share and the copies' overlap (``_intervals``)."""
     from longlive_torch.config import DiTConfig
     from longlive_torch.ops.rope import make_rope_tables
     from longlive_torch.pipeline.text2video import concat_cross, guided_sampler
+    from longlive_torch.utils import memory
 
     cfg = DiTConfig(local_attn_size=-1, sink_size=0)
     params = D.init_dit_params(cfg, torch.bfloat16, dev, seed=0, zero_head=False)
@@ -264,12 +273,93 @@ def sampler_step(dev, label: str):
     pe = torch.randn((1, cfg.text_len, cfg.text_dim), generator=g, device=dev)
     both = concat_cross(D.prepare_cross_kv(params, cfg, pe),
                         D.prepare_cross_kv(params, cfg, torch.zeros_like(pe)))
+    if offload:
+        params = memory.blocks_to_host(params, dev)
     tables = make_rope_tables(cfg.head_dim, cfg.rope_max_pos, device=dev)
-    fn = guided_sampler(params, cfg, tables, 5.0, both)
+    fn = guided_sampler(params, cfg, tables, 5.0, both, streamed=offload)
     x = torch.randn((1, 21, 16, 60, 104), generator=g, device=dev).to(torch.bfloat16)
     fn(x, 999.0)  # warm-up
     row = _summary(label, *_profile(lambda: fn(x, 937.0)), per="1 sampler step (B 2)")
+    row.update(_intervals(lambda: fn(x, 937.0)))
     del params, both
+    torch.cuda.empty_cache()
+    return row
+
+
+def _intervals(fn) -> dict:
+    """The compute stream's busy and idle share and the host-to-device
+    copies' overlap with kernels, from one more profiled call of ``fn``."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    busy, span, copy_ms, overlap = _intervals_ms(prof)
+    return {"compute_busy_ms": busy, "compute_span_ms": span,
+            "compute_idle_share": (1 - busy / span) if span else None,
+            "h2d_copy_ms": copy_ms, "h2d_overlapped_share": (overlap / copy_ms) if copy_ms else None}
+
+
+def _intervals_ms(prof):
+    """(union ms of the device kernels' intervals, span ms from the first
+    kernel's start to the last's end, host-to-device copy ms, the ms of
+    those copies that overlap a kernel) from a profile's events."""
+    kernels, copies = [], []
+    for e in prof.events():
+        if getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA:
+            continue
+        iv = (e.time_range.start, e.time_range.end)
+        name = e.name.lower()
+        if "memcpy htod" in name:
+            copies.append(iv)
+        elif "memcpy" not in name and "memset" not in name:
+            kernels.append(iv)
+    kernels.sort()
+    merged = []
+    for a, b in kernels:
+        if merged and a <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], b)
+        else:
+            merged.append([a, b])
+    busy = sum(b - a for a, b in merged)
+    span = (merged[-1][1] - merged[0][0]) if merged else 0
+    overlap = sum(max(0, min(b, mb) - max(a, ma)) for a, b in copies for ma, mb in merged)
+    return busy / 1e3, span / 1e3, sum(b - a for a, b in copies) / 1e3, overlap / 1e3
+
+
+def streamed_teacher(dev, label: str):
+    """The profile of one streamed teacher pass at the 14B's width on 4
+    layers (``teacher_real_x0(streamed=True)`` under the trainer's
+    autocast), after one unprofiled pass; adds the compute stream's idle
+    share and the host-to-device copies' overlap with kernels."""
+    from longlive_torch.config import WAN_MODEL_CONFIGS, DiTConfig
+    from longlive_torch.ops import scheduler as S
+    from longlive_torch.ops.rope import make_rope_tables
+    from longlive_torch.training import dmd
+    from longlive_torch.utils import loading, memory
+
+    cfg = dataclasses.replace(DiTConfig(), **dict(WAN_MODEL_CONFIGS["Wan2.1-T2V-14B"],
+                                                  num_layers=4))
+    host = loading.load_base_dit("wan_models/none", cfg, torch.float32, dev, seed=7,
+                                 on_host=True)
+    tree = memory.blocks_to_host(host, dev)
+    geom = LatentGeometry()
+    sched = S.make_schedule(1000, shift=5.0, sigma_min=0.0, extra_one_step=True, training=True)
+    tables = make_rope_tables(cfg.head_dim, cfg.rope_max_pos, device=dev)
+    g = torch.Generator().manual_seed(21)
+    lat = torch.randn((1, 21, geom.channels, geom.height, geom.width), generator=g).to(dev)
+    pc, pu = (torch.randn((1, cfg.text_len, cfg.text_dim), generator=g).to(dev) for _ in range(2))
+    st, sn = torch.tensor([600]), torch.randn(lat.shape, generator=g)
+
+    def run():
+        with torch.autocast(dev.type, dtype=torch.bfloat16, cache_enabled=False):
+            dmd.teacher_real_x0(tree, cfg, tables, sched, dmd.DMDConfig(), lat, pc, pu, st, sn,
+                                streamed=True)
+
+    run()  # warm-up
+    row = _summary(label, *_profile(run), per="1 teacher pass over 4 layers (B 2)")
+    row.update(_intervals(run), layer_gib=memory.hbm_bytes(host["blocks"][0]) / 2 ** 30)
+    del host, tree
     torch.cuda.empty_cache()
     return row
 
@@ -376,10 +466,15 @@ def main():
     del vp, lat
     torch.cuda.empty_cache()
     sampler = sampler_step(dev, "run_t2v sampler step, 832x480 x 81 frames (cond + uncond)")
+    offload = sampler_step(dev, "run_t2v sampler step, --offload_blocks (blocks streamed from "
+                           "the host)", offload=True)
     with torch.enable_grad():
         train = training_steps(dev)
+    torch.cuda.empty_cache()
+    teacher = streamed_teacher(dev, "streamed 14B-width teacher pass, 4 of 40 layers "
+                               "(cond + uncond, 21 frames)")
     result = {"card": card, "torch": torch.__version__,
-              "steps": [dit, int8, options] + vae + encoders + [sampler] + train}
+              "steps": [dit, int8, options] + vae + encoders + [sampler, offload] + train + [teacher]}
     text = json.dumps(result, indent=1)
     print(text)
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)

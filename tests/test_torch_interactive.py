@@ -172,5 +172,5 @@ def test_run_interactive_cli_writes_video(tmp_path, capsys, profile):
     assert rec["pixels"].shape[:3] == (1, 1 + 2 * 5, 3)  # the tiny VAE upsamples time 2x
     assert torch.isfinite(rec["pixels"]).all()
     assert ("recache overhead" in capsys.readouterr().out) == profile
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(NotImplementedError, match="item 8"):
         run_interactive.main(["--config_path", str(path), "--device", "cpu", "--sp", "2"])

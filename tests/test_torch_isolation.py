@@ -30,6 +30,12 @@ def _imported_roots(tree):
             yield str(node.args[0].value).split(".")[0]
 
 
+def test_the_scan_covers_the_host_memory_module():
+    """``utils/memory.py`` (pinned host copies, layer streaming) is among
+    the files checked below."""
+    assert ROOT / "longlive_torch" / "utils" / "memory.py" in _port_files()
+
+
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_imports(path):
     assert path.exists(), path

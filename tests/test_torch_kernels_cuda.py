@@ -267,10 +267,12 @@ def _train_inputs(dev, b, sq, skv, n, seed):
 
 
 # K4 at ragged shapes: (B, Sq, Skv, N, mask): no mask, a kv-valid mask with
-# a fully masked tile, a per-batch mask, the 512-token cross shape cut short
+# a fully masked tile, a per-batch mask, the 512-token cross shape cut short,
+# and the 14B teacher's 40 heads at B 2 (its self- and cross-attention, cut
+# short)
 @pytest.mark.parametrize("b,sq,skv,n,masked", [
     (1, 40, 100, 3, False), (1, 130, 200, 2, True), (2, 77, 257, 2, True),
-    (1, 300, 77, 3, False)])
+    (1, 300, 77, 3, False), (2, 130, 200, 40, False), (2, 200, 77, 40, False)])
 def test_flash_attention_train_kernels_match_plain(dev, b, sq, skv, n, masked):
     g, (q, k, v, dout) = _train_inputs(dev, b, sq, skv, n, 5)
     valid = None
@@ -541,7 +543,8 @@ def test_flash_attention_kernel_split_items(dev, monkeypatch, mode):
     assert all(int(c.abs().sum()) == 0 for c in A._COUNTERS.values())
     assert torch.isfinite(out).all()
     _assert_agrees(out, ref)
-    _assert_agrees(again, ref)
+    # the shares merge in share order, whichever finished last: the same bits
+    assert torch.equal(again, out)
 
 
 @pytest.mark.parametrize("exp2", [False, True])

@@ -23,7 +23,8 @@ from longlive_torch.ops.rope import make_rope_tables
 from longlive_torch.training import rollout as tro
 from longlive_torch.training.streaming import (ChunkDraws, StreamingConfig, StreamingTrainer,
                                                StreamStepDraws)
-from longlive_torch.training.trainer import TrainerConfig, map_tree, param_leaves
+from longlive_torch.training.trainer import (TrainerConfig, host_adamw_init, map_tree,
+                                             param_leaves)
 from longlive_torch.utils import checkpoint as TC
 from longlive_torch.utils.params import (dit_params_from_jax, lora_params_from_jax,
                                          vae_params_from_jax)
@@ -191,15 +192,16 @@ def test_reencode_matches_jax(models):
     _close(got, want)
 
 
-def build_trainers(models, lora: bool, **stream):
+def build_trainers(models, lora: bool, options=None, **stream):
     """The JAX streaming trainer and the port's on the same models and VAE
     (the adapters carried across under LoRA), learning rates raised as in
     ``tests/test_torch_train_step.py`` so that the updates dominate float32
-    rounding."""
+    rounding; ``options`` more trainer options for both."""
     jcfg, tcfg, (gen, critic, teacher), vcfg, vae = models
     geom = tiny_geometry()
     kw = dict(num_frame_per_block=1, num_training_frames=3, slice_last_frames=3,
               dfake_gen_update_ratio=2, ema_start_step=0, lr=1e-3, lr_critic=3e-4)
+    kw.update(options or {})
     if lora:
         kw.update(lora_rank=4, lora_alpha=4.0, lora_dtype="float32")
     copy = lambda t: jax.tree.map(jnp.array, t)  # noqa: E731  (the JAX trainer donates)
@@ -221,6 +223,9 @@ def build_trainers(models, lora: bool, **stream):
                         for n, ab in lg.items():
                             for which, t in ab.items():
                                 dst_l[g][n][which].copy_(t)
+        if ttr.tcfg.opt_on_host:  # the host AdamW's master copies start from these adapters
+            for key, leaves in (("gen_opt", ttr.gen_leaves), ("critic_opt", ttr.critic_leaves)):
+                ttr.state[key] = host_adamw_init(leaves)
     return jtr, ttr
 
 
@@ -257,7 +262,8 @@ def run_streaming_steps(jtr, ttr, num_steps: int):
                 new()
         r = jax.random.fold_in(key, micro)
         draws = StreamStepDraws(
-            generator=JaxChunkDraws(jax.random.fold_in(r, 1)) if micro % 2 == 0 else None,
+            generator=(JaxChunkDraws(jax.random.fold_in(r, 1)) if ttr.trains_generator(micro)
+                       else None),
             critic=JaxChunkDraws(jax.random.fold_in(r, 2)))
         jm = jtr.streaming_train_step(key, new_sequence_cb=jax_new)
         tm = ttr.streaming_train_step(draws, new_sequence_cb=port_new)

@@ -137,7 +137,11 @@ def test_guide_scale_one_ignores_negative_prompt(model):
 
 
 def test_text2video_pipeline_draws_its_noise_and_refuses_unported_options(model):
-    _, tcfg, tree, cond, null = model
+    """The pipeline's own draw is seeded; without noise or a generator it
+    refuses; ``mesh`` is not ported.  ``offload_blocks`` (the blocks in
+    host memory, streamed per layer) gives the resident latents bit for
+    bit, and JAX's ``offload_blocks`` sampler's within 1e-4."""
+    jcfg, tcfg, tree, cond, null = model
     geom = tiny_geometry()
     pipe = Text2VideoPipeline(dit_params_from_jax(tree), tcfg, device="cpu")
     shape = (1, 2, geom.channels, geom.height, geom.width)
@@ -149,9 +153,24 @@ def test_text2video_pipeline_draws_its_noise_and_refuses_unported_options(model)
     assert a.dtype == torch.bfloat16 and tuple(a.shape) == shape and torch.equal(a, b)
     with pytest.raises(ValueError):
         pipe.generate_latents(torch.from_numpy(cond), torch.from_numpy(null), sampling_steps=2)
-    for kw in ({"mesh": object()}, {"offload_blocks": True}):
-        with pytest.raises(NotImplementedError):
-            Text2VideoPipeline(dit_params_from_jax(tree), tcfg, device="cpu", **kw)
+    with pytest.raises(NotImplementedError):
+        Text2VideoPipeline(dit_params_from_jax(tree), tcfg, device="cpu", mesh=object())
+    noise = np.random.default_rng(6).standard_normal(shape).astype(np.float32)
+    run = dict(sampling_steps=3, guide_scale=4.0, dtype=torch.float32)
+    resident = pipe.generate_latents(torch.from_numpy(cond), torch.from_numpy(null),
+                                     torch.from_numpy(noise), **run)
+    offload = Text2VideoPipeline(dit_params_from_jax(tree), tcfg, device="cpu",
+                                 offload_blocks=True)
+    assert offload.params["blocks"][0]["ffn"]["fc1"]["weight"] is not pipe.params["blocks"][0][
+        "ffn"]["fc1"]["weight"]
+    got = offload.generate_latents(torch.from_numpy(cond), torch.from_numpy(null),
+                                   torch.from_numpy(noise), **run)
+    assert torch.equal(got, resident)
+    jpipe = JText2Video(jax.tree.map(jnp.asarray, tree), jcfg, attn_impl="xla",
+                        offload_blocks=True)
+    want = jpipe.generate_latents(jnp.asarray(cond), jnp.asarray(null), noise=jnp.asarray(noise),
+                                  sampling_steps=3, guide_scale=4.0, dtype=jnp.float32)
+    _close(got, want)
 
 
 def test_run_t2v_tiny_text_to_video(tmp_path):
@@ -162,9 +181,17 @@ def test_run_t2v_tiny_text_to_video(tmp_path):
     assert tuple(rec["latents"].shape) == (1, 3, 4, 8, 8)  # the tiny VAE: time stride 2
     assert tuple(rec["pixels"].shape) == (1, 5, 3, 16, 16)
     assert torch.isfinite(rec["pixels"]).all()
-    for flag in (["--sp", "2"], ["--offload_blocks"]):
-        with pytest.raises(NotImplementedError):
-            run_t2v.main(["--prompt", "x", "--tiny_debug", "--device", "cpu"] + flag)
+    offload = run_t2v.main(["--prompt", "a red fox", "--tiny_debug", "--size", "16x16",
+                            "--frame_num", "5", "--steps", "3", "--output",
+                            str(tmp_path / "offload.mp4"), "--device", "cpu",
+                            "--offload_blocks"])
+    assert torch.equal(offload["latents"], rec["latents"])
+    with pytest.raises(NotImplementedError):
+        run_t2v.main(["--prompt", "x", "--tiny_debug", "--device", "cpu", "--sp", "2"])
+    with pytest.raises(NotImplementedError):  # image-to-video streams no blocks, as in JAX
+        run_t2v.generate(run_t2v.parse_args(["--prompt", "x", "--tiny_debug", "--device", "cpu",
+                                             "--offload_blocks"]),
+                         np.zeros((1, 3, 16, 16), np.float32))
 
 
 def test_run_t2v_defaults_to_cuda():

@@ -1,7 +1,8 @@
 """The port's training CLI and its utilities: ``run_train`` with
 ``tiny_debug: true`` on the CPU for 2 steps (metrics JSONL, checkpoints,
 auto-resume), streaming LoRA training for 3 steps with its resume, the
-score models' random init, the refusals of what is not ported, the
+score models' random init, the single-card levers (and the JAX package's
+refusals of their combinations), the refusals of what is not ported, the
 checkpointable loader against the JAX package's, and the train-state
 files."""
 
@@ -115,18 +116,91 @@ def test_run_train_tiny_streaming_lora_three_steps_and_resume(tmp_path, capsys):
     assert tr2.seq_state is None  # the loop ended at once; a step would start a new sequence
 
 
-@pytest.mark.parametrize("key,value", [("opt_on_host", True), ("cache_int8", True),
-                                       ("gradient_accumulation_steps", 2)])
-def test_unported_options_raise(tmp_path, key, value):
-    path = _write(tmp_path, dict(TINY, **{key: value}))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        run_train.main(["--config_path", path, "--logdir", str(tmp_path / "r"),
-                        "--device", "cpu", "--no_save"])
+LEVERS = {
+    "opt_on_host": dict(opt_on_host=True),
+    "cache_int8": dict(cache_int8=True),
+    "gradient_accumulation_steps": dict(gradient_accumulation_steps=2),
+    "teacher_stream": dict(staged_phases=True, teacher_stream=True),
+    "page_generator": dict(staged_phases=True, page_generator=True),
+    "opt_async": dict(opt_on_host=True, opt_async=True),
+}
+LEVER_PHASES = {"opt_on_host": {"opt_generator", "opt_critic"},
+                "teacher_stream": {"teacher_x0_streamed"},
+                "page_generator": {"teacher_fetch", "gen_page_out", "gen_page_in"},
+                "opt_async": {"opt_generator", "opt_critic"}}
+
+
+@pytest.mark.parametrize("key", list(LEVERS))
+def test_unported_options_raise(tmp_path, key):
+    """The single-card levers, once refused, run through ``run_train`` on
+    the tiny config for 2 steps (ratio 2: the generator on step 0; with
+    2-step accumulation both steps are optimiser step 0): finite losses,
+    their phases in the ledger, the background critic update's grad norm a
+    step late and the last one logged at the end."""
+    path, logdir = _write(tmp_path, dict(TINY, **LEVERS[key])), str(tmp_path / "r")
+    tr = run_train.main(["--config_path", path, "--logdir", logdir, "--no_auto_resume",
+                         "--device", "cpu", "--no_save"])
+    rows = [json.loads(line) for line in open(os.path.join(logdir, "metrics.jsonl"))]
+    assert [r["step"] for r in rows[:2]] == [0, 1]
+    accum = key == "gradient_accumulation_steps"
+    assert [r["opt_step"] for r in rows[:2]] == ([0, 0] if accum else [0, 1])
+    assert ["generator_loss" in r for r in rows[:2]] == [True, accum]
+    for r in rows[:2]:
+        assert torch.isfinite(torch.tensor(r["critic_loss"]))
+        assert LEVER_PHASES.get(key, set()) <= set(r["phase_ms"]) or "generator_loss" not in r
+    if key == "opt_async":
+        assert "critic_grad_norm" not in rows[0] and "critic_grad_norm" in rows[1]
+        assert "critic_grad_norm" in rows[2] and tr._pending is None
+    if key == "page_generator":
+        assert rows[0]["gen_page_bytes"] == sum(t.numel() * 4 for t in param_leaves(
+            tr.state["gen_params"]))
+    if key == "cache_int8":
+        assert tr.rcfg.cache_int8
+
+
+@pytest.mark.parametrize("options,err", [
+    (dict(opt_async=True), ValueError),
+    (dict(teacher_stream=True), ValueError),
+    (dict(page_generator=True), ValueError),
+    (dict(opt_on_host=True, gradient_accumulation_steps=2), NotImplementedError),
+], ids=["opt_async without opt_on_host", "teacher_stream without staged_phases",
+        "page_generator without staged_phases", "opt_on_host with accumulation"])
+def test_lever_guards_raise(tmp_path, options, err):
+    """The JAX package's refusals of lever combinations."""
+    path = _write(tmp_path, dict(TINY, **options))
+    with pytest.raises(err):
+        run_train.main(["--config_path", path, "--logdir", str(tmp_path / "r"), "--device",
+                        "cpu", "--no_save"])
+
+
+def test_larger_teacher_needs_teacher_stream(monkeypatch, tmp_path):
+    """``real_name`` of a wider teacher (here the tiny config at twice its
+    width, standing for Wan2.1-T2V-14B): without ``teacher_stream`` the JAX
+    package's ValueError; with it, the teacher is built in host memory at
+    its own widths."""
+    from longlive_torch import config as C
+
+    cfg = tiny_dit_config()
+    geo = dict(dim=cfg.dim, ffn_dim=cfg.ffn_dim, num_heads=cfg.num_heads,
+               num_layers=cfg.num_layers)
+    monkeypatch.setitem(C.WAN_MODEL_CONFIGS, "Wan2.1-T2V-1.3B", geo)
+    monkeypatch.setitem(C.WAN_MODEL_CONFIGS, "Wan2.1-T2V-14B",
+                        dict(geo, dim=2 * cfg.dim, num_heads=2 * cfg.num_heads))
+    monkeypatch.chdir(tmp_path)
+    raw = {"real_name": "Wan2.1-T2V-14B"}
+    with pytest.raises(ValueError, match="teacher_stream"):
+        run_train.resolve_score_models(raw, cfg, run_train.build_trainer_config(raw), "cpu")
+    raw.update(teacher_stream=True, staged_phases=True)
+    teacher, tcfg, _ = run_train.resolve_score_models(raw, cfg,
+                                                      run_train.build_trainer_config(raw), "cpu")
+    assert tcfg.dim == 2 * cfg.dim and tcfg.num_heads == 2 * cfg.num_heads
+    assert tuple(teacher["blocks"][0]["self_attn"]["q"]["weight"].shape) == (2 * cfg.dim,) * 2
+    assert all(t.device.type == "cpu" for t in param_leaves(teacher))
 
 
 def test_more_than_one_process_raises(tmp_path, monkeypatch):
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(NotImplementedError, match="item 8"):
         run_train.main(["--config_path", _write(tmp_path, TINY), "--device", "cpu"])
 
 

@@ -82,5 +82,5 @@ def test_loading_raises_for_present_artifacts(tmp_path, monkeypatch):
 @pytest.mark.parametrize("flags", [["--sp", "2"], ["--decode_device", "1"]])
 def test_cli_rejects_unported_flags(flags):
     cfg = os.path.join(ROOT, "configs", "longlive_inference.yaml")
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(NotImplementedError, match="item 8"):
         run_inference.main(["--config_path", cfg, "--device", "cpu"] + flags)
