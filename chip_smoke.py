@@ -37,15 +37,29 @@ Phases, each of which exits non-zero when it fails:
    with LoRA adapters (bf16 on the GPU, float32 on the CPU; a switch with
    its recache and a re-encoded overlap frame), the bidirectional
    samplers (text-to-video under UniPC, image-to-video under DPM++ with
-   its CLIP features and first-frame encode), and two training steps with
+   its CLIP features and first-frame encode), two training steps with
    the single-card levers (host AdamW with its background critic update,
    the paged and streamed teacher, the page-out; the int8 rollout cache
-   with 2-step accumulation);
+   with 2-step accumulation), and ``PipelinedRenderer.render`` (segments
+   of 2 frames, the decode on the renderer's stream, an unscheduled switch
+   polled at the second segment);
 5. the paths, at full Wan2.1-1.3B width with random weights, each with
    every kernel's launch count checked against the count derived from the
    model structure:
    a. main: ``run_inference`` on ``configs/longlive_inference.yaml`` for 15
       latent frames (5 blocks, the ring wraps), VAE decode and the video;
+   h. pipelined: the same with ``--decode_device 0 --segment_frames 6``
+      (``PipelinedRenderer``: segments of 6, 6 and 3, each decoded on the
+      renderer's CUDA stream while the next generates), its pixels
+      bit-equal to main's; each stream's ms per latent frame (CUDA events)
+      and the wall beside main's serial generate + decode;
+   j. eval: ``run_eval`` on the video h wrote, then ``evaluate_video`` with a
+      full-width CLIP ViT-H/14 on the card (its features held against the
+      CPU's), every score finite and in [0, 1];
+   i. per-stream decode: ``num_samples: 2``, 6 frames, ``--segment_frames 3
+      --per_stream_decode``: bit-equal to a B = 1 decode of each stream, and
+      within 5e-2 of one batched B = 2 decode (plain convs: K2 takes batch
+      1); the two decodes' peaks;
    b. tuned: ``run_inference`` on ``configs/longlive_inference_tuned.yaml``
       (window 9, fused q RoPE) for 15 frames;
    c. reactive: an unscheduled switch on the tuned config at frame 9 (a
@@ -135,6 +149,7 @@ import re
 import subprocess
 import sys
 import time
+from typing import Optional
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak
@@ -1725,8 +1740,10 @@ def check_video(torch, label: str, r: dict, frames: int) -> None:
         fail(f"{label}: output {r['path']} missing")
 
 
-def run_inference_path(torch, A, VC, label: str, config: str, attn_mode: str) -> dict:
-    """``run_inference`` on ``configs/<config>`` for 15 latent frames."""
+def run_inference_path(torch, A, VC, label: str, config: str, attn_mode: str,
+                       keep: Optional[dict] = None) -> dict:
+    """``run_inference`` on ``configs/<config>`` for 15 latent frames;
+    ``keep`` receives the pixels."""
     from longlive_torch import run_inference
 
     frames, dv = 15, derived()
@@ -1749,11 +1766,14 @@ def run_inference_path(torch, A, VC, label: str, config: str, attn_mode: str) ->
     out = {"dit_ms_per_latent_frame": profile_number(
                text, r"steady-state latency=([0-9.]+) ms/latent-frame", label),
            "decode_ms_per_latent_frame": r["decode_s"] / frames * 1e3,
+           "render_ms": r["render_s"] * 1e3,
            "wall_s": wall, "peak_gib": peak, "launches": got}
+    if keep is not None:
+        keep["pixels"] = r["pixels"]
     log(f"{label}: {wall:.1f} s wall, peak device memory {peak:.2f} GiB, DiT "
         f"{out['dit_ms_per_latent_frame']:.2f} ms/latent-frame, decode "
-        f"{out['decode_ms_per_latent_frame']:.2f} ms/latent-frame; output {r['path']} "
-        f"({os.path.getsize(r['path'])} bytes)")
+        f"{out['decode_ms_per_latent_frame']:.2f} ms/latent-frame, generation + decode "
+        f"{out['render_ms']:.2f} ms; output {r['path']} ({os.path.getsize(r['path'])} bytes)")
     return out
 
 
@@ -3762,6 +3782,328 @@ def run_t2v_offload_path(torch, A, VC) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# pipelined serving and eval
+
+
+def check_small_renderer(torch, A, VC) -> dict:
+    """``PipelinedRenderer.render`` on small inputs, GPU (bf16, kernels, the
+    decode on the generation card) vs CPU (float32, plain versions): 6
+    frames in segments of 2, an unscheduled switch polled at the second
+    segment (a 2-frame replay), the VAE at widths 96/192 (K2's convs)."""
+    from longlive_torch.config import DiTConfig, LatentGeometry, PipelineConfig
+    from longlive_torch.models import dit as D
+    from longlive_torch.models import vae as V
+    from longlive_torch.pipeline import CausalInferencePipeline, PipelinedRenderer
+
+    cfg = DiTConfig(dim=256, ffn_dim=512, num_heads=2, num_layers=2, in_dim=16, out_dim=16,
+                    text_dim=64, text_len=16, freq_dim=64, local_attn_size=4, sink_size=1,
+                    num_frame_per_block=1, rope_max_pos=64)
+    geom = LatentGeometry(height=10, width=12)
+    pc = PipelineConfig(num_frame_per_block=1, local_attn_size=4, sink_size=1,
+                        num_output_frames=6, reactive_recache_frames=2)
+    vcfg = dataclasses.replace(V.tiny_vae_config(), dim=96, z_dim=16)
+    params32 = D.init_dit_params(cfg, torch.float32, "cpu", seed=3, zero_head=False)
+    vp32 = V.init_vae_params(vcfg, torch.float32, "cpu", seed=5)
+    g = torch.Generator().manual_seed(16)
+    pes = [torch.randn((1, cfg.text_len, cfg.text_dim), generator=g) for _ in range(2)]
+    noise = torch.randn((1, 6, 16, geom.height, geom.width), generator=g)
+    px = {}
+    for dev, dt in (("cpu", torch.float32), ("cuda", torch.bfloat16)):
+        pipe = CausalInferencePipeline(pc, to_dev(params32, dev, dt), geometry=geom,
+                                       dit_config=cfg, device=dev, deterministic_renoise=True)
+        vp = V.pack_fused_weights(to_dev(vp32, dev, dt)) if dev == "cuda" else vp32
+        renderer = PipelinedRenderer(pipe, vp, vcfg, segment_frames=2,
+                                     decode_device=0 if dev == "cuda" else dev)
+        cross = [pipe.prepare_condition(pe) for pe in pes]
+        polls = []
+
+        def poll(start, cross=cross, polls=polls):
+            polls.append(start)
+            return cross[1] if start == 2 else None
+
+        reset_counts(A, VC)
+        px[dev] = renderer.render(noise, cross[0], dtype=dt, poll_switch=poll)
+        got = counts(A, VC)
+        if polls != [0, 2, 4]:
+            fail(f"small renderer ({dev}): polled at {polls}")
+    # K1: 6 blocks of 2 layers in each of 4 denoise forwards and 1 in the
+    # kv-only commit, and 1 in the replay; K2: both convs of each of the 6
+    # res blocks per latent frame, and the time conv from the second on
+    n_res = 2 + len(vcfg.dim_mult) * (vcfg.num_res_blocks + 1)
+    n_time = sum(vcfg.temperal_upsample[: len(vcfg.dim_mult) - 1])
+    check_counts("small renderer, GPU", got,
+                 expect(bias=6 * (2 * 4 + 1) + 1, conv=2 * n_res + 5 * (2 * n_res + n_time)))
+    if not torch.isfinite(px["cuda"]).all():
+        fail("small renderer: non-finite GPU pixels")
+    err = rel_err(px["cuda"], px["cpu"])
+    log(f"small renderer reference (GPU bf16 kernels vs CPU float32 "
+        f"plain; limit 5e-2): pixels rel_err={err:.3e}")
+    if not err <= 5e-2:
+        fail(f"small renderer reference disagrees (limit 5e-2): {err}")
+    return {"pixels rel_err": err}
+
+
+@contextlib.contextmanager
+def segment_timed(torch, record: dict):
+    """While active: each segment's generation and decode of the renderer
+    timed with CUDA events (``record["gen"]``, ``record["decode"]``:
+    (start, end) pairs), its latents kept in ``record["latents"]`` and the
+    renderer in ``record["renderer"]``."""
+    from longlive_torch.pipeline import serve
+    from longlive_torch.pipeline.causal_inference import CausalInferencePipeline
+
+    gen0, dec0, init0 = (CausalInferencePipeline.generate_latents_scanned,
+                         serve.PipelinedRenderer._decode, serve.PipelinedRenderer.__init__)
+    for key in ("gen", "decode", "latents"):
+        record[key] = []
+
+    def events():
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        return a, b
+
+    def gen(self, *args, **kw):
+        a, b = events()
+        lat, cache = gen0(self, *args, **kw)
+        b.record()
+        record["gen"].append((a, b))
+        record["latents"].append(lat)
+        return lat, cache
+
+    def dec(self, *args, **kw):
+        a, b = events()
+        out = dec0(self, *args, **kw)
+        b.record()
+        record["decode"].append((a, b))
+        return out
+
+    def init(self, *args, **kw):
+        init0(self, *args, **kw)
+        record["renderer"] = self
+
+    CausalInferencePipeline.generate_latents_scanned = gen
+    serve.PipelinedRenderer._decode = dec
+    serve.PipelinedRenderer.__init__ = init
+    try:
+        yield record
+    finally:
+        CausalInferencePipeline.generate_latents_scanned = gen0
+        serve.PipelinedRenderer._decode = dec0
+        serve.PipelinedRenderer.__init__ = init0
+
+
+def _check_videos(torch, label: str, results: list, frames: int, samples: int) -> None:
+    if len(results) != samples:
+        fail(f"{label} wrote {len(results)} videos, expected {samples}")
+    for r in results:
+        px = r["pixels"]
+        if tuple(px.shape) != (1, 1 + 4 * (frames - 1), 3, 480, 832):
+            fail(f"{label}: pixels {tuple(px.shape)}")
+        if not torch.isfinite(px).all():
+            fail(f"{label}: non-finite pixels")
+        if not os.path.exists(r["path"]) or os.path.getsize(r["path"]) == 0:
+            fail(f"{label}: output {r['path']} missing")
+
+
+def _pipelined_run(torch, A, VC, label: str, config: str, frames: int, argv: list,
+                   samples: int = 1):
+    """``run_inference`` with ``--decode_device 0`` under ``segment_timed``:
+    (its records, the segment record, counts, wall s, peak GiB)."""
+    from longlive_torch import run_inference
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(A, VC)
+    t0 = time.perf_counter()
+    with segment_timed(torch, {}) as rec:
+        results, _ = run_captured(lambda: run_inference.main([
+            "--config_path", config, "--num_output_frames", str(frames), "--device", "cuda",
+            "--decode_device", "0"] + argv))
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = counts(A, VC)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    _check_videos(torch, label, results, frames, samples)
+    return results, rec, got, wall, peak
+
+
+def _bit_equal(torch, label: str, got, want, what: str) -> None:
+    if not torch.equal(got, want):
+        err, tol, rel = agreement(got, want)
+        fail(f"{label}: pixels differ from {what} (max_abs_err {err:.3e}, rel RMS {rel:.3e})")
+
+
+def run_pipelined_path(torch, A, VC, main: dict, main_pixels) -> dict:
+    """``run_inference --decode_device 0 --segment_frames 6`` on
+    ``configs/longlive_inference.yaml`` for 15 latent frames (segments of 6,
+    6 and 3): the same seed and noise as path "main", its pixels bit-equal
+    to "main"'s, the launches "main"'s.  Each segment's generation and
+    decode timed with CUDA events; the render's wall beside "main"'s serial
+    generate + decode."""
+    frames, dv, label = 15, derived(), "pipelined"
+    results, rec, got, wall, peak = _pipelined_run(
+        torch, A, VC, label, os.path.join(ROOT, "configs", "longlive_inference.yaml"), frames,
+        ["--segment_frames", "6"])
+    r = results[0]
+    check_counts(label, got, expect(bias=(frames // 3) * dv["block"], conv=dv["conv"](frames)))
+    if [lat.shape[1] for lat in rec["latents"]] != [6, 6, 3]:
+        fail(f"{label}: segments {[lat.shape[1] for lat in rec['latents']]}")
+    _bit_equal(torch, label, r["pixels"], main_pixels, "the serial main path's")
+    gen_ms = [a.elapsed_time(b) for a, b in rec["gen"]]
+    dec_ms = [a.elapsed_time(b) for a, b in rec["decode"]]
+    render_ms = r["render_s"] * 1e3
+    out = {"render_ms": render_ms, "serial_render_ms": main["render_ms"],
+           "gen_ms": gen_ms, "decode_ms": dec_ms,
+           "gen_ms_per_latent_frame": sum(gen_ms) / frames,
+           "decode_ms_per_latent_frame": sum(dec_ms) / frames,
+           "render_ms_per_latent_frame": render_ms / frames,
+           "serial_ms_per_latent_frame": main["render_ms"] / frames,
+           "wall_s": wall, "peak_gib": peak, "video": r["path"], "launches": got}
+    log(f"{label}: segments 6/6/3, pixels bit-equal to main; render {render_ms:.2f} ms "
+        f"({out['render_ms_per_latent_frame']:.2f} ms/latent-frame) vs main's serial "
+        f"{main['render_ms']:.2f} ({out['serial_ms_per_latent_frame']:.2f}); generation "
+        f"{out['gen_ms_per_latent_frame']:.2f} ms/latent-frame "
+        f"({', '.join(f'{t:.1f}' for t in gen_ms)} ms), decode "
+        f"{out['decode_ms_per_latent_frame']:.2f} ({', '.join(f'{t:.1f}' for t in dec_ms)} "
+        f"ms); peak {peak:.2f} GiB")
+    return out
+
+
+def run_per_stream_decode_path(torch, A, VC) -> dict:
+    """``configs/longlive_inference.yaml`` with ``num_samples: 2`` (a copy
+    under ``build/``), 6 latent frames: ``run_inference`` serially, then
+    with ``--decode_device 0 --segment_frames 3`` without and with
+    ``--per_stream_decode``.  On the card the renderer decodes each stream
+    as its own B = 1 chain either way (K2 takes batch 1, as the JAX
+    package's kernel), so both renders launch K2 for 2 streams and give the
+    serial path's pixels bit for bit.  Those pixels are then held against a
+    float32 plain decode of the same latents (one batched B = 2
+    ``vae_decode_scan``: the plain convs) within the small references'
+    whole-decode limit, relative 5e-2, beside the bf16 plain decode's
+    distance from it; and the decode's peak above its inputs, per stream
+    against the batched bf16 decode's."""
+    import yaml
+
+    from longlive_torch import run_inference
+    from longlive_torch.models import vae as V
+
+    frames, dv, label = 6, derived(), "per-stream decode"
+    with open(os.path.join(ROOT, "configs", "longlive_inference.yaml")) as f:
+        raw = yaml.safe_load(f)
+    raw["num_samples"] = 2
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    path = os.path.join(ROOT, "build", "chip_smoke_per_stream.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(raw, f)
+    want = expect(bias=(frames // 3) * dv["block"], conv=2 * dv["conv"](frames))
+
+    reset_counts(A, VC)
+    results, _ = run_captured(lambda: run_inference.main([
+        "--config_path", path, "--num_output_frames", str(frames), "--device", "cuda"]))
+    torch.cuda.synchronize()
+    check_counts(f"{label}, serial", counts(A, VC), want)
+    _check_videos(torch, f"{label}, serial", results, frames, 2)
+    serial = torch.cat([r["pixels"] for r in results], dim=0)
+    del results
+    runs = {}
+    for flag in ([], ["--per_stream_decode"]):
+        what = f"{label}, renderer{' ' + flag[0] if flag else ''}"
+        renderer = None  # frees the previous run's pipeline and its DiT weights
+        results, rec, got, wall, peak = _pipelined_run(
+            torch, A, VC, what, path, frames, ["--segment_frames", "3"] + flag, samples=2)
+        check_counts(what, got, want)
+        _bit_equal(torch, what, torch.cat([r["pixels"] for r in results], dim=0), serial,
+                   "the serial path's")
+        runs[what] = {"wall_s": wall, "peak_gib": peak, "launches": got}
+        renderer = rec["renderer"]
+        lat = torch.cat(rec["latents"], dim=1).to(torch.bfloat16)
+        del results, rec
+
+    def decode_peak(fn):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+
+    vp, vcfg = renderer.vae_params, renderer.vcfg
+    _, per_stream_gib = decode_peak(lambda: renderer._decode(lat, None, True)[0])
+    reset_counts(A, VC)
+    plain, batched_gib = decode_peak(lambda: V.vae_decode_scan(vp, vcfg, lat)[0])
+    if counts(A, VC)["fused_causal_conv"]["bf16"] != 0:
+        fail(f"{label}: the batched B = 2 reference decode launched K2")
+    vp32 = to_dev(vp, "cuda", torch.float32)
+    ref = V.vae_decode_scan(vp32, vcfg, lat.float())[0]
+    del vp32
+    k2_rel, plain_rel = rel_err(serial, ref), rel_err(plain, ref)
+    k2_err = (serial.float() - ref).abs().max().item()
+    plain_err = (plain.float() - ref).abs().max().item()
+    # a chain of 30 convs a latent frame in bf16: held as whole decodes are
+    # (the small references' limit), not as one kernel call
+    if not k2_rel <= 5e-2:
+        fail(f"{label}: K2 pixels vs the float32 plain decode: rel_err {k2_rel:.3e} "
+             f"(limit 5e-2), max_abs_err {k2_err:.3e}")
+    out = {"renders": runs, "launches": got, "decode_peak_gib": per_stream_gib,
+           "batched_decode_peak_gib": batched_gib,
+           "k2_vs_float32": {"rel_err": k2_rel, "max_abs_err": k2_err},
+           "plain_bf16_vs_float32": {"rel_err": plain_rel, "max_abs_err": plain_err},
+           "k2_vs_plain_bf16_rel_err": rel_err(serial, plain)}
+    log(f"{label}: 2 streams x {frames} latent frames; both renders (with and without "
+        f"--per_stream_decode) bit-equal to the serial path, K2 {want['fused_causal_conv']['bf16']} "
+        f"launches each; against a float32 plain decode of the same latents: K2 rel_err "
+        f"{k2_rel:.3e} (limit 5e-2), max_abs_err {k2_err:.3e}; the bf16 plain decode rel_err "
+        f"{plain_rel:.3e}, max_abs_err {plain_err:.3e}; K2 vs bf16 plain rel_err "
+        f"{out['k2_vs_plain_bf16_rel_err']:.3e}; decode peak above its inputs "
+        f"{per_stream_gib:.3f} GiB per stream vs {batched_gib:.3f} batched")
+    return out
+
+
+def run_eval_path(torch, video_path: str) -> dict:
+    """``run_eval.main`` on the video path "pipelined" wrote, then
+    ``evaluate_video`` on its frames with a full-width CLIP ViT-H/14 (random,
+    bf16, on the card): every score finite and in [0, 1]; the CLIP features
+    of the 16 sampled frames held against the CPU's float32 ones."""
+    import importlib.util
+
+    from longlive_torch import run_eval
+    from longlive_torch.eval import metrics as M
+    from longlive_torch.models import clip as C
+
+    cv2 = importlib.util.find_spec("cv2") is not None
+    t0 = time.perf_counter()
+    res, _ = run_captured(lambda: run_eval.main([video_path, "--json", os.path.join(
+        ROOT, "build", "chip_smoke_eval.json")]))
+    eval_s = time.perf_counter() - t0
+    video = run_eval.load_video(video_path)
+    ccfg = C.CLIPVisionConfig()
+    cp32 = C.init_clip_vision_params(ccfg, torch.float32, "cpu", seed=0)
+    cp = to_dev(cp32, "cuda", torch.bfloat16)
+    t0 = time.perf_counter()
+    clip_scores = M.evaluate_video(video, cp, ccfg)
+    torch.cuda.synchronize()
+    clip_s = time.perf_counter() - t0
+    feats = M._frame_features(video, cp, ccfg)
+    feats_cpu = M._frame_features(video, cp32, ccfg)
+    err = rel_err(torch.from_numpy(feats), torch.from_numpy(feats_cpu))
+    for what, scores in (("run_eval", res["videos"][video_path]), ("CLIP", clip_scores)):
+        for k, v in scores.items():
+            if k != "num_frames" and not (math.isfinite(v) and 0.0 <= v <= 1.0):
+                fail(f"eval ({what}): {k} = {v}")
+    if feats.shape != (16, ccfg.dim):
+        fail(f"eval: CLIP features {feats.shape}")
+    if not err <= 5e-2:
+        fail(f"eval: CLIP features GPU vs CPU rel_err {err} (limit 5e-2)")
+    out = {"cv2": cv2, "frames": len(video), "eval_s": eval_s, "clip_eval_s": clip_s,
+           "clip_features_rel_err": err, "scores": res["videos"][video_path],
+           "clip_scores": clip_scores}
+    log(f"eval: {video_path} ({len(video)} frames; cv2 {'present: Farneback flows' if cv2 else 'absent: the frame-difference branches'}): "
+        f"run_eval {eval_s:.2f} s per video, with the CLIP tower on the card {clip_s:.2f} s; "
+        f"CLIP features GPU vs CPU rel_err {err:.3e} (limit 5e-2); scores "
+        + json.dumps(clip_scores))
+    return out
+
+
 def main() -> None:
     try:
         import torch
@@ -3825,6 +4167,7 @@ def main() -> None:
 
     t0 = time.perf_counter()
     check_small_reference(torch)
+    renderer_ref = check_small_renderer(torch, A, VC)
     int8_ref = check_small_int8_reference(torch, A, VC)
     options_ref = check_small_serving_options_reference(torch, A, VC)
     full_ref = check_small_full_forwards(torch, A, VC)
@@ -3835,11 +4178,20 @@ def main() -> None:
     levers_ref = check_small_levers(torch)
     log(f"small references: {time.perf_counter() - t0:.1f} s")
 
-    paths = {}
-    for label, config, mode in (("main", "longlive_inference.yaml", "bias"),
-                                ("tuned", "longlive_inference_tuned.yaml", "q_rope")):
-        paths[label] = run_inference_path(torch, A, VC, label, config, mode)
-        torch.cuda.empty_cache()
+    paths, main_px = {}, {}
+    paths["main"] = run_inference_path(torch, A, VC, "main", "longlive_inference.yaml", "bias",
+                                       keep=main_px)
+    torch.cuda.empty_cache()
+    paths["pipelined"] = run_pipelined_path(torch, A, VC, paths["main"], main_px.pop("pixels"))
+    gc.collect()
+    torch.cuda.empty_cache()
+    evaluation = run_eval_path(torch, paths["pipelined"]["video"])
+    paths["per-stream decode"] = run_per_stream_decode_path(torch, A, VC)
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths["tuned"] = run_inference_path(torch, A, VC, "tuned", "longlive_inference_tuned.yaml",
+                                        "q_rope")
+    torch.cuda.empty_cache()
     paths["reactive"] = run_reactive_path(torch, A, VC)
     torch.cuda.empty_cache()
     paths.update(run_interactive_paths(torch, A, VC))
@@ -3877,6 +4229,8 @@ def main() -> None:
     torch.cuda.empty_cache()
     paths["t2v offload"] = run_t2v_offload_path(torch, A, VC)
     log("paths: " + json.dumps(paths))
+    log("small renderer reference: " + json.dumps(renderer_ref))
+    log("eval: " + json.dumps(evaluation))
     log("small int8 reference: " + json.dumps(int8_ref))
     log("small serving-options reference: " + json.dumps(options_ref))
     log("small full-forward reference: " + json.dumps(full_ref))

@@ -373,7 +373,8 @@ class CausalInferencePipeline:
         block_times = []
         for s in range(0, t_frames, fpb):
             t0 = time.perf_counter()
-            x0, cache = self._block_step(cache, cross_kv, noise[:, s:s + fpb], s, generator)
+            x0, cache = self.generate_latents_scanned(noise[:, s:s + fpb], cross_kv, generator,
+                                                      cache, s)
             outputs.append(x0)
             if profile:
                 self._sync()
@@ -387,6 +388,31 @@ class CausalInferencePipeline:
                   f"({fpb / mean:.2f} latent fps, {4 * fpb / mean:.2f} pixel fps)")
             self.last_block_times = block_times
         return latents
+
+    @torch.no_grad()
+    def generate_latents_scanned(
+        self, noise: torch.Tensor, cross_kv: D.CrossKV,
+        generator: Optional[torch.Generator] = None, cache: Optional[kvc.KVCache] = None,
+        start_frame: int = 0,
+    ) -> Tuple[torch.Tensor, kvc.KVCache]:
+        """Generation of the frames [start_frame, start_frame + T) continuing
+        ``cache`` (a fresh one when None).  Returns (latents [B, T, C, H, W]
+        float32, cache).  Segments that continue one cache and one
+        ``generator`` draw in the order of one whole call, so they give its
+        bits."""
+        b, t_frames = noise.shape[:2]
+        fpb = self.frame_block
+        assert t_frames % fpb == 0
+        generator = self._generator(generator)
+        noise = noise.to(self.device)
+        if cache is None:
+            cache = self.init_cache(b)
+        outputs = []
+        for s in range(0, t_frames, fpb):
+            x0, cache = self._block_step(cache, cross_kv, noise[:, s:s + fpb], start_frame + s,
+                                         generator)
+            outputs.append(x0)
+        return (outputs[0] if len(outputs) == 1 else torch.cat(outputs, dim=1)), cache
 
     def _sync(self) -> None:
         if self.device.type == "cuda":

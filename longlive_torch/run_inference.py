@@ -8,6 +8,15 @@ initialised and, without T5 assets, the prompt embedding is random.  With
 the T5, every prompt is encoded up front and the T5's weights then move to
 the host's memory before generation.  ``tiny_debug: true`` in the config
 runs the tiny model and geometry (smoke runs).
+
+``--decode_device i`` renders through ``pipeline.PipelinedRenderer`` in
+``--segment_frames`` segments: on another card the VAE decode of each
+segment overlaps the next segment's generation; on the generation card (or
+with ``--device cpu``, where only index 0 is accepted) the two run serially,
+as JAX's renderer runs on its generation chip.  On a card each of
+``num_samples`` streams decodes alone, as the serial path decodes, and the
+pixels are that path's; ``--per_stream_decode`` asks for that form on the
+CPU too.
 """
 
 from __future__ import annotations
@@ -23,7 +32,7 @@ import torch
 from .config import LatentGeometry, load_pipeline_config, tiny_dit_config, tiny_geometry
 from .models import dit as D
 from .models import vae as V
-from .pipeline import CausalInferencePipeline
+from .pipeline import CausalInferencePipeline, PipelinedRenderer
 from .utils import loading
 from .utils.dataset import TextDataset, shard
 from .utils.device import resolve_device
@@ -32,7 +41,9 @@ from .utils.video_io import to_video_array, write_video
 
 def main(argv=None):
     """Returns one record per written video: {"path", "latents", "pixels",
-    "decode_s"}."""
+    "decode_s", "render_s"}: ``render_s`` is the wall time of generation and
+    decode; pipelined (``--decode_device``), "latents" and "decode_s" are
+    None."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--config_path", required=True)
     ap.add_argument("--use_ema", action="store_true")
@@ -41,11 +52,15 @@ def main(argv=None):
     ap.add_argument("--sp", type=int, default=1,
                     help="sequence-parallel degree for the DiT")
     ap.add_argument("--decode_device", type=int, default=None,
-                    help="device index for a pipelined VAE stream")
+                    help="CUDA device index for the VAE: on another card the decode "
+                         "of segment n overlaps the generation of segment n + 1, on the "
+                         "generation card they run serially; with --device cpu only 0 "
+                         "(the CPU) is accepted")
     ap.add_argument("--segment_frames", type=int, default=12,
                     help="latent frames per pipelined segment")
     ap.add_argument("--per_stream_decode", action="store_true",
-                    help="batched serving: decode each stream separately")
+                    help="batched serving: decode each stream separately (a decode "
+                         "on a card always does)")
     ap.add_argument("--device", default="cuda",
                     help="torch device to run on (default cuda)")
     args = ap.parse_args(argv)
@@ -57,9 +72,18 @@ def main(argv=None):
     if args.sp > 1:
         raise NotImplementedError("--sp > 1 is not ported yet: ROADMAP queue 1, item 8")
     if args.decode_device is not None:
-        raise NotImplementedError("--decode_device is not ported yet: ROADMAP queue 1, item 8")
+        n_dev = torch.cuda.device_count() if device.type == "cuda" else 1
+        if not 0 <= args.decode_device < n_dev:
+            where = (f"this host has {n_dev} CUDA device(s)" if device.type == "cuda"
+                     else "with --device cpu the decode runs on the CPU, index 0")
+            sys.exit(f"error: --decode_device {args.decode_device}: {where}")
 
     config = load_pipeline_config(args.config_path)
+    fpb = config.num_frame_per_block
+    if args.decode_device is not None and (args.segment_frames <= 0
+                                           or args.segment_frames % fpb):
+        raise ValueError(f"--segment_frames {args.segment_frames} must be a positive multiple "
+                         f"of the frame block {fpb}")
     if args.num_output_frames:
         config = dataclasses.replace(config, num_output_frames=args.num_output_frames)
     dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
@@ -83,6 +107,12 @@ def main(argv=None):
 
     pipe = CausalInferencePipeline(config, params, geometry=geom, dit_config=cfg,
                                    device=device)
+    renderer = None
+    if args.decode_device is not None:
+        renderer = PipelinedRenderer(
+            pipe, vae_params, vcfg, segment_frames=args.segment_frames,
+            decode_device=args.decode_device if device.type == "cuda" else device,
+            per_stream_decode=args.per_stream_decode)
 
     if config.data_path and os.path.exists(config.data_path) and text_encoder:
         rows = shard(TextDataset(config.data_path), 0, 1)
@@ -101,6 +131,10 @@ def main(argv=None):
         conds = [torch.randn((1, cfg.text_len, cfg.text_dim), generator=gen, device=device)
                  for _ in rows]
 
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
     out_dir = config.output_folder or "videos/long"
     model_type = "lora" if config.lora_ckpt else "ema" if use_ema else "regular"
     ns = max(1, config.num_samples)
@@ -109,15 +143,25 @@ def main(argv=None):
         cross = pipe.prepare_condition(cond.repeat(ns, 1, 1) if ns > 1 else cond)
         noise = torch.randn((ns, config.num_output_frames, geom.channels, geom.height,
                              geom.width), generator=gen, device=device)
-        latents = pipe.generate_latents(noise, cross, generator=gen, profile=config.profile)
-        t0 = time.perf_counter()
-        pixels = torch.cat([V.vae_decode_scan(vae_params, vcfg,
-                                              latents[i:i + 1].to(dtype))[0]
-                            for i in range(ns)], dim=0)
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-        decode_s = time.perf_counter() - t0
-        if config.profile:
+        sync()
+        t_render = time.perf_counter()
+        latents = decode_s = None
+        if renderer is not None:
+            pixels = renderer.render(noise, cross, generator=gen, dtype=dtype)
+            sync()
+            if pixels.device != device:  # decoded on another card
+                torch.cuda.synchronize(pixels.device)
+        else:
+            latents = pipe.generate_latents(noise, cross, generator=gen,
+                                            profile=config.profile)
+            t0 = time.perf_counter()
+            pixels = torch.cat([V.vae_decode_scan(vae_params, vcfg,
+                                                  latents[i:i + 1].to(dtype))[0]
+                                for i in range(ns)], dim=0)
+            sync()
+            decode_s = time.perf_counter() - t0
+        render_s = time.perf_counter() - t_render
+        if config.profile and latents is not None:
             print(f"[profile] vae decode {decode_s / latents.shape[1] * 1e3:.2f} "
                   f"ms/latent-frame ({latents.shape[1]} latent frames)")
         for seed_idx in range(ns):
@@ -129,8 +173,10 @@ def main(argv=None):
             path = write_video(os.path.join(out_dir, name),
                                to_video_array(pixels[seed_idx:seed_idx + 1]), fps=16)
             print(f"wrote {path}")
-            results.append({"path": path, "latents": latents[seed_idx:seed_idx + 1],
-                            "pixels": pixels[seed_idx:seed_idx + 1], "decode_s": decode_s})
+            results.append({"path": path, "pixels": pixels[seed_idx:seed_idx + 1],
+                            "latents": None if latents is None
+                            else latents[seed_idx:seed_idx + 1],
+                            "decode_s": decode_s, "render_s": render_s})
     return results
 
 

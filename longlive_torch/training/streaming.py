@@ -327,7 +327,7 @@ class StreamingTrainer(ScoreDistillationTrainer):
         if train_generator != (draws.generator is not None):
             raise ValueError(f"step {step} {'trains' if train_generator else 'skips'} the "
                              "generator; the draws say otherwise")
-        self.phase_ms = {}
+        self._clear_phases()
         metrics: Dict[str, Any] = {"step": step, "opt_step": self._opt_step(step)}
         gen_m: Dict[str, Any] = {}
         if train_generator:

@@ -70,7 +70,6 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import threading
-import time
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
@@ -82,6 +81,7 @@ from ..ops.quant import _div
 from ..ops.rope import make_rope_tables
 from ..utils import memory as mem
 from ..utils.memory import map_tree, param_leaves
+from ..utils.profiling import PhaseTimer
 from . import dmd as dmd_mod
 from . import lora as lora_mod
 from . import rollout as ro
@@ -362,7 +362,9 @@ class ScoreDistillationTrainer:
         self._accum: Dict[str, list] = {}
         self._pending: Optional[_AsyncHostUpdate] = None  # the critic's (opt_async)
         self._late_norm: Optional[float] = None  # its grad norm, landed, not yet reported
-        self.phase_ms: Dict[str, float] = {}
+        # phase_ledger: each phase's wall time, the device synchronised
+        # around it; cleared at the start of a step
+        self.phase_timer = PhaseTimer() if tcfg.phase_ledger else None
         self.page_bytes: Dict[str, int] = {}
 
     @property
@@ -385,20 +387,26 @@ class ScoreDistillationTrainer:
         return torch.autocast(self.device.type, dtype=torch.bfloat16,
                               enabled=self.device.type == "cuda", cache_enabled=False)
 
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
     @contextlib.contextmanager
     def _phase(self, name: str):
-        """Times the enclosed phase (``phase_ledger``: synchronised, into
-        ``phase_ms``); costs nothing when the ledger is off."""
-        if not self.tcfg.phase_ledger:
+        """Times the enclosed phase into ``phase_timer`` (``phase_ledger``),
+        the device synchronised before and after it; costs nothing when the
+        ledger is off."""
+        if self.phase_timer is None:
             yield
             return
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        t0 = time.perf_counter()
-        yield
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        self.phase_ms[name] = self.phase_ms.get(name, 0.0) + (time.perf_counter() - t0) * 1e3
+        self._sync()
+        with self.phase_timer.phase(name):
+            yield
+            self._sync()
+
+    def _clear_phases(self) -> None:
+        if self.phase_timer is not None:
+            self.phase_timer.phases.clear()
 
     def _param_dtype(self) -> torch.dtype:
         return self.state["gen_params"]["patch_embedding"]["weight"].dtype
@@ -699,7 +707,7 @@ class ScoreDistillationTrainer:
                              "generator; the draws say otherwise")
         noise, prompt_c, prompt_u = (x.to(self.device, torch.float32)
                                      for x in (noise, prompt_c, prompt_u))
-        self.phase_ms = {}
+        self._clear_phases()
         metrics: Dict[str, Any] = {"step": step, "opt_step": opt_step}
         fpb = self.rcfg.frame_block
         if train_generator:
@@ -723,8 +731,8 @@ class ScoreDistillationTrainer:
             self._update_ema(self._opt_step(step))
 
     def _close_step(self, metrics: Dict[str, Any], step: int) -> None:
-        if self.tcfg.phase_ledger:
-            metrics["phase_ms"] = dict(self.phase_ms)
+        if self.phase_timer is not None:
+            metrics["phase_ms"] = {k: sum(v) * 1e3 for k, v in self.phase_timer.phases.items()}
             metrics.update(self.page_bytes)
         self.page_bytes = {}
         self.state["step"] = step + 1
