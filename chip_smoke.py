@@ -20,7 +20,10 @@ Phases, each of which exits non-zero when it fails:
    teacher's B 2, 40-head shapes, K1 bias at the streaming recache's
    32760 over 32760, K2 at the one-frame decode's and encode's shapes, K1
    at the bidirectional samplers' B = 2 shapes: 32760 over 32760 and the
-   image cross-attention's 32760 over 257)
+   image cross-attention's 32760 over 257, K1 at the shapes one rank of an
+   sp group of 2 or 4 sees: the sp decode, 4680 over 18720 at 6 and 3
+   heads, and the sp sampler's self-attention, B 2, 32760 over 32760 at 6
+   and 3 heads)
    against its plain PyTorch version on the same
    inputs, with times of the kernel, the plain version, the least time the
    card could take, and one PyTorch library call computing the same
@@ -130,7 +133,14 @@ Phases, each of which exits non-zero when it fails:
    n. host optimiser: the streaming path's config and cut with
       ``opt_on_host`` and ``opt_async``, 3 steps;
    o. t2v offload: ``run_t2v --offload_blocks``, 2 steps and the decode,
-      its latents bit-equal to a resident run's.
+      its latents bit-equal to a resident run's;
+   p. multi-device at one rank: a one-rank NCCL group, over which the
+      main config's 15 frames run through ``sp_dit_forward_cached`` (the
+      pipeline with a mesh) against the single path with ``kernel_cache:
+      false``, and one t2v sampler step through ``sp_bidirectional_forward``
+      against ``bidirectional_forward`` (the same weights with non-zero
+      heads, noise and draws): bit-equal, or within 5e-2 with the reason
+      logged; each sp run's K1 launches checked.
 
 The last lines are the ``kernels`` JSON line, the card line, and
 ``{"ok": true, "device": {...}}``.
@@ -3742,6 +3752,182 @@ def run_host_optimiser_path(torch, A, VC, card: str) -> dict:
 OFFLOAD_STEPS = 2
 
 
+# K1 at the shapes one rank of an sp group sees (sp 2 and 4 of the 12
+# heads): the sp decode (a 3-frame block over the 12-frame cache, every key
+# valid, the standard cache layout) and the sp sampler's self-attention
+# (both CFG halves, 32760 over 32760): (label, B, query tokens, keys, heads).
+SP_ATTN_CASES = [
+    *((f"bias, sp decode at {n} heads (sp {12 // n}): 4680 over 18720", 1, 4680, 18720, n)
+      for n in (6, 3)),
+    *((f"bias, sp sampler self at {n} heads (sp {12 // n}): B 2, 32760 over 32760", 2, 32760,
+       32760, n) for n in (6, 3)),
+]
+
+
+def check_attention_sp(torch, A, entry):
+    """K1 at SP_ATTN_CASES against its plain version, a zero bias; the
+    cases join K1's bias entry.  ``library_ms`` is SDPA without a mask;
+    each bound counts every key (all valid)."""
+    import torch.nn.functional as F
+
+    d = 128
+    g = torch.Generator(device="cuda").manual_seed(31)
+    for label, b, sq, s, n in SP_ATTN_CASES:
+        q = torch.randn((b, sq, n, d), generator=g, device="cuda").to(torch.bfloat16)
+        k, v = (torch.randn((b * n, s, d), generator=g, device="cuda").to(torch.bfloat16)
+                for _ in range(2))
+        bias = torch.zeros((b, s), dtype=torch.float32, device="cuda")
+        before = A.mode_launches["bias"]
+        out = A.flash_attention(q, k, v, bias)
+        if A.mode_launches["bias"] != before + 1:
+            fail(f"flash_attention ({label}): not counted as a bias launch")
+        ref = A.flash_attention_plain(q, k, v, bias)
+        torch.cuda.synchronize()
+        if not torch.isfinite(out).all():
+            fail(f"flash_attention ({label}): non-finite output")
+        err, tol, rel = agreement(out, ref)
+        del ref
+        ms = cuda_ms(torch, lambda: A.flash_attention(q, k, v, bias), 5)
+        plain_ms = cuda_ms(torch, lambda: A.flash_attention_plain(q, k, v, bias), 1)
+        qt, kt, vt = q.transpose(1, 2), k.view(b, n, s, d), v.view(b, n, s, d)
+        lib_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt), 5)
+        t_bound, bound_by = bound(4.0 * b * n * sq * s * d,
+                                  2 * 2 * q.numel() + 2 * 2 * k.numel() + 4 * b * s)
+        log(f"flash_attention {label}: max_abs_err={err:.3e} tol={tol:.3e} "
+            f"rel_rms_err={rel:.3e} (limit {REL_RMS_LIMIT:.0e}) ms={ms:.4f} "
+            f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} bound_ms={t_bound:.4f} "
+            f"({bound_by}; {t_bound / ms:.1%} of bound)")
+        if not (err <= tol and rel <= REL_RMS_LIMIT):
+            fail(f"flash_attention ({label}) disagrees with its plain version: "
+                 f"max_abs_err {err} (limit {tol}), rel_rms_err {rel} (limit {REL_RMS_LIMIT})")
+        entry["cases"].append({"case": label, "mode": "bias", "q": [b, sq, n, d],
+                               "kv": [b * n, s, d], "max_abs_err": err, "tolerance": tol,
+                               "rel_rms_err": rel, "ms": ms, "plain_ms": plain_ms,
+                               "library_ms": lib_ms, "bound_ms": t_bound, "bound_by": bound_by})
+        if err / tol > entry["max_abs_err"] / entry["tolerance"]:
+            entry["max_abs_err"], entry["tolerance"] = err, tol
+        entry["rel_rms_err"] = max(entry["rel_rms_err"], rel)
+        del q, k, v, out, qt, kt, vt
+        torch.cuda.empty_cache()
+
+
+SP_LIMIT = 5e-2  # the small-reference limit, where the one-rank sp path is not bit-equal
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _sp_agreement(torch, label: str, got, want) -> dict:
+    """Bit-equal, or within SP_LIMIT (relative) with the reason logged."""
+    if torch.equal(got, want):
+        log(f"{label}: bit-equal to the single-card path")
+        return {"bit_equal": True, "rel_err": 0.0}
+    err = rel_err(got, want)
+    log(f"{label}: not bit-equal to the single-card path (rel_err {err:.3e}, limit "
+        f"{SP_LIMIT:.0e}): the sp path runs the same arithmetic on the same shapes and its "
+        "one-rank collectives are copies, so a difference is another kernel or GEMM "
+        "choice for a tensor of another stride")
+    if not err <= SP_LIMIT:
+        fail(f"{label}: the one-rank sp path disagrees with the single-card path: rel_err "
+             f"{err} (limit {SP_LIMIT})")
+    return {"bit_equal": False, "rel_err": err}
+
+
+def run_sp_one_rank_path(torch, A, VC) -> dict:
+    """Multi-device at one rank: a one-rank NCCL group (a free localhost
+    port), over which the sequence-parallel code runs at full width with its
+    collectives (all-to-alls and all-gathers of one rank): the main
+    config's 15 frames through ``CausalInferencePipeline(mesh=...)``
+    (``sp_dit_forward_cached``) against the single path with
+    ``kernel_cache: false``, and one step of the t2v sampler (832x480, 81
+    frames, both CFG halves) through ``sp_bidirectional_forward`` against
+    ``bidirectional_forward``; the same random weights (non-zero heads),
+    noise and draws.  Each sp run's launches are counted on their own."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from longlive_torch.parallel import mesh as pm
+    from longlive_torch.pipeline import CausalInferencePipeline, Text2VideoPipeline
+
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{_free_port()}", rank=0,
+                            world_size=1, timeout=datetime.timedelta(seconds=300))
+    try:
+        mesh = pm.make_mesh(dp=1, fsdp=1, sp=1, device_type="cuda")
+        out = {"backend": dist.get_backend(pm.axis_group(mesh, "sp"))}
+        frames, dv = 15, derived()
+        with random_base_dit(torch):
+            config, cfg, params, conds, noise, _ = _cli_inputs(torch, "longlive_inference.yaml",
+                                                               frames, 1)
+        single = CausalInferencePipeline(dataclasses.replace(config, kernel_cache=False),
+                                         params, device="cuda")
+        sp = CausalInferencePipeline(dataclasses.replace(config, kernel_cache=None), params,
+                                     device="cuda", mesh=mesh)
+        cross = single.prepare_condition(conds[0])
+
+        def generate(pipe, counted=False):
+            """(latents, warm ms per latent frame): an untimed run first (the
+            first collective creates the NCCL communicator, ~1 s)."""
+            def run():
+                g = torch.Generator(device="cuda").manual_seed(config.seed)
+                return pipe.generate_latents(noise, cross, generator=g)
+
+            run()
+            torch.cuda.synchronize()
+            if counted:
+                reset_counts(A, VC)
+            t0 = time.perf_counter()
+            lat = run()
+            torch.cuda.synchronize()
+            return lat, (time.perf_counter() - t0) / frames * 1e3
+
+        want, single_ms = generate(single)
+        got, sp_ms = generate(sp, counted=True)
+        launches = counts(A, VC)
+        check_counts("sp decode (one rank)", launches, expect(bias=(frames // 3) * dv["block"]))
+        if tuple(got.shape) != (1, frames, 16, 60, 104) or not torch.isfinite(got).all():
+            fail(f"sp decode (one rank): latents {tuple(got.shape)}, finite "
+                 f"{bool(torch.isfinite(got).all())}")
+        out["decode"] = {**_sp_agreement(torch, "sp decode (one rank), 15 frames", got, want),
+                         "sp_ms_per_latent_frame": sp_ms,
+                         "single_ms_per_latent_frame": single_ms, "launches": launches}
+        log(f"sp decode (one rank): {sp_ms:.2f} ms/latent-frame (wall of a warm run, generation "
+            f"only) against the single path's {single_ms:.2f}")
+        del single, sp, want, got, cross
+        torch.cuda.empty_cache()
+
+        tcfg = dataclasses.replace(cfg, local_attn_size=-1, sink_size=0)
+        lat = torch.randn((1, 21, 16, 60, 104), generator=torch.Generator(device="cuda")
+                          .manual_seed(7), device="cuda").to(torch.bfloat16)
+        step = {}
+        for name, mesh_ in (("single", None), ("sp", mesh)):
+            pipe = Text2VideoPipeline(params, tcfg, device="cuda", mesh=mesh_)
+            model_fn, _ = pipe.prepare_sampler(conds[0].to(torch.bfloat16),
+                                               torch.zeros_like(conds[0]).to(torch.bfloat16))
+            if name == "sp":
+                reset_counts(A, VC)
+            step[name] = timed_once(torch, lambda: model_fn(lat, 999.0))
+            if name == "sp":
+                launches = counts(A, VC)
+                check_counts("sp t2v step (one rank)", launches, expect(bias=30, cross=30))
+        (got, sp_step_ms), (want, single_step_ms) = step["sp"], step["single"]
+        if not torch.isfinite(got).all():
+            fail("sp t2v step (one rank): non-finite flow")
+        out["t2v_step"] = {**_sp_agreement(torch, "sp t2v step (one rank)", got, want),
+                           "sp_ms": sp_step_ms, "single_ms": single_step_ms,
+                           "launches": launches}
+        log(f"sp t2v step (one rank): {sp_step_ms:.1f} ms against the single path's "
+            f"{single_step_ms:.1f} (device time, one guided forward of B 2)")
+        return out
+    finally:
+        dist.destroy_process_group()
+
+
 def run_t2v_offload_path(torch, A, VC) -> dict:
     """``run_t2v`` with ``--offload_blocks`` at the t2v path's shape
     (832x480, 81 frames), OFFLOAD_STEPS UniPC steps and the decode: the
@@ -4148,6 +4334,7 @@ def main() -> None:
                check_res_block_pair(torch, VC), check_int8_linear(torch, Q)]
     check_attention_cross(torch, A, k1)
     check_attention_bidirectional(torch, A, k1)
+    check_attention_sp(torch, A, k1)
     check_attention_edges(torch, A, k1)
     entries.append(check_frame_masked(torch, A))
     entries += check_train_attention(torch, A)
@@ -4228,7 +4415,11 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     paths["t2v offload"] = run_t2v_offload_path(torch, A, VC)
+    gc.collect()
+    torch.cuda.empty_cache()
+    sp_one_rank = run_sp_one_rank_path(torch, A, VC)
     log("paths: " + json.dumps(paths))
+    log("multi-device at one rank: " + json.dumps(sp_one_rank))
     log("small renderer reference: " + json.dumps(renderer_ref))
     log("eval: " + json.dumps(evaluation))
     log("small int8 reference: " + json.dumps(int8_ref))

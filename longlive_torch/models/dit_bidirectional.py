@@ -74,10 +74,13 @@ def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, attn_impl: str,
 def _bidi_block(x: torch.Tensor, layer_p: dict, ck: torch.Tensor, cv: torch.Tensor,
                 e0: torch.Tensor, rope_cos: torch.Tensor, rope_sin: torch.Tensor,
                 cfg: DiTConfig, attn_impl: str, cki: Optional[torch.Tensor] = None,
-                cvi: Optional[torch.Tensor] = None) -> torch.Tensor:
+                cvi: Optional[torch.Tensor] = None, self_attend=None) -> torch.Tensor:
     """One bidirectional attention block; x [B, S, dim], e0 [B, 6, dim].
     With the image branch's K/V (``cki``, ``cvi``), its attention is added
-    to the text attention's output before the shared ``o`` projection."""
+    to the text attention's output before the shared ``o`` projection.
+    ``self_attend(q, k, v)`` replaces the self-attention's route (the
+    sequence-parallel forward's all-to-all attention; x is then this rank's
+    token shard)."""
     b, s, _ = x.shape
     n, hd = cfg.num_heads, cfg.head_dim
     em = layer_p["modulation"][None].to(e0.dtype) + e0
@@ -93,7 +96,8 @@ def _bidi_block(x: torch.Tensor, layer_p: dict, ck: torch.Tensor, cv: torch.Tens
     v = nn.linear(hh, sa["v"]).reshape(b, s, n, hd)
     q = apply_rotary(q.reshape(b, s, n, hd), rope_cos, rope_sin, layout=cfg.rope_layout)
     k = apply_rotary(k.reshape(b, s, n, hd), rope_cos, rope_sin, layout=cfg.rope_layout)
-    y = _attend(q, k, v, attn_impl, cross=False)
+    y = (_attend(q, k, v, attn_impl, cross=False) if self_attend is None
+         else self_attend(q, k, v))
     x = x + nn.linear(y.reshape(b, s, n * hd), sa["o"]) * e_[2]
 
     norm3 = layer_p.get("norm3")

@@ -20,6 +20,13 @@ the denoise passes commit nothing and the commit (or, under
 once after it.  The recaches pass explicit cache plumbing and keep the
 write-then-attend form.
 
+Sequence-parallel decode (``mesh``): every forward -- denoise, commit and
+recache -- goes through ``parallel.decode_sp.sp_dit_forward_cached`` over
+the mesh's ``sp`` group, in the write-then-attend form, against this rank's
+head slice of the cache; every rank of the group holds the same latents.
+``kv_int8`` and ``kernel_cache: true`` are refused with a mesh, and an
+unset ``kernel_cache`` resolves to off, as in the JAX package.
+
 Quantized serving: ``kv_int8`` stores the cache's K as int8 with per-token
 scales (attention then runs QK^T in int8 and q's RoPE is not fused);
 ``recache_attn_impl: pallas_qk8`` runs the one-shot recache forwards with
@@ -41,6 +48,7 @@ from ..models import dit as D
 from ..ops import kv_cache as kvc
 from ..ops import scheduler as S
 from ..ops.rope import make_rope_tables
+from ..parallel.decode_sp import init_sp_cache, sp_dit_forward_cached
 from ..utils.device import resolve_device
 
 
@@ -147,12 +155,15 @@ class CausalInferencePipeline:
     """Block-by-block AR generation with a frame-sink + ring-window cache.
 
     ``params``: a DiT parameter dict (models.dit.init_dit_params or
-    utils.params.dit_params_from_jax) on ``device``."""
+    utils.params.dit_params_from_jax) on ``device``.  ``mesh``: a
+    ``parallel.mesh.make_mesh`` mesh whose ``sp`` group runs the forwards
+    sequence-parallel (at any size: over one rank it gives the single-card
+    path's bits)."""
 
     def __init__(self, config: PipelineConfig, params: dict,
                  geometry: LatentGeometry = LatentGeometry(),
                  dit_config: Optional[DiTConfig] = None, device="cuda",
-                 deterministic_renoise: bool = False):
+                 deterministic_renoise: bool = False, mesh=None):
         self.config = config
         self.params = params
         self.geom = geometry
@@ -161,6 +172,15 @@ class CausalInferencePipeline:
         # zero re-noise between denoise steps: removes the only RNG-dependent
         # part of the block step (cross-framework parity tests)
         self.deterministic_renoise = deterministic_renoise
+        # sequence-parallel decode over the mesh's sp group (parallel.decode_sp)
+        if mesh is not None and config.kv_int8:
+            raise ValueError("kv_int8 is a single-device serving knob; the sp decode path "
+                             "keeps the bf16 cache")
+        if mesh is not None and config.kernel_cache:
+            raise ValueError("kernel_cache is a single-device bf16 serving mode (no mesh, "
+                             "no kv_int8)")
+        self.sp_group = None if mesh is None else mesh.get_group("sp")
+        self.sp = 1 if mesh is None else mesh["sp"].size()
 
         self.sched = S.make_schedule(1000, shift=config.timestep_shift, sigma_min=0.0,
                                      extra_one_step=True, training=True)
@@ -187,11 +207,11 @@ class CausalInferencePipeline:
         # JAX package's checks.
         kc = config.kernel_cache
         if kc is None:
-            kc = self._contig and not config.kv_int8
+            kc = self._contig and not config.kv_int8 and mesh is None
         elif kc:
             if config.kv_int8:
                 raise ValueError("kernel_cache is a single-device bf16 serving mode "
-                                 "(sp == 1, no kv_int8)")
+                                 "(no mesh, no kv_int8)")
             if not self._contig:
                 raise ValueError(
                     "kernel_cache requires the contiguous-ring invariant "
@@ -212,6 +232,13 @@ class CausalInferencePipeline:
     def _forward(self, params, x, t_val, cross_kv, cache, start_frame, **kw):
         b, f = x.shape[:2]
         t = torch.full((b, f), t_val, dtype=torch.float32, device=x.device)
+        if self.sp_group is not None:
+            # the sp path keeps write-then-attend, q's RoPE unfused
+            for key in ("commit_writes", "fused_rope", "kernel_cache", "serving_two_segment"):
+                kw.pop(key, None)
+            return sp_dit_forward_cached(params, self.cfg, self.cache_cfg, self.tables,
+                                         self.sp_group, x, t, cross_kv, cache, start_frame,
+                                         **kw)
         kw.setdefault("fused_rope", self.config.fused_rope)
         kw.setdefault("kernel_cache", self.kernel_cache)
         return D.dit_forward_cached(params, self.cfg, self.cache_cfg, self.tables,
@@ -265,6 +292,10 @@ class CausalInferencePipeline:
         return x0, cache
 
     def init_cache(self, batch_size: int, dtype=None) -> kvc.KVCache:
+        if self.sp_group is not None:
+            return init_sp_cache(self.cache_cfg, self.cfg.num_layers, batch_size,
+                                 self.cfg.num_heads, self.cfg.head_dim, self.sp,
+                                 dtype or self.dtype, self.device)
         return kvc.init_cache(self.cache_cfg, self.cfg.num_layers, batch_size,
                               self.cfg.num_heads, self.cfg.head_dim,
                               dtype or self.dtype, self.device, k_int8=self.config.kv_int8)

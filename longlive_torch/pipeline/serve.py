@@ -11,6 +11,10 @@ n's generation, in the serial path's order.  On a card each sample decodes
 as its own B = 1 chain, as ``run_inference``'s serial path decodes, so K2
 takes every conv it takes there and the pixels are that path's, bit for
 bit.
+
+Over a sequence-parallel pipeline (built with a ``mesh``) every rank of the sp group
+generates, and holds the full latents after the flow's all-gather; only the
+group's rank 0 decodes, and the others' ``render`` returns None.
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ import contextlib
 from typing import Callable, List, Optional, Union
 
 import torch
+import torch.distributed as dist
 
 from ..models import dit as D
 from ..models import vae as V
@@ -74,6 +79,8 @@ class PipelinedRenderer:
         self.decode_device = _decode_device(pipe, decode_device)
         dev = self.decode_device
         self.vae_params = map_tree(lambda t: t if t.device == dev else t.to(dev), vae_params)
+        # under sp, the group's rank 0 alone decodes
+        self.decodes = pipe.sp_group is None or dist.get_rank(pipe.sp_group) == 0
 
     def _decode(self, lat: torch.Tensor, caches, first: bool):
         """(pixels, caches) of one segment's latents, on the current stream."""
@@ -93,9 +100,10 @@ class PipelinedRenderer:
     def render(self, noise: torch.Tensor, cross_kv: D.CrossKV,
                generator: Optional[torch.Generator] = None, dtype=torch.bfloat16,
                poll_switch: Optional[Callable[[int], Optional[D.CrossKV]]] = None
-               ) -> torch.Tensor:
+               ) -> Optional[torch.Tensor]:
         """noise [B, T, C, H, W] -> pixels [B, 1 + 4 (T - 1), 3, H*8, W*8]
-        in [-1, 1], on the decode device.
+        in [-1, 1], on the decode device (None on an sp rank that does not
+        decode).
 
         ``poll_switch(segment_start_frame)``: consulted before each segment;
         a CrossKV it returns is an unscheduled prompt switch, applied through
@@ -127,12 +135,14 @@ class PipelinedRenderer:
                                                        generator, cache, start)
             if poll_switch is not None:
                 hist = (lat if hist is None else torch.cat([hist, lat], dim=1))[:, -window:]
+            first, start = start == 0, start + n
+            if not self.decodes:
+                continue
             lat = lat.to(dtype)
             dev = self.decode_device
             with torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext():
                 # a copy to another card does not block the host
                 lat = lat.to(dev, non_blocking=lat.device.type == dev.type == "cuda")
-                px, vae_caches = self._decode(lat, vae_caches, start == 0)
+                px, vae_caches = self._decode(lat, vae_caches, first)
             pixel_segs.append(px)
-            start += n
-        return torch.cat(pixel_segs, dim=1)
+        return torch.cat(pixel_segs, dim=1) if self.decodes else None

@@ -19,6 +19,7 @@ from ..models.dit import CrossKV, prepare_cross_kv
 from ..models.dit_bidirectional import bidirectional_forward, bidirectional_forward_streamed
 from ..ops import solvers as SV
 from ..ops.rope import make_rope_tables
+from ..parallel.sequence import sp_bidirectional_forward
 from ..utils.device import resolve_device
 from ..utils.memory import blocks_to_host, fetch_from_host
 
@@ -74,13 +75,15 @@ def prepare_condition(params: dict, cfg: DiTConfig, prompt_embeds: torch.Tensor,
 
 def guided_sampler(params: dict, cfg: DiTConfig, tables, guide_scale: float,
                    cross_both: CrossKV, cross_img: Optional[CrossKV] = None,
-                   cond_latents: Optional[torch.Tensor] = None, streamed: bool = False):
+                   cond_latents: Optional[torch.Tensor] = None, streamed: bool = False,
+                   sp_group=None):
     """``model_fn(x, t)`` for ``sample_flow``: x [B, ...] twice in one batch
     (cond then uncond, ``cross_both`` holding both prompts' K/V), with
     ``cond_latents`` [2B, F, C', H, W] appended on the channel axis (i2v),
     combined as uncond + guide_scale * (cond - uncond).  ``streamed``: the
     blocks live on the host (``bidirectional_forward_streamed``; t2v
-    only)."""
+    only).  ``sp_group``: the forward runs sequence-parallel over it
+    (``parallel.sequence.sp_bidirectional_forward``; t2v only)."""
 
     def model_fn(x: torch.Tensor, t: float) -> torch.Tensor:
         b = x.shape[0]
@@ -90,6 +93,8 @@ def guided_sampler(params: dict, cfg: DiTConfig, tables, guide_scale: float,
         tt = torch.full((2 * b,), t, dtype=torch.float32, device=x.device)
         if streamed:
             out = bidirectional_forward_streamed(params, cfg, tables, xx, tt, cross_both)
+        elif sp_group is not None:
+            out = sp_bidirectional_forward(params, cfg, tables, sp_group, xx, tt, cross_both)
         else:
             out = bidirectional_forward(params, cfg, tables, xx, tt, cross_both,
                                         cross_kv_img=cross_img)
@@ -111,14 +116,18 @@ class Text2VideoPipeline:
     (``utils.memory.blocks_to_host``) and come to the card one layer ahead
     of their compute (``bidirectional_forward_streamed``); the prompts'
     cross-attention K/V are computed once by the same arithmetic as the
-    resident sampler's, so the latents are the same bits.  ``mesh`` (sequence parallelism) is not ported: ROADMAP
-    queue 1, item 8."""
+    resident sampler's, so the latents are the same bits.  ``mesh``: a
+    ``parallel.mesh.make_mesh`` mesh whose ``sp`` group runs every forward
+    sequence-parallel (Ulysses, ``parallel.sequence``); every rank of the
+    group draws the same noise and holds the same latents.  It does not
+    combine with ``offload_blocks``, which streams layers onto one card."""
 
     def __init__(self, params: dict, cfg: DiTConfig, mesh=None, offload_blocks: bool = False,
                  device="cuda"):
-        if mesh is not None:
-            raise NotImplementedError("sequence parallelism (mesh / --sp > 1) is not ported "
-                                      "yet: ROADMAP queue 1, item 8")
+        if mesh is not None and offload_blocks:
+            raise ValueError("offload_blocks streams layers on one device; it composes with "
+                             "prompt rows sharded over ranks, not with sp")
+        self.sp_group = None if mesh is None else mesh.get_group("sp")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.offload_blocks = offload_blocks
@@ -146,7 +155,7 @@ class Text2VideoPipeline:
         both = concat_cross(self.prepare_condition(cond_embeds),
                             self.prepare_condition(null_embeds))
         return (guided_sampler(self.params, self.cfg, self.tables, guide_scale, both,
-                               streamed=self.offload_blocks),
+                               streamed=self.offload_blocks, sp_group=self.sp_group),
                 SV.make_coefficients(solver, sampling_steps, shift))
 
     @torch.no_grad()

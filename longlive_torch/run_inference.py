@@ -17,6 +17,13 @@ as JAX's renderer runs on its generation chip.  On a card each of
 ``num_samples`` streams decodes alone, as the serial path decodes, and the
 pixels are that path's; ``--per_stream_decode`` asks for that form on the
 CPU too.
+
+Several cards: ``torchrun --nproc_per_node N -m longlive_torch.run_inference
+... --sp P`` runs N / P groups of P ranks; each group renders its share of
+the prompt rows (round robin), its DiT sequence-parallel over its P cards
+(``parallel.decode_sp``), and only the group's rank 0 decodes and writes,
+with its rank in the file name.  ``--sp`` must divide N; sp refuses
+``kv_int8`` and ``kernel_cache: true``.
 """
 
 from __future__ import annotations
@@ -32,6 +39,7 @@ import torch
 from .config import LatentGeometry, load_pipeline_config, tiny_dit_config, tiny_geometry
 from .models import dit as D
 from .models import vae as V
+from .parallel import mesh as pm
 from .pipeline import CausalInferencePipeline, PipelinedRenderer
 from .utils import loading
 from .utils.dataset import TextDataset, shard
@@ -43,7 +51,8 @@ def main(argv=None):
     """Returns one record per written video: {"path", "latents", "pixels",
     "decode_s", "render_s"}: ``render_s`` is the wall time of generation and
     decode; pipelined (``--decode_device``), "latents" and "decode_s" are
-    None."""
+    None.  An sp rank that does not write returns one record per row with
+    its latents and None elsewhere."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--config_path", required=True)
     ap.add_argument("--use_ema", action="store_true")
@@ -65,12 +74,12 @@ def main(argv=None):
                     help="torch device to run on (default cuda)")
     args = ap.parse_args(argv)
 
-    try:  # before any parameter is built
-        device = resolve_device(args.device)
-    except RuntimeError as e:
+    try:  # before any parameter is built; under torchrun, this rank's card
+        mesh, device, group, groups, writes = pm.serving_ranks(args.sp,
+                                                               resolve_device(args.device))
+    except (RuntimeError, pm.LayoutError) as e:
         sys.exit(f"error: {e}")
-    if args.sp > 1:
-        raise NotImplementedError("--sp > 1 is not ported yet: ROADMAP queue 1, item 8")
+    rank = pm.global_rank()
     if args.decode_device is not None:
         n_dev = torch.cuda.device_count() if device.type == "cuda" else 1
         if not 0 <= args.decode_device < n_dev:
@@ -106,7 +115,7 @@ def main(argv=None):
     text_encoder = loading.load_text_encoder(config, dtype, device)
 
     pipe = CausalInferencePipeline(config, params, geometry=geom, dit_config=cfg,
-                                   device=device)
+                                   device=device, mesh=mesh)
     renderer = None
     if args.decode_device is not None:
         renderer = PipelinedRenderer(
@@ -115,7 +124,7 @@ def main(argv=None):
             per_stream_decode=args.per_stream_decode)
 
     if config.data_path and os.path.exists(config.data_path) and text_encoder:
-        rows = shard(TextDataset(config.data_path), 0, 1)
+        rows = shard(TextDataset(config.data_path), group, groups)
     else:
         rows = [{"prompts": "(random prompt embedding)", "idx": 0}]
     if args.max_prompts:
@@ -149,27 +158,34 @@ def main(argv=None):
         if renderer is not None:
             pixels = renderer.render(noise, cross, generator=gen, dtype=dtype)
             sync()
-            if pixels.device != device:  # decoded on another card
+            if pixels is not None and pixels.device != device:  # decoded on another card
                 torch.cuda.synchronize(pixels.device)
         else:
             latents = pipe.generate_latents(noise, cross, generator=gen,
                                             profile=config.profile)
-            t0 = time.perf_counter()
-            pixels = torch.cat([V.vae_decode_scan(vae_params, vcfg,
-                                                  latents[i:i + 1].to(dtype))[0]
-                                for i in range(ns)], dim=0)
-            sync()
-            decode_s = time.perf_counter() - t0
+            if mesh is not None:
+                pm.check_replicated(latents, pipe.sp_group, "the latents")
+            if writes:
+                t0 = time.perf_counter()
+                pixels = torch.cat([V.vae_decode_scan(vae_params, vcfg,
+                                                      latents[i:i + 1].to(dtype))[0]
+                                    for i in range(ns)], dim=0)
+                sync()
+                decode_s = time.perf_counter() - t0
         render_s = time.perf_counter() - t_render
+        if not writes:  # an sp rank past its group's first: generation only
+            results.append({"path": None, "pixels": None, "latents": latents,
+                            "decode_s": None, "render_s": render_s})
+            continue
         if config.profile and latents is not None:
             print(f"[profile] vae decode {decode_s / latents.shape[1] * 1e3:.2f} "
                   f"ms/latent-frame ({latents.shape[1]} latent frames)")
         for seed_idx in range(ns):
             if config.save_with_index:
-                name = f"rank0-{row['idx']}-{seed_idx}_{model_type}.mp4"
+                name = f"rank{rank}-{row['idx']}-{seed_idx}_{model_type}.mp4"
             else:
                 stem = row["prompts"][:100].replace(os.sep, "_")
-                name = f"rank0-{stem}-{seed_idx}.mp4"
+                name = f"rank{rank}-{stem}-{seed_idx}.mp4"
             path = write_video(os.path.join(out_dir, name),
                                to_video_array(pixels[seed_idx:seed_idx + 1]), fps=16)
             print(f"wrote {path}")

@@ -10,6 +10,12 @@ the T5's weights then move to the host's memory.  ``tiny_debug: true`` in
 the config runs the tiny model and geometry (smoke runs).  With
 ``profile: true`` the one-shot recache loop runs and prints the switch
 stall; otherwise the eager-recache production loop runs.
+
+Several cards: ``torchrun --nproc_per_node N -m
+longlive_torch.run_interactive ... --sp P`` as ``run_inference``: N / P
+groups each serve their share of the rows (switches included, each group
+on its own: no collective between groups), sequence-parallel over their P
+cards; each group's rank 0 decodes and writes.
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ import torch
 from .config import LatentGeometry, load_pipeline_config, tiny_dit_config, tiny_geometry
 from .models import dit as D
 from .models import vae as V
+from .parallel import mesh as pm
 from .pipeline import InteractiveCausalInferencePipeline
 from .utils import loading
 from .utils.dataset import MultiTextDataset, shard
@@ -34,7 +41,8 @@ from .utils.video_io import to_video_array, write_video
 
 def main(argv=None):
     """Returns one record per written video: {"path", "latents", "pixels",
-    "decode_s"}."""
+    "decode_s"} (an sp rank that does not write: one per row, with its
+    latents and None elsewhere)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--config_path", required=True)
     ap.add_argument("--use_ema", action="store_true")
@@ -46,12 +54,12 @@ def main(argv=None):
                     help="torch device to run on (default cuda)")
     args = ap.parse_args(argv)
 
-    try:  # before any parameter is built
-        device = resolve_device(args.device)
-    except RuntimeError as e:
+    try:  # before any parameter is built; under torchrun, this rank's card
+        mesh, device, group, groups, writes = pm.serving_ranks(args.sp,
+                                                               resolve_device(args.device))
+    except (RuntimeError, pm.LayoutError) as e:
         sys.exit(f"error: {e}")
-    if args.sp > 1:
-        raise NotImplementedError("--sp > 1 is not ported yet: ROADMAP queue 1, item 8")
+    rank = pm.global_rank()
 
     config = load_pipeline_config(args.config_path)
     if args.num_output_frames:
@@ -76,11 +84,11 @@ def main(argv=None):
     text_encoder = loading.load_text_encoder(config, dtype, device)
 
     pipe = InteractiveCausalInferencePipeline(config, params, geometry=geom, dit_config=cfg,
-                                              device=device)
+                                              device=device, mesh=mesh)
     switch_indices = list(config.switch_frame_indices)
 
     if config.data_path and os.path.exists(config.data_path) and text_encoder:
-        rows = shard(MultiTextDataset(config.data_path), 0, 1)
+        rows = shard(MultiTextDataset(config.data_path), group, groups)
     else:
         rows = [{"prompts": ["(random)"] * (len(switch_indices) + 1), "idx": 0}]
     if args.max_prompts:
@@ -116,6 +124,12 @@ def main(argv=None):
         else:
             latents = pipe.generate_latents_interactive_scanned(noise, cross_list,
                                                                 switch_indices, generator=gen)
+        if mesh is not None:
+            pm.check_replicated(latents, pipe.sp_group, "the latents")
+        if not writes:  # an sp rank past its group's first: generation only
+            results.append({"path": None, "latents": latents, "pixels": None,
+                            "decode_s": None})
+            continue
         t0 = time.perf_counter()
         pixels = V.vae_decode_scan(vae_params, vcfg, latents.to(dtype))[0]
         if device.type == "cuda":
@@ -125,10 +139,10 @@ def main(argv=None):
             print(f"[profile] vae decode {decode_s / latents.shape[1] * 1e3:.2f} "
                   f"ms/latent-frame ({latents.shape[1]} latent frames)")
         if config.save_with_index:
-            name = f"rank0-{row['idx']}-0_{model_type}.mp4"
+            name = f"rank{rank}-{row['idx']}-0_{model_type}.mp4"
         else:  # the first segment's prompt names the video
             stem = row["prompts"][0][:100].replace(os.sep, "_")
-            name = f"rank0-{stem}-0.mp4"
+            name = f"rank{rank}-{stem}-0.mp4"
         path = write_video(os.path.join(out_dir, name), to_video_array(pixels), fps=16)
         print(f"wrote {path}")
         results.append({"path": path, "latents": latents, "pixels": pixels,

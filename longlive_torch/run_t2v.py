@@ -38,6 +38,7 @@ from .models import dit as D
 from .models import vae as V
 from .pipeline.image2video import Image2VideoPipeline, encode_first_frame_condition
 from .ops import solvers as SV
+from .parallel import mesh as pm
 from .pipeline.text2video import DEFAULT_NEGATIVE_PROMPT, Text2VideoPipeline, initial_noise
 from .utils import loading
 from .utils.device import resolve_device
@@ -70,7 +71,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--output", default="videos/t2v.mp4")
     ap.add_argument("--sp", type=int, default=1,
-                    help="sequence-parallel degree (t2v only; not ported)")
+                    help="sequence-parallel degree over torchrun's ranks (t2v only)")
     ap.add_argument("--offload_blocks", action="store_true",
                     help="keep the DiT's blocks in host memory and stream them to the "
                          "device per layer (text-to-video)")
@@ -90,13 +91,19 @@ def generate(args: argparse.Namespace, image: Optional[np.ndarray] = None) -> di
     [-1, 1] (``_read_image``'s output) switches to image-to-video.  Returns
     {"path", "latents", "pixels", "condition_s" (the prompts' K/V and, for
     i2v, CLIP and the first-frame encode), "sample_s" (the solver's steps
-    alone), "ms_per_step", "decode_s"}."""
-    device = resolve_device(args.device)
-    if args.sp > 1:
-        raise NotImplementedError("--sp > 1 is not ported yet: ROADMAP queue 1, item 8")
+    alone), "ms_per_step", "decode_s"}; on a rank that does not write
+    (``--sp`` under torchrun: every rank but 0) "path", "pixels" and
+    "decode_s" are None.  ``--sp P``: the sampler's forwards run
+    sequence-parallel over P ranks (``parallel.sequence``); the world
+    must be a multiple of P (each group renders the prompt; rank 0
+    writes)."""
+    i2v = image is not None
+    if i2v and args.sp > 1:
+        raise ValueError("--sp runs the text-to-video sampler only, as in the JAX package")
+    mesh, device, _, _, writes = pm.serving_ranks(args.sp, resolve_device(args.device))
+    writes = writes and pm.is_main_process()  # one prompt: rank 0 alone writes
     dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
     w, h = (int(x) for x in args.size.split("x"))
-    i2v = image is not None
     if i2v and args.offload_blocks:
         raise NotImplementedError("--offload_blocks streams the text-to-video sampler only, as "
                                   "in the JAX package")
@@ -159,7 +166,8 @@ def generate(args: argparse.Namespace, image: Optional[np.ndarray] = None) -> di
         pipe = Image2VideoPipeline(params, cfg, device=device)
         model_fn, coeffs = pipe.prepare_sampler(cond, null, clip_fea, y, **sampling)
     else:
-        pipe = Text2VideoPipeline(params, cfg, device=device, offload_blocks=args.offload_blocks)
+        pipe = Text2VideoPipeline(params, cfg, device=device, offload_blocks=args.offload_blocks,
+                                  mesh=mesh)
         del params  # with offload_blocks the pipeline holds the blocks on the host
         model_fn, coeffs = pipe.prepare_sampler(cond, null, **sampling)
     gen = torch.Generator(device=device).manual_seed(args.seed)
@@ -170,6 +178,12 @@ def generate(args: argparse.Namespace, image: Optional[np.ndarray] = None) -> di
         latents = SV.sample_flow(model_fn, noise.to(torch.bfloat16), coeffs)
     _sync(device)
     t2 = time.perf_counter()
+    if mesh is not None:
+        pm.check_replicated(latents, pipe.sp_group, "the latents")
+    if not writes:  # generation only; rank 0 decodes and writes
+        return {"path": None, "latents": latents, "pixels": None, "condition_s": t1 - t0,
+                "sample_s": t2 - t1, "ms_per_step": (t2 - t1) / args.steps * 1e3,
+                "decode_s": None}
     pixels = V.vae_decode(vae_params, vcfg, latents.to(dtype))
     _sync(device)
     t3 = time.perf_counter()
@@ -191,7 +205,10 @@ def main(argv=None):
     except RuntimeError as e:
         sys.exit(f"error: {e}")
     image = _read_image(args.image) if args.image is not None else None
-    return generate(args, image)
+    try:
+        return generate(args, image)
+    except pm.LayoutError as e:
+        sys.exit(f"error: {e}")
 
 
 if __name__ == "__main__":

@@ -17,8 +17,16 @@ and ``--device cpu`` the plain PyTorch paths.  Auto-resume restores the
 latest checkpoint under ``--logdir`` (adapters and their optimiser states
 included, and the loader's position) unless ``--no_auto_resume``; a
 streaming run resumes at the start of a new sequence (the sequence's state
-is not in the checkpoint).  More than one process is not ported yet and
-raises NotImplementedError.
+is not in the checkpoint).
+
+Several cards: ``torchrun --nproc_per_node N -m longlive_torch.run_train
+...``; the YAML's ``parallel: {dp, fsdp}`` lays the N ranks out (default:
+all on fsdp; dp x fsdp must be N).  Every rank loads the models and keeps
+its fsdp shards (``training.trainer``); the global batch
+(``image_or_video_shape[0]``) and the prompt rows are split over dp, each
+dp rank's noise drawn from the step's stream with its index folded in;
+rank 0 alone prints, logs and writes the checkpoint (the whole trees, so
+it loads on any number of ranks); the loader's position is kept per rank.
 """
 
 from __future__ import annotations
@@ -37,6 +45,7 @@ from .config import (WAN_MODEL_CONFIGS, LatentGeometry, pipeline_config_from_dic
                      tiny_dit_config, tiny_geometry, warn_unknown_keys)
 from .models import dit as D
 from .models import vae as V
+from .parallel import mesh as pm
 from .training import lora as lora_mod
 from .training.streaming import StreamingConfig, StreamingTrainer
 from .training.trainer import ScoreDistillationTrainer, TrainerConfig, map_tree
@@ -161,15 +170,24 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     try:
-        device = resolve_device(args.device)
+        # under torchrun: this rank's card and the process group
+        _, world, device = pm.init_distributed(resolve_device(args.device))
     except RuntimeError as e:
         sys.exit(f"error: {e}")
-    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
-        raise NotImplementedError("multi-process training is not ported yet: "
-                                  "ROADMAP queue 1, item 8")
     with open(args.config_path) as f:
         raw = yaml.safe_load(f)
-    warn_unknown_keys(raw, source=args.config_path)
+    if pm.is_main_process():
+        warn_unknown_keys(raw, source=args.config_path)
+    # the mesh: parallel: {dp, fsdp} (default: every rank on fsdp), one rank
+    # without torchrun
+    par = raw.get("parallel") or {}
+    dp = int(par.get("dp", 1))
+    fsdp = int(par.get("fsdp", max(world // dp, 1)))
+    if dp * fsdp != world:
+        sys.exit(f"error: parallel: dp {dp} x fsdp {fsdp} needs {dp * fsdp} ranks, this run "
+                 f"has {world}: start it with torchrun --nproc_per_node {dp * fsdp}")
+    mesh = pm.make_mesh(dp=dp, fsdp=fsdp, sp=1, device_type=device.type) if world > 1 else None
+    dp_rank = pm.axis_rank(mesh, "dp")
     pconfig = pipeline_config_from_dict(raw)
     tcfg = build_trainer_config(raw)
     tiny = bool(raw.get("tiny_debug"))
@@ -211,17 +229,20 @@ def main(argv=None):
             train_first_chunk=bool(raw.get("train_first_chunk", True)))
         trainer = StreamingTrainer(tcfg, dit_cfg, geom, gen_params, critic_params,
                                    teacher_params, teacher_cfg=teacher_cfg, device=device,
-                                   streaming_cfg=scfg, vae_params=vae_params, vae_cfg=vcfg)
+                                   streaming_cfg=scfg, vae_params=vae_params, vae_cfg=vcfg,
+                                   mesh=mesh)
     else:
         trainer = ScoreDistillationTrainer(tcfg, dit_cfg, geom, gen_params, critic_params,
                                            teacher_params, teacher_cfg=teacher_cfg,
-                                           device=device)
+                                           device=device, mesh=mesh)
+    del gen_params, critic_params, teacher_params  # the trainer holds its shards
 
     if not args.no_auto_resume:
         restored = train_state.restore_train_state(args.logdir)
         if restored is not None:
             trainer.load_state_dict(restored)
-            print(f"[resume] restored step {trainer.state['step']}")
+            if pm.is_main_process():
+                print(f"[resume] restored step {trainer.state['step']}")
 
     data_path = raw.get("data_path")
     switch_path = raw.get("switch_prompt_path")
@@ -231,10 +252,13 @@ def main(argv=None):
             ds = TwoTextDataset(data_path, switch_path)
         else:
             ds = TextDataset(data_path)
-        lstate = None if args.no_auto_resume else train_state.load_loader_state(args.logdir)
-        loader = ShardedCheckpointableLoader(ds, 0, 1, seed=int(raw.get("seed", 0)),
+        # rows over dp: the ranks of one fsdp group read the same rows; the
+        # position is kept per rank
+        lstate = None if args.no_auto_resume else train_state.load_loader_state(
+            args.logdir, rank=pm.global_rank())
+        loader = ShardedCheckpointableLoader(ds, dp_rank, dp, seed=int(raw.get("seed", 0)),
                                              state=lstate)
-        if lstate is not None:
+        if lstate is not None and pm.is_main_process():
             print(f"[resume] loader at epoch {loader.epoch} index {loader.index}")
         prompt_iter = loader
     else:
@@ -252,19 +276,24 @@ def main(argv=None):
     vis_lengths = list(raw.get("vis_video_lengths", [21]) or [21])
 
     def visualize(step: int):
-        """The EMA generator through the inference pipeline and the VAE."""
+        """The EMA generator through the inference pipeline and the VAE (on
+        rank 0, the trees gathered from every rank's shards)."""
         from .pipeline import CausalInferencePipeline
         from .utils.video_io import to_video_array, write_video
 
         cdt = torch.bfloat16 if device.type == "cuda" else torch.float32
-        ema = trainer.state["ema_params"]
+        src = trainer.state if mesh is None else trainer.state_dict()
+        row = next(prompt_iter)  # on every rank: the loaders stay in step
+        if not pm.is_main_process():
+            return
+        ema = src["ema_params"]
         if trainer.use_lora:  # the EMA tracks the adapters: merge them into the base
-            ema = lora_mod.merge_lora(trainer.state["gen_params"],
+            ema = lora_mod.merge_lora(src["gen_params"],
                                       map_tree(lambda t: t.to(device), ema), trainer.lora_scale)
         ema = map_tree(lambda t: t.detach().to(device, cdt), ema)
         pipe = CausalInferencePipeline(pconfig, ema, geometry=geom, dit_config=dit_cfg,
                                        device=device)
-        cross = pipe.prepare_condition(encode(next(prompt_iter)["prompts"]).to(cdt))
+        cross = pipe.prepare_condition(encode(row["prompts"]).to(cdt))
         for length in vis_lengths:
             g = torch.Generator().manual_seed(step)
             nz = torch.randn((1, length, geom.channels, geom.height, geom.width), generator=g)
@@ -277,8 +306,13 @@ def main(argv=None):
     logger = MetricsLogger(
         logdir=args.logdir,
         wandb_config=(dict(project=wandb_project, entity=raw.get("wandb_entity"))
-                      if wandb_project not in (None, "YOUR_WANDB_PROJECT") else None))
+                      if wandb_project not in (None, "YOUR_WANDB_PROJECT") else None),
+        is_main_process=pm.is_main_process())
+    # the global batch, split over dp
     batch = int(raw.get("image_or_video_shape", [1])[0])
+    if batch % dp:
+        sys.exit(f"error: the global batch {batch} does not divide over dp {dp}")
+    batch //= dp
 
     def new_sequence():
         row = next(prompt_iter)
@@ -298,13 +332,15 @@ def main(argv=None):
             row = next(prompt_iter)
             cc, cu = encode(row["prompts"]), neg_embed
             # the step's noise, from a stream of its own (the trainer's
-            # draws take (seed << 32) + step)
-            g = torch.Generator().manual_seed((tcfg.seed << 32) + (1 << 31) + step)
+            # draws take (seed << 32) + step), this dp rank's folded in: the
+            # ranks of one fsdp group draw the same rows
+            g = torch.Generator().manual_seed((tcfg.seed << 32) + (1 << 31) + step
+                                              + (dp_rank << 48))
             noise = torch.randn((batch, tcfg.num_training_frames, geom.channels, geom.height,
                                  geom.width), generator=g)
             metrics = trainer.train_step(noise, cc.expand(batch, -1, -1),
                                          cu.expand(batch, -1, -1))
-        if step % log_iters == 0 or step < 3:
+        if (step % log_iters == 0 or step < 3) and pm.is_main_process():
             metrics["wall_s"] = round(time.time() - t0, 1)
             print(metrics, flush=True)
         logger.log(metrics, step=step)
@@ -312,7 +348,8 @@ def main(argv=None):
             trainer.finish_pending()
             train_state.save_train_state(args.logdir, step, trainer.state_dict(), max_ckpts)
             if loader is not None:
-                train_state.save_loader_state(args.logdir, step, loader.state())
+                train_state.save_loader_state(args.logdir, step, loader.state(),
+                                              rank=pm.global_rank())
         if vis_interval and step > 0 and step % vis_interval == 0:
             try:
                 visualize(step)
@@ -325,7 +362,8 @@ def main(argv=None):
     if not args.no_save:
         train_state.save_train_state(args.logdir, final, trainer.state_dict(), max_ckpts)
         if loader is not None:
-            train_state.save_loader_state(args.logdir, final, loader.state())
+            train_state.save_loader_state(args.logdir, final, loader.state(),
+                                          rank=pm.global_rank())
     return trainer
 
 

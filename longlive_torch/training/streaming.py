@@ -29,6 +29,11 @@ The replay takes the chunk's cotangent without its overlap frames.
 Random draws come in explicitly (``ChunkDraws``), asked for in the order
 the state decides their shapes; by default from a CPU ``torch.Generator``
 seeded by (seed, step), so a step's draws do not depend on the device.
+
+On a mesh (the batch trainer's ``mesh``: the prompt rows split over
+``dp``), every rank keeps its own rows' sequence and cache; the chunk
+choices and the exit step are the same on every rank, and each per-sample
+draw is the global batch's, of which a rank takes its rows.
 """
 
 from __future__ import annotations
@@ -189,11 +194,13 @@ class StreamingTrainer(ScoreDistillationTrainer):
         previous frames (``train_first_chunk: false``)."""
         s = self.seq_state
         c, fpb = self.scfg.chunk_size, self.rcfg.frame_block
-        b = s["cache"].k.shape[1]
+        bg = s["cache"].k.shape[1] * self._dp_size()
+        rows = self._rows(bg)
         exit_idx = d.exit_idx(len(self.rcfg.denoise_timesteps), self.rcfg.last_step_only)
-        noise = d.noise((b, c, self.geom.channels, self.geom.height, self.geom.width))
+        noise = d.noise((bg, c, self.geom.channels, self.geom.height, self.geom.width))[rows]
         renoise = d.renoise(c // fpb, exit_idx,
-                            (b, fpb, self.geom.channels, self.geom.height, self.geom.width))
+                            (bg, fpb, self.geom.channels, self.geom.height, self.geom.width)
+                            )[:, :, rows]
         gen = self._gen_full()
         with self._phase("seed_rollout"), torch.no_grad(), self._autocast():
             cross = D.prepare_cross_kv(gen, self.cfg, s["prompt_c"], self._param_dtype())
@@ -205,7 +212,7 @@ class StreamingTrainer(ScoreDistillationTrainer):
     def _gen_chunk(self, prompt, noise, renoise, exit_idx, overlap, prev_overlap, score_t,
                    score_noise):
         s = self.seq_state
-        gen, cur = self._gen_full(), s["current_length"]
+        gen, cur = self._gen_full(trained=True), s["current_length"]
         with self._phase("gen_rollout"), torch.no_grad(), self._autocast():
             # the rollout commits into the cache in place; the replay
             # continues this copy from the chunk's start
@@ -279,24 +286,26 @@ class StreamingTrainer(ScoreDistillationTrainer):
         if switching:
             s["has_switched"] = True
 
-        b = s["cache"].k.shape[1]
+        bg = s["cache"].k.shape[1] * self._dp_size()  # the global batch: its rows here
+        rows = self._rows(bg)
         frame = (self.geom.channels, self.geom.height, self.geom.width)
-        noise = d.noise((b, new_frames) + frame).to(self.device)
-        renoise = d.renoise(new_frames // fpb, exit_idx, (b, fpb) + frame)
+        noise = d.noise((bg, new_frames) + frame)[rows].to(self.device)
+        renoise = d.renoise(new_frames // fpb, exit_idx, (bg, fpb) + frame)[:, :, rows]
         t_from, t_to = ro.denoised_timestep_bounds(self.sched, self.rcfg, exit_idx)
         lo, hi = dmd_mod.score_timestep_range(self.dcfg, t_from, t_to)
-        score_t, score_noise = d.score((b, overlap + new_frames) + frame, lo, hi)
+        score_t, score_noise = d.score((bg, overlap + new_frames) + frame, lo, hi)
+        score_t, score_noise = score_t[rows], score_noise[rows]
         prev_overlap = None if overlap == 0 else prev[:, -overlap:]
         if train_generator:
             loss, aux = self._gen_chunk(prompt, noise, renoise, exit_idx, overlap, prev_overlap,
                                         score_t, score_noise)
-            metrics = {"generator_loss": loss.item()}
+            metrics = {"generator_loss": self._global_mean(loss)}
         else:
             loss, aux = self._critic_chunk(prompt, noise, renoise, exit_idx, prev_overlap,
                                            score_t, score_noise)
-            metrics = {"critic_loss": loss.item()}
+            metrics = {"critic_loss": self._global_mean(loss)}
         s["current_length"] = cur + new_frames
-        metrics.update({k: float(v) for k, v in aux.items()})
+        metrics.update({k: self._global_mean(v) for k, v in aux.items()})
         metrics.update({"exit_idx": exit_idx, "new_frames": new_frames, "overlap": overlap,
                         "current_length": s["current_length"], "switched": switching})
         return metrics

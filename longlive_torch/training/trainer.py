@@ -63,6 +63,25 @@ Random draws: ``train_step`` takes a ``StepDraws`` (the tests replay the
 JAX package's draws through it) or, by default, draws one from a
 ``torch.Generator`` seeded by (seed, step) on the CPU, so a step's draws do
 not depend on the device.
+
+Several ranks (``mesh``, a ``parallel.mesh.make_mesh`` mesh of ``dp`` x
+``fsdp``): the JAX package lets XLA insert the gathers; here they are
+written out.
+
+- At rest each rank holds its ``fsdp`` shard of the generator, the critic
+  and the teacher (``parallel.mesh``'s rules; a streamed teacher stays
+  whole in host memory), and AdamW's state and the EMA of its trained
+  shards; LoRA adapters match no rule and are replicated;
+- each phase gathers the whole tree it runs (``_gen_full``,
+  ``_critic_full``, the teacher) and drops it after; the trained leaves of
+  the gathered tree are leaves of their own, and before an update their
+  gradients are reduce-scattered over ``fsdp`` and summed over ``dp``
+  (a replicated leaf's summed over every rank), divided by the world;
+- the batch is split over ``dp``: the ranks of one ``fsdp`` group hold the
+  same rows.  The trainer's own draws are the same on every rank: each
+  rank draws the global batch's numbers and takes its rows;
+- the gradient norm is the global one, the clip applies it to the shards,
+  and the reported losses are the global means, the same on every rank.
 """
 
 from __future__ import annotations
@@ -73,12 +92,14 @@ import threading
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from ..config import CacheConfig, DiTConfig, LatentGeometry
 from ..models import dit as D
 from ..ops import scheduler as S
 from ..ops.quant import _div
 from ..ops.rope import make_rope_tables
+from ..parallel import mesh as pm
 from ..utils import memory as mem
 from ..utils.memory import map_tree, param_leaves
 from ..utils.profiling import PhaseTimer
@@ -176,15 +197,18 @@ def host_adamw_init(trained: List[torch.Tensor]) -> Dict[str, Any]:
 
 def host_adamw_step(st: Dict[str, Any], grads: List[torch.Tensor], *, lr: float, b1: float,
                     b2: float, eps: float = 1e-8, weight_decay: float = 0.0,
-                    clip: float = 0.0) -> float:
+                    clip: float = 0.0, norm: Optional[float] = None) -> float:
     """One AdamW update of the host state ``st`` in place from host
     gradients, after a clip of their global norm to ``clip`` (0: none);
-    returns the norm (before the clip).  The JAX package's numpy update, op
-    for op, in in-place float32 torch ops on the host (which spread over
-    its cores): the norm in float64, eps outside the square root, the
-    decay decoupled, the bias corrections in Python floats."""
+    returns the norm (before the clip).  ``norm``: the norm to clip by,
+    given (the shards' global norm over the ranks), else computed here.
+    The JAX package's numpy update, op for op, in in-place float32 torch
+    ops on the host (which spread over its cores): the norm in float64,
+    eps outside the square root, the decay decoupled, the bias corrections
+    in Python floats."""
     g32 = [g.float() for g in grads]
-    gn = float(sum(float(g.double().square().sum()) for g in g32) ** 0.5)
+    gn = norm if norm is not None else float(
+        sum(float(g.double().square().sum()) for g in g32) ** 0.5)
     scale = 1.0 if (clip <= 0.0 or gn <= clip) else clip / gn
     st["t"] += 1
     t = st["t"]
@@ -263,7 +287,7 @@ class _AsyncHostUpdate:
 class ScoreDistillationTrainer:
     def __init__(self, tcfg: TrainerConfig, dit_cfg: DiTConfig, geometry: LatentGeometry,
                  gen_params: dict, critic_params: dict, teacher_params: dict,
-                 teacher_cfg: Optional[DiTConfig] = None, device=None):
+                 teacher_cfg: Optional[DiTConfig] = None, device=None, mesh=None):
         if tcfg.attn_impl != "train_auto":
             raise ValueError(f"attn_impl {tcfg.attn_impl!r}: the port's training attention is "
                              "the train_auto route only")
@@ -325,6 +349,20 @@ class ScoreDistillationTrainer:
             gen_lora = lora_mod.init_lora(gen_params, tcfg.lora_rank, ldt, g)
             if self.critic_lora_on:
                 critic_lora = lora_mod.init_lora(critic_params, tcfg.lora_rank, ldt, g)
+        # several ranks: each keeps its fsdp shards (the module docstring)
+        self.mesh = mesh
+        # each tree's leaves' fsdp dims (None: replicated), param_leaves order
+        fsdp = pm.axis_size(mesh, "fsdp")
+        self._specs = {"gen": pm.leaf_specs(gen_params, fsdp),
+                       "critic": pm.leaf_specs(critic_params, fsdp)}
+        if mesh is not None:
+            if pm.axis_size(mesh, "sp") != 1:
+                raise ValueError("training shards over dp and fsdp; sp is a serving axis")
+            gen_params = pm.shard_params(gen_params, mesh)
+            critic_params = pm.shard_params(critic_params, mesh)
+            if not tcfg.teacher_stream:
+                self._specs["teacher"] = pm.leaf_specs(teacher_params, fsdp)
+                teacher_params = pm.shard_params(teacher_params, mesh)
         gen_trained = gen_lora if self.use_lora else gen_params
         critic_trained = critic_lora if self.critic_lora_on else critic_params
         for t in param_leaves(teacher_params) + param_leaves(gen_params) + param_leaves(
@@ -332,6 +370,13 @@ class ScoreDistillationTrainer:
             t.requires_grad_(False)
         self.gen_leaves = [t.requires_grad_(True) for t in param_leaves(gen_trained)]
         self.critic_leaves = [t.requires_grad_(True) for t in param_leaves(critic_trained)]
+        # the trained leaves' fsdp dims (adapters are replicated), and the
+        # leaves of the last gathered tree whose gradients an update reduces
+        self._trained_specs = {
+            "gen": [None] * len(self.gen_leaves) if self.use_lora else self._specs["gen"],
+            "critic": ([None] * len(self.critic_leaves) if self.critic_lora_on
+                       else self._specs["critic"])}
+        self._gathered: Dict[str, List[torch.Tensor]] = {}
         if tcfg.opt_on_host:
             gen_opt, critic_opt = (host_adamw_init(self.gen_leaves),
                                    host_adamw_init(self.critic_leaves))
@@ -411,23 +456,125 @@ class ScoreDistillationTrainer:
     def _param_dtype(self) -> torch.dtype:
         return self.state["gen_params"]["patch_embedding"]["weight"].dtype
 
-    def _gen_full(self) -> dict:
-        """The generator as it runs: its adapters attached under LoRA."""
-        if self.use_lora:
-            return lora_mod.attach_lora(self.state["gen_params"], self.state["gen_lora"],
-                                        self.lora_scale)
-        return self.state["gen_params"]
+    # -- several ranks ---------------------------------------------------------
 
-    def _critic_full(self) -> dict:
-        """The critic as it runs, on the card: its adapters attached under
-        LoRA, over its base fetched from the host under ``staged_phases``
-        (the copy lives as long as the returned tree)."""
+    def _gather(self, key: str, tree: dict, trained: bool = False) -> dict:
+        """The whole tree from this rank's shards (itself without a mesh).
+        ``trained``: the tree's leaves are model ``key``'s trained leaves,
+        and its update follows; the gathered ones require grad and are kept
+        until ``_reduce_grads`` drops them."""
+        if self.mesh is None:
+            return tree
+        full = pm.gather_params(tree, self._specs[key], self.mesh)
+        if trained:
+            leaves = param_leaves(full)
+            for t in leaves:
+                t.requires_grad_(True)
+            self._gathered[key] = leaves
+        return full
+
+    def _reduce_grads(self, which: str) -> None:
+        """The gradients of the last gathered tree's trained leaves, as this
+        rank's shards' ``.grad``: reduce-scattered over ``fsdp``, summed over
+        ``dp`` (a replicated leaf's over every rank), divided by the world
+        (the ranks of an ``fsdp`` group hold the same rows, so this is the
+        mean over the dp groups: the gradient of the global mean loss)."""
+        leaves = self.gen_leaves if which == "gen" else self.critic_leaves
+        full = self._gathered.pop(which, leaves)
+        world = pm.world_size()
+        for shard, f, dim in zip(leaves, full, self._trained_specs[which]):
+            g = torch.zeros_like(f) if f.grad is None else f.grad
+            if dim is None:
+                g = g.clone()
+                dist.all_reduce(g)
+            else:
+                g = pm.reduce_scatter_dim(g, dim, pm.axis_group(self.mesh, "fsdp"))
+                dist.all_reduce(g, group=pm.axis_group(self.mesh, "dp"))
+            f.grad = None
+            shard.grad = g.div_(world)
+
+    def _grad_norm(self, which: str, grads: List[torch.Tensor]) -> float:
+        """The global norm of the trained shards' gradients ``grads``: the
+        sharded leaves' squares summed over ``fsdp``, a replicated leaf's
+        counted once."""
+        sq = torch.zeros(2, dtype=torch.float64, device=self.device)
+        for g, dim in zip(grads, self._trained_specs[which]):
+            sq[int(dim is None)] += g.double().square().sum()
+        sharded = sq[:1].clone()
+        dist.all_reduce(sharded, group=pm.axis_group(self.mesh, "fsdp"))
+        return float((sharded[0] + sq[1]).sqrt())
+
+    def _clip(self, which: str, leaves: List[torch.Tensor]) -> float:
+        """Clip of the leaves' gradients to ``grad_clip_norm`` by their
+        global norm (``clip_grad_norm_``'s rule); returns the norm."""
+        if self.mesh is None:
+            return float(torch.nn.utils.clip_grad_norm_(leaves, self.tcfg.grad_clip_norm))
+        norm = self._grad_norm(which, [p.grad for p in leaves])
+        coef = min(1.0, self.tcfg.grad_clip_norm / (norm + 1e-6))
+        if coef < 1.0:
+            for p in leaves:
+                p.grad.mul_(coef)
+        return norm
+
+    def _global_mean(self, x) -> float:
+        """A loss or metric averaged over the ranks (the mean over the
+        global batch: the ranks' batches are the same size)."""
+        if self.mesh is None:
+            return x.item() if isinstance(x, torch.Tensor) else float(x)
+        t = torch.as_tensor(x, dtype=torch.float64, device=self.device).detach().clone()
+        dist.all_reduce(t)
+        return float(t) / pm.world_size()
+
+    def _dp_size(self) -> int:
+        return pm.axis_size(self.mesh, "dp")
+
+    def _rows(self, global_batch: int) -> slice:
+        """This rank's rows of a global batch (all of them without a mesh)."""
+        return slice(0, global_batch) if self.mesh is None else pm.batch_rows(
+            self.mesh, global_batch)
+
+    def _local_draws(self, d: PhaseDraws) -> PhaseDraws:
+        """This rank's rows of the global batch's draws."""
+        rows = self._rows(d.score_t.shape[0])
+        return dataclasses.replace(d, renoise=d.renoise[:, :, rows], score_t=d.score_t[rows],
+                                   score_noise=d.score_noise[rows])
+
+    def _full_tensor(self, t: torch.Tensor, dim: Optional[int]) -> torch.Tensor:
+        """A shard of a trained leaf's kind gathered whole (over the card's
+        collectives for a host tensor, then back to the host)."""
+        if dim is None:
+            return t
+        on = t.device
+        return pm.all_gather_dim(t.detach().to(self.device), dim,
+                                 pm.axis_group(self.mesh, "fsdp")).to(on)
+
+    def _shard_tensor(self, t: torch.Tensor, dim: Optional[int]) -> torch.Tensor:
+        if dim is None:
+            return t
+        return t.chunk(pm.axis_size(self.mesh, "fsdp"), dim)[
+            pm.axis_rank(self.mesh, "fsdp")].contiguous()
+
+    def _gen_full(self, trained: bool = False) -> dict:
+        """The generator as it runs: gathered from the ranks' shards, its
+        adapters attached under LoRA.  ``trained``: the generator's update
+        follows, which reduces the gathered leaves' gradients."""
+        if self.use_lora:
+            return lora_mod.attach_lora(self._gather("gen", self.state["gen_params"]),
+                                        self.state["gen_lora"], self.lora_scale)
+        return self._gather("gen", self.state["gen_params"], trained)
+
+    def _critic_full(self, trained: bool = False) -> dict:
+        """The critic as it runs, on the card: gathered from the ranks'
+        shards, its adapters attached under LoRA, over its base fetched
+        from the host under ``staged_phases`` (the copy lives as long as the
+        returned tree).  ``trained`` as ``_gen_full``'s."""
         if not self.critic_lora_on:
-            return self.state["critic_params"]
+            return self._gather("critic", self.state["critic_params"], trained)
         base = self.state["critic_params"]
         if self.tcfg.staged_phases:
             base = mem.fetch_from_host(base, self.device)
-        return lora_mod.attach_lora(base, self.state["critic_lora"], self.lora_scale)
+        return lora_mod.attach_lora(self._gather("critic", base), self.state["critic_lora"],
+                                    self.lora_scale)
 
     def _rollout(self, gen: dict, noise, cross, renoise: torch.Tensor, exit_idx: int,
                  cotangent=None, cache=None, start: int = 0):
@@ -454,6 +601,8 @@ class ScoreDistillationTrainer:
         / (n + 1)); the k-th clips and applies the mean and starts over."""
         tc = self.tcfg
         leaves = self.gen_leaves if which == "gen" else self.critic_leaves
+        if self.mesh is not None:
+            self._reduce_grads(which)
         for p in leaves:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
@@ -463,6 +612,8 @@ class ScoreDistillationTrainer:
             kwargs = dict(lr=tc.lr if gen else tc.lr_critic, b1=tc.beta1 if gen else tc.beta1_critic,
                           b2=tc.beta2 if gen else tc.beta2_critic,
                           weight_decay=tc.weight_decay, clip=tc.grad_clip_norm)
+            if self.mesh is not None:
+                kwargs["norm"] = self._grad_norm(which, [p.grad for p in leaves])
             if tc.opt_async and not gen:
                 if self._pending is not None:
                     raise RuntimeError("one background critic update at a time")
@@ -475,12 +626,13 @@ class ScoreDistillationTrainer:
             return norm
         k = tc.gradient_accumulation_steps
         if k == 1:
-            norm = torch.nn.utils.clip_grad_norm_(leaves, tc.grad_clip_norm)
+            norm = self._clip(which, leaves)
             opt.step()
             opt.zero_grad(set_to_none=True)
-            return float(norm)
-        norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(p.grad)
-                                                     for p in leaves]))
+            return norm
+        norm = (torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(p.grad)
+                                                      for p in leaves]))
+                if self.mesh is None else self._grad_norm(which, [p.grad for p in leaves]))
         acc = self._accum.setdefault(which, [[torch.zeros_like(p) for p in leaves], 0])
         for a, p in zip(acc[0], leaves):
             a.add_(_div(p.grad - a, acc[1] + 1))
@@ -488,7 +640,7 @@ class ScoreDistillationTrainer:
         if acc[1] == k:
             for a, p in zip(acc[0], leaves):
                 p.grad = a  # the clip scales it in place; zeroed below
-            torch.nn.utils.clip_grad_norm_(leaves, tc.grad_clip_norm)
+            self._clip(which, leaves)
             opt.step()
             for a in acc[0]:
                 a.zero_()
@@ -559,7 +711,8 @@ class ScoreDistillationTrainer:
 
     def sample_draws(self, noise_shape, step: int) -> StepDraws:
         """The draws of micro-step ``step``, from a CPU generator seeded by
-        (seed, step)."""
+        (seed, step), for a batch of ``noise_shape`` (with a mesh, the
+        global batch's: every rank draws them)."""
         g = torch.Generator().manual_seed((self.tcfg.seed << 32) + step)
         gen = self._phase_draws(g, noise_shape) if self.trains_generator(step) else None
         return StepDraws(generator=gen, critic=self._phase_draws(g, noise_shape))
@@ -617,6 +770,8 @@ class ScoreDistillationTrainer:
             elif tc.staged_phases:
                 with self._phase("teacher_fetch"):
                     teacher = mem.fetch_from_host(teacher, self.device)
+            if not tc.teacher_stream:
+                teacher = self._gather("teacher", teacher)
             self._join_pending()
             with self._phase("dmd_loss_grad"), self._autocast():
                 if real_x0 is None:
@@ -646,7 +801,7 @@ class ScoreDistillationTrainer:
             torch.autograd.backward([cross.k, cross.v], [leaf.k.grad, leaf.v.grad])
 
     def _gen_step(self, noise, prompt_c, prompt_u, d: PhaseDraws):
-        gen, dtype = self._gen_full(), self._param_dtype()
+        gen, dtype = self._gen_full(trained=True), self._param_dtype()
         fpb = self.rcfg.frame_block
         use_mask = d.num_blocks != self._block_range(noise.shape[1])[0]
         noise = noise[:, :d.num_blocks * fpb]
@@ -669,7 +824,7 @@ class ScoreDistillationTrainer:
 
     def _critic_loss_backward(self, latents, prompt_c, score_t, score_noise):
         loss, aux = dmd_mod.critic_denoising_loss(
-            self._critic_full(), latents, self.cfg, self.tables, self.sched, self.dcfg,
+            self._critic_full(trained=True), latents, self.cfg, self.tables, self.sched, self.dcfg,
             prompt_c, score_t, score_noise)
         loss.backward()
         return loss, aux
@@ -701,26 +856,31 @@ class ScoreDistillationTrainer:
         opt_step = self._opt_step(step)
         train_generator = self.trains_generator(step)
         if draws is None:
-            draws = self.sample_draws(noise.shape, step)
+            dp = self._dp_size()
+            draws = self.sample_draws((noise.shape[0] * dp,) + tuple(noise.shape[1:]), step)
         if train_generator != (draws.generator is not None):
             raise ValueError(f"step {step} {'trains' if train_generator else 'skips'} the "
                              "generator; the draws say otherwise")
         noise, prompt_c, prompt_u = (x.to(self.device, torch.float32)
                                      for x in (noise, prompt_c, prompt_u))
+        if self.mesh is not None:
+            draws = StepDraws(generator=None if draws.generator is None
+                              else self._local_draws(draws.generator),
+                              critic=self._local_draws(draws.critic))
         self._clear_phases()
         metrics: Dict[str, Any] = {"step": step, "opt_step": opt_step}
         fpb = self.rcfg.frame_block
         if train_generator:
             d = draws.generator
             loss, aux = self._gen_step(noise, prompt_c, prompt_u, d)
-            metrics.update({"generator_loss": loss.item(), "exit_idx": d.exit_idx,
+            metrics.update({"generator_loss": self._global_mean(loss), "exit_idx": d.exit_idx,
                             "rollout_frames": d.num_blocks * fpb,
-                            **{k: float(v) for k, v in aux.items()}})
+                            **{k: self._global_mean(v) for k, v in aux.items()}})
             self._after_generator_update(step)
         d = draws.critic
         loss, aux = self._critic_step(noise, prompt_c, d)
-        metrics.update({"critic_loss": loss.item(), "critic_exit_idx": d.exit_idx,
-                        **{k: float(v) for k, v in aux.items()}})
+        metrics.update({"critic_loss": self._global_mean(loss), "critic_exit_idx": d.exit_idx,
+                        **{k: self._global_mean(v) for k, v in aux.items()}})
         self._close_step(metrics, step)
         return metrics
 
@@ -751,24 +911,58 @@ class ScoreDistillationTrainer:
 
     _TREES = ("gen_params", "critic_params", "gen_lora", "critic_lora")
 
+    def _resharded(self, sd: Dict[str, Any], fn) -> Dict[str, Any]:
+        """``sd`` (a ``state_dict``'s layout) with ``fn(tensor, fsdp dim)``
+        applied to every tensor that a rank holds a shard of: the
+        parameters, the EMA, the optimiser's moments and master copies, the
+        accumulated gradients.  The identity without a mesh."""
+        if self.mesh is None:
+            return sd
+
+        def tree(t, specs):
+            it = iter(specs)
+            return map_tree(lambda x: fn(x, next(it)), t)
+
+        def opt(st, which):
+            specs = self._trained_specs[which]
+            if self.tcfg.opt_on_host:
+                return {**st, **{n: [fn(x, d) for x, d in zip(st[n], specs)]
+                                 for n in ("m", "v", "master")}}
+            return {**st, "state": {i: {k: fn(v, specs[i]) if k in ("exp_avg", "exp_avg_sq")
+                                        else v for k, v in p.items()}
+                                    for i, p in st["state"].items()}}
+
+        return {**sd, "gen_params": tree(sd["gen_params"], self._specs["gen"]),
+                "critic_params": tree(sd["critic_params"], self._specs["critic"]),
+                "ema_params": tree(sd["ema_params"], self._trained_specs["gen"]),
+                "gen_opt": opt(sd["gen_opt"], "gen"),
+                "critic_opt": opt(sd["critic_opt"], "critic"),
+                "accum": {w: [[fn(x, d) for x, d in zip(a[0], self._trained_specs[w])], a[1]]
+                          for w, a in (sd.get("accum") or {}).items()}}
+
     def state_dict(self) -> Dict[str, Any]:
         """What a checkpoint holds: parameters and adapters (None where
         LoRA is off), optimiser states (over the trained trees: torch
         AdamW's, or the host AdamW's tensors), the accumulated gradients
         mid-way through an optimiser step, EMA, step.  A background update
-        lands first."""
+        lands first.  With a mesh every rank calls it and gets the whole
+        trees, gathered from the ranks' shards, so a checkpoint loads on
+        any number of ranks."""
         self._join_pending()
         detach = lambda t: t.detach()  # noqa: E731
         opts = {key: (self.state[key] if self.tcfg.opt_on_host else self.state[key].state_dict())
                 for key in ("gen_opt", "critic_opt")}
-        return {**{key: map_tree(detach, self.state[key]) for key in self._TREES}, **opts,
-                "accum": {w: [list(a[0]), a[1]] for w, a in self._accum.items()},
-                "ema_params": self.state["ema_params"], "step": int(self.state["step"])}
+        sd = {**{key: map_tree(detach, self.state[key]) for key in self._TREES}, **opts,
+              "accum": {w: [list(a[0]), a[1]] for w, a in self._accum.items()},
+              "ema_params": self.state["ema_params"], "step": int(self.state["step"])}
+        return self._resharded(sd, self._full_tensor)
 
     def load_state_dict(self, sd: Dict[str, Any]) -> None:
         """Restores a ``state_dict`` in place (the optimisers keep their
-        parameter references)."""
+        parameter references); with a mesh each rank takes its shards of
+        the whole trees."""
         self._join_pending()
+        sd = self._resharded(sd, self._shard_tensor)
         with torch.no_grad():
             for key in self._TREES:
                 leaves, src = param_leaves(self.state[key]), param_leaves(sd.get(key))

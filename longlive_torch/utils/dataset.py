@@ -1,6 +1,8 @@
 """Prompt datasets: one prompt per line, prompt pairs (switch training),
-prompt lists per line (interactive mode), per-host sharding, and the
-checkpointable training loader."""
+prompt lists per line (interactive mode), sharding over ranks (``shard``,
+``epoch_shard``: the serving CLIs pass their sp group's index and the
+number of groups, training its dp index and dp), and the checkpointable
+training loader."""
 
 from __future__ import annotations
 

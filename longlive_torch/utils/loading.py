@@ -24,12 +24,15 @@ from ..models import clip as C
 from ..models import dit as D
 from ..models import t5 as T5
 from ..models import vae as V
+from ..parallel.mesh import is_main_process
 from . import checkpoint as ckpt
 from . import memory as mem
 
 
 def _warn(msg: str):
-    print(f"[longlive_torch] WARNING: {msg}", file=sys.stderr)
+    """A loading warning, on rank 0 alone (every rank loads the same files)."""
+    if is_main_process():
+        print(f"[longlive_torch] WARNING: {msg}", file=sys.stderr)
 
 
 def _torch_load(path: str):

@@ -8,6 +8,12 @@ saved, so a resumed run starts a new sequence) and
 the loader's position ``loader_state_p{rank}.json``.  Only the newest
 ``max_checkpoints`` are kept.  Restoring reads tensors only
 (``weights_only=True``).
+
+Several ranks: the trainer's ``state_dict()`` holds the whole trees on
+every rank (gathered from the shards), rank 0 alone writes them and prunes
+the old checkpoints, and every rank waits for it at a barrier, so a
+checkpoint written by N ranks loads on any number.  The loader's position
+stays per rank.
 """
 
 from __future__ import annotations
@@ -19,6 +25,8 @@ import shutil
 from typing import Any, List, Optional
 
 import torch
+
+from ..parallel.mesh import barrier, is_main_process
 
 _STEP_RE = re.compile(r"checkpoint_model_(\d+)$")
 _STATE = "train_state.pt"
@@ -48,15 +56,18 @@ def latest_checkpoint_step(logdir: str) -> Optional[int]:
 def save_train_state(logdir: str, step: int, state: dict,
                      max_checkpoints: Optional[int] = None) -> str:
     """Writes ``state`` (a trainer's ``state_dict()``) for ``step``; the
-    file appears whole or not at all.  Returns the checkpoint directory."""
+    file appears whole or not at all.  Returns the checkpoint directory.
+    Every rank calls it; rank 0 writes and prunes, the others wait."""
     path = _ckpt_dir(logdir, step)
-    os.makedirs(path, exist_ok=True)
-    tmp = os.path.join(path, f"{_STATE}.tmp{os.getpid()}")
-    torch.save(state, tmp)
-    os.replace(tmp, os.path.join(path, _STATE))
-    if max_checkpoints:
-        for s in list_checkpoint_steps(logdir)[:-max_checkpoints]:
-            shutil.rmtree(_ckpt_dir(logdir, s), ignore_errors=True)
+    if is_main_process():
+        os.makedirs(path, exist_ok=True)
+        tmp = os.path.join(path, f"{_STATE}.tmp{os.getpid()}")
+        torch.save(state, tmp)
+        os.replace(tmp, os.path.join(path, _STATE))
+        if max_checkpoints:
+            for s in list_checkpoint_steps(logdir)[:-max_checkpoints]:
+                shutil.rmtree(_ckpt_dir(logdir, s), ignore_errors=True)
+    barrier()
     return path
 
 

@@ -36,6 +36,13 @@ def test_the_scan_covers_the_host_memory_module():
     assert ROOT / "longlive_torch" / "utils" / "memory.py" in _port_files()
 
 
+def test_the_scan_covers_the_parallel_modules():
+    """The multi-device modules (``parallel/``: the mesh and its rules, the
+    two sequence-parallel forwards) are among the files checked below."""
+    for name in ("__init__", "mesh", "sequence", "decode_sp"):
+        assert ROOT / "longlive_torch" / "parallel" / f"{name}.py" in _port_files()
+
+
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_imports(path):
     assert path.exists(), path
@@ -69,3 +76,13 @@ def test_cli_exits_cleanly_without_cuda(tmp_path):
     with pytest.raises(SystemExit) as ei:
         run_inference.main(["--config_path", cfg, "--device", "cuda"])
     assert "CUDA is not available" in str(ei.value)
+
+
+def test_init_distributed_cuda_without_cuda_raises():
+    """Under torchrun a rank's card is cuda:$LOCAL_RANK; without CUDA the
+    request fails, with no CPU or gloo fallback."""
+    _skip_if_cuda()
+    from longlive_torch.parallel.mesh import init_distributed
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_distributed("cuda")

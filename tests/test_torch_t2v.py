@@ -138,7 +138,7 @@ def test_guide_scale_one_ignores_negative_prompt(model):
 
 def test_text2video_pipeline_draws_its_noise_and_refuses_unported_options(model):
     """The pipeline's own draw is seeded; without noise or a generator it
-    refuses; ``mesh`` is not ported.  ``offload_blocks`` (the blocks in
+    refuses; ``mesh`` (sequence parallelism) refuses ``offload_blocks``.  ``offload_blocks`` (the blocks in
     host memory, streamed per layer) gives the resident latents bit for
     bit, and JAX's ``offload_blocks`` sampler's within 1e-4."""
     jcfg, tcfg, tree, cond, null = model
@@ -153,8 +153,9 @@ def test_text2video_pipeline_draws_its_noise_and_refuses_unported_options(model)
     assert a.dtype == torch.bfloat16 and tuple(a.shape) == shape and torch.equal(a, b)
     with pytest.raises(ValueError):
         pipe.generate_latents(torch.from_numpy(cond), torch.from_numpy(null), sampling_steps=2)
-    with pytest.raises(NotImplementedError):
-        Text2VideoPipeline(dit_params_from_jax(tree), tcfg, device="cpu", mesh=object())
+    with pytest.raises(ValueError, match="offload_blocks"):  # sp does not stream layers
+        Text2VideoPipeline(dit_params_from_jax(tree), tcfg, device="cpu", mesh=object(),
+                           offload_blocks=True)
     noise = np.random.default_rng(6).standard_normal(shape).astype(np.float32)
     run = dict(sampling_steps=3, guide_scale=4.0, dtype=torch.float32)
     resident = pipe.generate_latents(torch.from_numpy(cond), torch.from_numpy(null),
@@ -186,7 +187,7 @@ def test_run_t2v_tiny_text_to_video(tmp_path):
                             str(tmp_path / "offload.mp4"), "--device", "cpu",
                             "--offload_blocks"])
     assert torch.equal(offload["latents"], rec["latents"])
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(SystemExit, match="torchrun"):  # --sp 2 in a run of one rank
         run_t2v.main(["--prompt", "x", "--tiny_debug", "--device", "cpu", "--sp", "2"])
     with pytest.raises(NotImplementedError):  # image-to-video streams no blocks, as in JAX
         run_t2v.generate(run_t2v.parse_args(["--prompt", "x", "--tiny_debug", "--device", "cpu",

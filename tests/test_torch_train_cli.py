@@ -199,9 +199,11 @@ def test_larger_teacher_needs_teacher_stream(monkeypatch, tmp_path):
 
 
 def test_more_than_one_process_raises(tmp_path, monkeypatch):
-    monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        run_train.main(["--config_path", _write(tmp_path, TINY), "--device", "cpu"])
+    """A ``parallel:`` layout of more ranks than the run has (one, without
+    torchrun) exits naming torchrun before any model is built."""
+    cfg = _write(tmp_path, dict(TINY, parallel={"dp": 2, "fsdp": 1}))
+    with pytest.raises(SystemExit, match="torchrun --nproc_per_node 2"):
+        run_train.main(["--config_path", cfg, "--device", "cpu"])
 
 
 def test_score_models_are_fresh_and_strict(monkeypatch, tmp_path):

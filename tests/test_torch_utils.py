@@ -81,11 +81,11 @@ def test_loading_raises_for_present_artifacts(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("flags", [["--sp", "2"], ["--decode_device", "0", "--segment_frames", "4"]])
 def test_cli_rejects_unported_flags(flags):
-    """``--sp`` is not ported; ``--decode_device`` is, and a segment that is
-    no multiple of the config's 3-frame block is refused before any
-    parameter is built."""
+    """``--sp 2`` in a run of one rank (no torchrun) exits naming torchrun;
+    a ``--decode_device`` segment that is no multiple of the config's
+    3-frame block is refused; both before any parameter is built."""
     cfg = os.path.join(ROOT, "configs", "longlive_inference.yaml")
-    error, match = ((NotImplementedError, "item 8") if flags[0] == "--sp"
+    error, match = ((SystemExit, "torchrun") if flags[0] == "--sp"
                     else (ValueError, "frame block 3"))
     with pytest.raises(error, match=match):
         run_inference.main(["--config_path", cfg, "--device", "cpu"] + flags)
